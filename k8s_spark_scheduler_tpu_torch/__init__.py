@@ -1,0 +1,15 @@
+"""PyTorch + CUDA port of the tpu-gang-scheduler packing core.
+
+Mirrors the module layout of ``k8s_spark_scheduler_tpu`` (the JAX
+reference) for the FIFO gang solve under the tightly-pack and
+distribute-evenly policies: exact Fraction quantities, the numpy
+tensorizer, the gang-solve programs in PyTorch, and the whole-queue
+solve as a hand-written CUDA kernel (``ops/csrc/queue_kernel.cu``).
+
+The package imports torch and numpy, never jax and nothing of the JAX
+package.  Entry points run on the CUDA device unless the caller passes
+``device="cpu"``, where every kernel is replaced by its plain PyTorch
+version.
+"""
+
+__version__ = "0.1.0"
