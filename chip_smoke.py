@@ -5,21 +5,26 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device: the card's name, CUDA version, name and power limit;
-2. build: the queue kernel from ``ops/csrc/queue_kernel.cu`` (nvcc, sm_90a);
-3. kernel vs plain: the CUDA queue kernel against its plain PyTorch
-   version on the card, on randomized queues (ragged N, k = 0,
-   zero-resource executors, negative availability, invalid apps, a
-   problem too large for shared memory) and at 10,240 nodes × 1,024 apps,
-   tightly-pack and distribute-evenly; outputs are integers and must be
-   exactly equal;
-4. main path: ``TpuFifoSolver(device="cuda").solve`` Filter decisions on a
-   10,000-node cluster with a 1,000-deep pending queue, tightly-pack and
-   distribute-evenly, equal to the same calls on the CPU; one
-   ``select_binpacker("tpu-batch").binpack_func`` call; a small snapshot
-   checked against the host oracles' sequential FIFO loop; the kernels'
-   launch counts over the main path; the queue pass's time, bound and
-   serial floor; a breakdown of a decision and the device's busy time in a
-   profiler trace of one decision;
+2. build: the three kernels from ``ops/csrc/`` (queue_kernel.cu,
+   minfrag_kernel.cu, single_az_kernel.cu; one nvcc each, all started
+   together, sm_90a), with ptxas's registers and spills;
+3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
+   the card, on randomized queues (ragged N, k = 0, zero-resource
+   executors, negative availability, invalid apps, zone id -1, a problem
+   too large for shared memory, more than 127 zones) and at 10,240 nodes ×
+   1,024 apps (3 zones for the single-AZ kernel), every variant; outputs
+   are integers and must be exactly equal;
+4. main path: Filter decisions on a 10,000-node cluster in 3 zones with a
+   1,000-deep pending queue, on the card and equal to the same calls on
+   the CPU: ``TpuFifoSolver`` tightly-pack, distribute-evenly and
+   minimal-fragmentation, ``TpuSingleAzFifoSolver`` single-AZ tightly-pack,
+   az-aware and single-AZ minimal-fragmentation; one ``binpack_func`` call
+   of every ``tpu-batch*`` binpacker; small snapshots checked against the
+   host oracles' sequential FIFO loop for each policy; each policy's
+   kernel launch counts, zeroed just before its decisions and read just
+   after; each kernel's time, bound and serial floor
+   at the main path's inputs; decision breakdowns and the device's busy
+   time in profiler traces of single decisions;
 5. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
@@ -35,6 +40,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,8 +48,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 BIG = 2**31 - 1
-N_NODES, N_APPS = 10_000, 1_000  # the main path's cluster and queue depth
-DECISIONS = 3  # Filter decisions per policy on the main path
+N_NODES, N_APPS, N_ZONES = 10_000, 1_000, 3  # the main path's cluster and queue depth
+DECISIONS = 3  # Filter decisions per tightly-pack / distribute-evenly policy on the main path
+NEW_DECISIONS = 2  # Filter decisions per min-frag / single-AZ policy on the main path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 # int32 ALU rate: 132 SMs x 64 int32 lanes a clock x 1.98 GHz boost
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -56,10 +63,31 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # and the carry update (3 subtracts).
 OPS_PER_NODE_VALID_APP = 3 * 4 + 5 + 4 + 1
 OPS_PER_NODE_FEASIBLE_APP = 3 + 3
+# the min-frag drain per node for each feasible app, instead of the fill,
+# counting only the work its result needs: the unclamped capacity from the
+# gang core's quotients (2 selects) and its maximum (1), the two passes'
+# totals (2 compares, 2 mins, 2 adds), v* of the placing pass by a radix
+# selection (4 rounds of 8 bits, each a digit extract, a prefix compare and
+# a histogram add), the drained sum and class count (4), the final
+# placement's key (6), the counts (4), the carry update (3)
+MF_OPS_PER_NODE_FEASIBLE_APP = 2 + 1 + 6 + 4 * 3 + 4 + 6 + 4 + 3
 FLOOR_NODES = 1024  # one node a thread: the kernel's serial per-app floor
 
-KERNEL_SOURCE = "k8s_spark_scheduler_tpu_torch/ops/csrc/queue_kernel.cu"
-REPLACES = "k8s_spark_scheduler_tpu/ops/pallas_queue.py:681"
+CSRC = "k8s_spark_scheduler_tpu_torch/ops/csrc/"
+PALLAS = "k8s_spark_scheduler_tpu/ops/pallas_queue.py:"
+SOURCES = {"queue": CSRC + "queue_kernel.cu", "min_frag": CSRC + "minfrag_kernel.cu",
+           "single_az": CSRC + "single_az_kernel.cu"}
+REPLACES = {"queue": PALLAS + "681", "min_frag": PALLAS + "614", "single_az": PALLAS + "525"}
+# (az_aware, minfrag) of each single-AZ kernel variant
+SINGLE_AZ = {"fifo_queue_single_az_tightly": (False, False),
+             "fifo_queue_single_az_az_aware": (True, False),
+             "fifo_queue_single_az_min_frag": (False, True)}
+# the kernel (variant) each main-path policy's queue pass launches
+POLICY_KERNEL = {"tightly-pack": "fifo_queue_tightly", "distribute-evenly": "fifo_queue_evenly",
+                 "minimal-fragmentation": "fifo_queue_min_frag",
+                 "single-az-tightly-pack": "fifo_queue_single_az_tightly",
+                 "az-aware-tightly-pack": "fifo_queue_single_az_az_aware",
+                 "single-az-minimal-fragmentation": "fifo_queue_single_az_min_frag"}
 
 
 def log(msg: str) -> None:
@@ -72,6 +100,10 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(xs) -> str:
+    return f"{statistics.median(xs):.1f} ms (runs {', '.join(f'{x:.1f}' for x in xs)})"
 
 
 # -- phase 3 inputs -----------------------------------------------------------
@@ -94,12 +126,30 @@ def random_queue(rng: np.random.RandomState, n: int, a: int):
     return avail, rank, exec_ok, drivers, executors, counts, valid
 
 
+def random_single_az_queue(rng: np.random.RandomState, n: int, a: int, n_zones: int):
+    """A raw single-AZ queue: random_queue's problem plus zone ids from -1
+    (no zone) to n_zones - 1 and schedulable columns (cpu and gpu in units
+    of 1000 milli, memory in scaled units), some nodes gpu-less.  Returns
+    (twelve arrays, (scale_cpu, scale_gpu, n_zones))."""
+    avail, rank, exec_ok, drivers, executors, counts, valid = random_queue(rng, n, a)
+    zone_id = rng.randint(-1, max(n_zones, 1), size=n).astype(np.int32)
+    sched = np.maximum(avail, 0) + rng.randint(0, 16, size=(n, 3))
+    sched[:, :2] = np.maximum(sched[:, :2], 1)
+    s_cpu = (sched[:, 0] * 1000).astype(np.int32)
+    s_gpu = np.where(rng.rand(n) < 0.5, sched[:, 2] * 1000, 0).astype(np.int32)
+    inv_mem = (1.0 / sched[:, 1].astype(np.float64)).astype(np.float32)
+    th_mem = sched[:, 1].astype(np.int32)
+    arrays = (avail, rank, exec_ok, zone_id, drivers, executors, counts, valid,
+              s_cpu, s_gpu, inv_mem, th_mem)
+    return arrays, (1000, 1000, n_zones)
+
+
 def on(device, arrays):
     return tuple(torch.as_tensor(x, device=device) for x in arrays)
 
 
 def compare(kernel_out, plain_out) -> int:
-    """Max absolute difference over the three outputs (feasibility as 0/1)."""
+    """Max absolute difference over the outputs (booleans as 0/1)."""
     err = 0
     for k, p in zip(kernel_out, plain_out):
         d = (k.to(torch.int64) - p.to(torch.int64)).abs()
@@ -135,7 +185,7 @@ def build_snapshot(seed: int):
         metadata[f"node-{i:05d}"] = metadata_from_plain(
             available=(str(int(rng.randint(4, 96))), f"{int(rng.randint(8, 256))}Gi", 0),
             schedulable=("96", "256Gi", 0),
-            zone_label=f"z{i % 3}",
+            zone_label=f"z{i % N_ZONES}",
         )
     apps = [
         app_from_plain(
@@ -177,6 +227,13 @@ def traced_device_time(fn):
     return busy_us / 1e3, wall_ms
 
 
+def busy_share(fn) -> str:
+    busy_ms, wall_ms = traced_device_time(fn)
+    if busy_ms is None:
+        return "not measured (no device events in the trace)"
+    return f"device busy {busy_ms:.3f} ms of {wall_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.2f} %"
+
+
 def outcome_key(o):
     r = o.result
     return (
@@ -216,21 +273,41 @@ def host_fifo(metadata, driver_order, executor_order, earlier, skip, current, pa
     return (True, True, (r.has_capacity, r.driver_node, tuple(r.executor_nodes)))
 
 
+def fifo_solvers(device: str):
+    """The main path's FIFO solvers by policy name, on `device`."""
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import TpuFifoSolver, TpuSingleAzFifoSolver
+
+    return {
+        "tightly-pack": TpuFifoSolver("tightly-pack", device=device),
+        "distribute-evenly": TpuFifoSolver("distribute-evenly", device=device),
+        "minimal-fragmentation": TpuFifoSolver("minimal-fragmentation", device=device),
+        "single-az-tightly-pack": TpuSingleAzFifoSolver(device=device),
+        "az-aware-tightly-pack": TpuSingleAzFifoSolver(az_aware=True, device=device),
+        "single-az-minimal-fragmentation": TpuSingleAzFifoSolver(
+            inner_policy="minimal-fragmentation", device=device
+        ),
+    }
+
+
 def small_oracle_check(seed: int) -> int:
     """FIFO decisions on the card against the host oracles on small
-    random snapshots; returns the number of decisions checked."""
+    random snapshots, for every policy; returns the number of decisions
+    checked."""
     from k8s_spark_scheduler_tpu_torch.convert import app_from_plain, metadata_from_plain
     from k8s_spark_scheduler_tpu_torch.ops import packers
-    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import TpuFifoSolver
     from k8s_spark_scheduler_tpu_torch.ops.nodesort import NodeSorter
 
+    oracles = {
+        "tightly-pack": packers.tightly_pack,
+        "distribute-evenly": packers.distribute_evenly,
+        "minimal-fragmentation": packers.minimal_fragmentation_pack,
+        "single-az-tightly-pack": packers.single_az_tightly_pack,
+        "az-aware-tightly-pack": packers.az_aware_tightly_pack,
+        "single-az-minimal-fragmentation": packers.single_az_minimal_fragmentation,
+    }
     rng = random.Random(seed)
     checked = 0
-    for policy, packer in (
-        ("tightly-pack", packers.tightly_pack),
-        ("distribute-evenly", packers.distribute_evenly),
-    ):
-        solver = TpuFifoSolver(assignment_policy=policy, device="cuda")
+    for policy, solver in fifo_solvers("cuda").items():
         for _ in range(10):
             metadata = {
                 f"n{i:02d}": metadata_from_plain(
@@ -253,14 +330,24 @@ def small_oracle_check(seed: int) -> int:
             earlier = [app() for _ in range(rng.randint(0, 8))]
             skip = [rng.random() < 0.3 for _ in earlier]
             current = app()
-            want = host_fifo(metadata, driver_order, executor_order, earlier, skip, current, packer)
+            want = host_fifo(metadata, driver_order, executor_order, earlier, skip, current, oracles[policy])
             got = outcome_key(
                 solver.solve(metadata, driver_order, executor_order, earlier, skip, current)
             )
             if got != want:
-                raise SystemExit(f"small-snapshot FIFO decision differs from the host oracle: {got} vs {want}")
+                raise SystemExit(f"small-snapshot {policy} decision differs from the host oracle: {got} vs {want}")
             checked += 1
     return checked
+
+
+def kernel_entry(name, kind, launches, max_err, ms, plain_ms, t_bytes, t_ops):
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[kind], "replaces": REPLACES[kind],
+        "launches": launches, "max_abs_err": max_err,
+        "ms": statistics.median(ms), "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -272,10 +359,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the GPU only", file=sys.stderr)
         return 2
 
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
     from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
-    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import TpuFifoSolver
+    from k8s_spark_scheduler_tpu_torch.ops import single_az_kernel as sk
+    from k8s_spark_scheduler_tpu_torch.ops.batch_adapter import candidate_zone_masks
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import single_az_queue_inputs
     from k8s_spark_scheduler_tpu_torch.ops.nodesort import NodeSorter
-    from k8s_spark_scheduler_tpu_torch.ops.registry import select_binpacker
+    from k8s_spark_scheduler_tpu_torch.ops.registry import TPU_BATCH_NAMES, select_binpacker
     from k8s_spark_scheduler_tpu_torch.ops.tensorize import scale_problem, tensorize_cluster
 
     dev = torch.device("cuda")
@@ -284,86 +374,123 @@ def main() -> int:
     smi = gpu_line()
     log(f"phase device: {name} | torch {torch.__version__} | cuda {torch.version.cuda} | {smi}")
 
-    # ---- phase 2: build
+    # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    qk.load_library()
-    log(f"phase build: queue kernel ready in {time.perf_counter() - t0:.2f} s")
-    for line in qk.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    libraries = {"queue": qk.LIBRARY, "min_frag": mk.LIBRARY, "single_az": sk.LIBRARY}
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for future in [pool.submit(lib.load) for lib in libraries.values()]:
+            future.result()
+    log(f"phase build: {len(libraries)} kernels ready in {time.perf_counter() - t0:.2f} s")
+    for kind, lib in libraries.items():
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {kind}: {line.strip()}")
 
     # ---- phase 3: kernel vs plain on the card
-    max_err = {False: 0, True: 0}
+    max_err = {"fifo_queue_tightly": 0, "fifo_queue_evenly": 0, "fifo_queue_min_frag": 0}
+    max_err.update({kname: 0 for kname in SINGLE_AZ})
+
+    def check(kname, got, want, where):
+        torch.cuda.synchronize()
+        err = compare(got, want)
+        max_err[kname] = max(max_err[kname], err)
+        if err:
+            raise SystemExit(f"{kname} != plain at {where} (max |diff| {err})")
+
     cases = [(2, 5), (31, 17), (100, 40), (129, 64), (300, 100), (1000, 200), (4099, 64),
              (12345, 48), (10240, 1024)]
     for ci, (n, a) in enumerate(cases):
         arrays = on(dev, random_queue(np.random.RandomState(args.seed * 1000 + ci), n, a))
         for evenly in (False, True):
-            got = qk.fifo_queue(*arrays, evenly=evenly)
-            want = qk.solve_queue_plain(*arrays, evenly=evenly)
-            torch.cuda.synchronize()
-            err = compare(got, want)
-            max_err[evenly] = max(max_err[evenly], err)
-            if err:
-                raise SystemExit(f"kernel != plain at N={n} A={a} evenly={evenly} (max |diff| {err})")
-        log(f"phase kernel-vs-plain: N={n} A={a} equal (shared bytes {qk.shared_bytes(n, dev)})")
+            check("fifo_queue_evenly" if evenly else "fifo_queue_tightly",
+                  qk.fifo_queue(*arrays, evenly=evenly), qk.solve_queue_plain(*arrays, evenly=evenly),
+                  f"N={n} A={a}")
+        check("fifo_queue_min_frag", mk.fifo_queue_min_frag(*arrays),
+              mk.solve_queue_min_frag_plain(*arrays), f"N={n} A={a}")
+        log(f"phase kernel-vs-plain: queue and min-frag kernels N={n} A={a} equal "
+            f"(shared bytes {qk.shared_bytes(n, dev)} / {mk.shared_bytes(n, dev)})")
+    # more zones than int8 holds, in shared memory (N=1000) and in global
+    # memory; N=10,800 fits shared memory only with the int32-id layout
+    az_cases = [(2, 5, 1), (31, 17, 0), (129, 64, 2), (1000, 200, 3), (4099, 64, 3),
+                (12345, 48, 3), (1000, 24, 200), (12345, 8, 150), (10800, 8, 3),
+                (10240, 1024, 3)]
+    for ci, (n, a, zones) in enumerate(az_cases):
+        arrays, scalars = random_single_az_queue(np.random.RandomState(args.seed * 1000 + 500 + ci), n, a, zones)
+        arrays = on(dev, arrays)
+        for kname, (az_aware, minfrag) in SINGLE_AZ.items():
+            for strict in ((True, False) if minfrag else (True,)):
+                flags = dict(az_aware=az_aware, minfrag=minfrag, strict=strict)
+                check(kname, sk.fifo_queue_single_az(*arrays, *scalars, **flags),
+                      sk.solve_queue_single_az_plain(*arrays, *scalars, **flags),
+                      f"N={n} A={a} zones={zones} strict={strict}")
+        log(f"phase kernel-vs-plain: single-AZ kernel, {len(SINGLE_AZ)} variants, N={n} A={a} "
+            f"zones={zones} equal (shared bytes {sk.shared_bytes(n, zones, 0, dev)})")
 
     # ---- phase 4: main path at full size
     t0 = time.perf_counter()
     metadata, earlier, skip, currents = build_snapshot(args.seed)
     driver_order, executor_order = NodeSorter().potential_nodes(metadata, list(metadata))
-    log(f"phase main-path: snapshot {len(metadata)} nodes x {len(earlier)} queued apps "
-        f"built in {time.perf_counter() - t0:.2f} s")
+    log(f"phase main-path: snapshot {len(metadata)} nodes in {N_ZONES} zones x {len(earlier)} "
+        f"queued apps built in {time.perf_counter() - t0:.2f} s")
     n_checked = small_oracle_check(args.seed)
     log(f"phase main-path: {n_checked} small-snapshot FIFO decisions equal the host oracles")
 
-    policies = ("tightly-pack", "distribute-evenly")
-    solvers = {p: TpuFifoSolver(assignment_policy=p, device="cuda") for p in policies}
-    cpu_solvers = {p: TpuFifoSolver(assignment_policy=p, device="cpu") for p in policies}
-    qk.reset_launch_counts()
-    solve_ms = {p: [] for p in policies}
-    decisions = {p: [] for p in policies}
-    for p in policies:
-        for current in currents[:DECISIONS]:
+    solvers, cpu_solvers = fifo_solvers("cuda"), fifo_solvers("cpu")
+    n_decisions = {p: DECISIONS if p in ("tightly-pack", "distribute-evenly") else NEW_DECISIONS
+                   for p in solvers}
+    solve_ms = {p: [] for p in solvers}
+    decisions = {p: [] for p in solvers}
+    paths = {p: [] for p in solvers}
+    launches = {}  # kernel -> launches in the run of its policy's path
+    for p, solver in solvers.items():
+        # each policy's path is driven with every count at 0 and read just after
+        for module in (qk, mk, sk):
+            module.reset_launch_counts()
+        for current in currents[: n_decisions[p]]:
             t = time.perf_counter()
-            out = solvers[p].solve(metadata, driver_order, executor_order, earlier, skip, current)
+            out = solver.solve(metadata, driver_order, executor_order, earlier, skip, current)
             torch.cuda.synchronize()
             solve_ms[p].append((time.perf_counter() - t) * 1e3)
             decisions[p].append(outcome_key(out))
-            if solvers[p].last_queue_lane != "cuda":
-                raise SystemExit(f"queue pass ran on lane {solvers[p].last_queue_lane!r}, not cuda")
-    binpacker = select_binpacker("tpu-batch", device="cuda")
+            path = getattr(solver, "last_path", None) or solver.last_queue_lane
+            paths[p].append(path)
+            if path not in ("cuda", "fused", "host"):
+                raise SystemExit(f"{p} queue pass ran on {path!r}, not on the card")
+        counts = {**qk.launch_counts, **mk.launch_counts, **sk.launch_counts}
+        log(f"phase main-path: {p} launches {counts}")
+        kname = POLICY_KERNEL[p]
+        if counts[kname] < 1:
+            raise SystemExit(f"{kname} was not launched on the {p} path")
+        launches[kname] = counts[kname]
     cur = currents[0]
     bp_args = (cur.driver_resources, cur.executor_resources, cur.min_executor_count,
                driver_order, executor_order, metadata)
-    bp = binpacker.binpack_func(*bp_args)
+    bp = {}
+    for bname in TPU_BATCH_NAMES:
+        bp[bname] = select_binpacker(bname, device="cuda").binpack_func(*bp_args)
     torch.cuda.synchronize()
-    launches = dict(qk.launch_counts)
-    log(f"phase main-path: launches {launches}")
-    for kname, count in launches.items():
-        if count < 1:
-            raise SystemExit(f"{kname} was not launched on the main path")
+    for p in solvers:
+        log(f"phase main-path: {p} last path per decision {paths[p]}")
 
     # the same decisions on the CPU (the plain versions)
-    for p in policies:
-        for i, current in enumerate(currents[:DECISIONS]):
-            want = outcome_key(
-                cpu_solvers[p].solve(metadata, driver_order, executor_order, earlier, skip, current)
-            )
+    for p, solver in cpu_solvers.items():
+        for i, current in enumerate(currents[: n_decisions[p]]):
+            want = outcome_key(solver.solve(metadata, driver_order, executor_order, earlier, skip, current))
             if decisions[p][i] != want:
                 raise SystemExit(f"{p} decision {i} on cuda differs from cpu: {decisions[p][i]} vs {want}")
             if not want[1] or not want[2][0]:
                 raise SystemExit(f"{p} decision {i} placed nothing: {want}")
-        log(f"phase main-path: {p} {DECISIONS} decisions equal on cuda and cpu "
+        log(f"phase main-path: {p} {n_decisions[p]} decisions equal on cuda and cpu "
             f"(first driver {decisions[p][0][2][1]}, {len(decisions[p][0][2][2])} executors)")
-    bp_cpu = select_binpacker("tpu-batch", device="cpu").binpack_func(*bp_args)
-    if (bp.has_capacity, bp.driver_node, bp.executor_nodes) != (
-        bp_cpu.has_capacity, bp_cpu.driver_node, bp_cpu.executor_nodes
-    ) or not bp.has_capacity:
-        raise SystemExit("tpu-batch binpack_func on cuda differs from cpu or placed nothing")
-    log(f"phase main-path: tpu-batch binpack_func equal on cuda and cpu (driver {bp.driver_node})")
+    for bname, got in bp.items():
+        want = select_binpacker(bname, device="cpu").binpack_func(*bp_args)
+        if (got.has_capacity, got.driver_node, got.executor_nodes) != (
+            want.has_capacity, want.driver_node, want.executor_nodes
+        ) or not got.has_capacity:
+            raise SystemExit(f"{bname} binpack_func on cuda differs from cpu or placed nothing")
+        log(f"phase main-path: {bname} binpack_func equal on cuda and cpu (driver {got.driver_node})")
 
-    # the queue pass alone, at the main path's shapes and inputs
+    # each kernel alone, at the main path's shapes and inputs
     cluster = tensorize_cluster(metadata, driver_order, executor_order)
     problem = scale_problem(cluster, solvers["tightly-pack"]._tensorize_with_cache(earlier, currents[0]))
     valid = problem.app_valid.copy()
@@ -371,65 +498,103 @@ def main() -> int:
     queue_args = on(dev, (problem.avail, problem.driver_rank, problem.exec_ok, problem.driver,
                           problem.executor, problem.count, valid))
     n_b, a_b = problem.avail.shape[0], problem.driver.shape[0]
+    n_valid = int(valid.sum())
+    queue_bytes = 4 * (3 * n_b + n_b) + n_b + a_b * (4 * 3 * 2 + 4 + 1) + a_b * (1 + 4) + 4 * 3 * n_b
+
+    def timed(kname, kind, fn, plain, floor_fn, ops, n_bytes):
+        ms = [time_cuda(fn, 5) for _ in range(3)]
+        plain_ms = time_cuda(plain, 1)
+        floor_ms = time_cuda(floor_fn, 5)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        log(f"phase main-path: {kname} N={n_b} A={a_b} ({n_valid} valid): "
+            f"{statistics.median(ms):.3f} ms (runs {', '.join(f'{x:.3f}' for x in ms)}), "
+            f"plain {plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
+            f"operations {t_ops:.4f}), serial floor at N={FLOOR_NODES} {floor_ms:.3f} ms | {smi}")
+        return kernel_entry(kname, kind, launches[kname], max_err[kname], ms, plain_ms, t_bytes, t_ops)
+
     kernels = []
+    floor_args = tuple(x[:FLOOR_NODES] for x in queue_args[:3]) + queue_args[3:]
     for evenly, kname in ((False, "fifo_queue_tightly"), (True, "fifo_queue_evenly")):
         got = qk.fifo_queue(*queue_args, evenly=evenly)
-        want = qk.solve_queue_plain(*queue_args, evenly=evenly)
-        err = compare(got, want)
-        if err:
-            raise SystemExit(f"{kname} != plain on the main-path inputs (max |diff| {err})")
-        max_err[evenly] = max(max_err[evenly], err)
-        ms = [time_cuda(lambda: qk.fifo_queue(*queue_args, evenly=evenly), 5) for _ in range(3)]
-        plain_ms = time_cuda(lambda: qk.solve_queue_plain(*queue_args, evenly=evenly), 1)
-        n_valid = int(valid.sum())
+        check(kname, got, qk.solve_queue_plain(*queue_args, evenly=evenly), "the main-path inputs")
         n_feasible = int(got[0].sum())
-        bytes_once = 4 * (3 * n_b + n_b) + n_b + a_b * (4 * 3 * 2 + 4 + 1) + a_b * (1 + 4) + 4 * 3 * n_b
         ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * OPS_PER_NODE_FEASIBLE_APP)
-        t_bytes, t_ops = bytes_once / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-        # the serial floor: the same queue on the first FLOOR_NODES nodes,
-        # one node a thread, so each app costs little more than its three
-        # block reductions in sequence
-        floor_args = tuple(x[:FLOOR_NODES] for x in queue_args[:3]) + queue_args[3:]
-        floor_ms = time_cuda(lambda: qk.fifo_queue(*floor_args, evenly=evenly), 5)
-        floor_feasible = int(qk.fifo_queue(*floor_args, evenly=evenly)[0].sum())
-        kernels.append({
-            "name": kname, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-            "launches": launches[kname], "max_abs_err": max_err[evenly],
-            "ms": statistics.median(ms), "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": None,
-        })
-        log(f"phase main-path: {kname} queue pass N={n_b} A={a_b} ({n_valid} valid, {n_feasible} "
-            f"feasible): {statistics.median(ms):.3f} ms (runs {', '.join(f'{x:.3f}' for x in ms)}), "
-            f"plain {plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
-            f"operations {t_ops:.4f}), serial floor at N={FLOOR_NODES} {floor_ms:.3f} ms "
-            f"({floor_feasible} feasible) | {smi}")
-    for p in policies:
-        log(f"phase main-path: {p} TpuFifoSolver.solve median {statistics.median(solve_ms[p]):.1f} ms "
-            f"(runs {', '.join(f'{x:.1f}' for x in solve_ms[p])}) | {smi}")
+        log(f"phase main-path: {kname}: {n_feasible} feasible")
+        kernels.append(timed(
+            kname, "queue", lambda: qk.fifo_queue(*queue_args, evenly=evenly),
+            lambda: qk.solve_queue_plain(*queue_args, evenly=evenly),
+            lambda: qk.fifo_queue(*floor_args, evenly=evenly), ops, queue_bytes,
+        ))
 
-    # where a Filter decision's time goes (host clock, tightly-pack):
-    # tensorizing the cluster, the solve with vectorized efficiency rows,
-    # and the solve with exact Quantity efficiencies (what solve() runs)
-    solver = solvers["tightly-pack"]
-    parts = {"tensorize_cluster": [], "solve_tensor_rows": [], "solve_tensor_metadata": []}
-    for _ in range(3):
-        t = time.perf_counter()
-        cluster = tensorize_cluster(metadata, driver_order, executor_order)
-        parts["tensorize_cluster"].append((time.perf_counter() - t) * 1e3)
-        for key, meta in (("solve_tensor_rows", None), ("solve_tensor_metadata", metadata)):
+    got = mk.fifo_queue_min_frag(*queue_args)
+    check("fifo_queue_min_frag", got, mk.solve_queue_min_frag_plain(*queue_args), "the main-path inputs")
+    n_feasible = int(got[0].sum())
+    log(f"phase main-path: fifo_queue_min_frag: {n_feasible} feasible")
+    ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * MF_OPS_PER_NODE_FEASIBLE_APP)
+    kernels.append(timed(
+        "fifo_queue_min_frag", "min_frag", lambda: mk.fifo_queue_min_frag(*queue_args),
+        lambda: mk.solve_queue_min_frag_plain(*queue_args),
+        lambda: mk.fifo_queue_min_frag(*floor_args), ops, queue_bytes,
+    ))
+
+    zones, zone_masks = candidate_zone_masks(driver_order, executor_order, metadata, cluster.node_names, n_b)
+    inputs = single_az_queue_inputs(cluster, problem, zone_masks, len(zones), len(earlier))
+    if inputs is None:
+        raise SystemExit("the main-path snapshot is outside the fused single-AZ lane's bounds")
+    az_arrays, az_scalars = on(dev, inputs[0]), inputs[1]
+    per_node = (0, 1, 2, 3, 8, 9, 10, 11)  # the single-AZ arguments with a node axis
+    az_floor = tuple(x[:FLOOR_NODES] if i in per_node else x for i, x in enumerate(az_arrays))
+    az_bytes = 4 * 3 * n_b + 4 * n_b + n_b + n_b + 16 * n_b + a_b * 29 + a_b * 10 + 4 * 3 * n_b
+    for kname, (az_aware, minfrag) in SINGLE_AZ.items():
+        flags = dict(az_aware=az_aware, minfrag=minfrag, strict=True)
+        got = sk.fifo_queue_single_az(*az_arrays, *az_scalars, **flags)
+        check(kname, got, sk.solve_queue_single_az_plain(*az_arrays, *az_scalars, **flags),
+              "the main-path inputs")
+        n_placed, n_uncertain = int(got[0].sum()), int(got[3][: len(earlier)].sum())
+        log(f"phase main-path: {kname}: {n_placed} placed, {n_uncertain} of {len(earlier)} "
+            f"queued apps uncertain")
+        # every app's zone solves (its zone compare and gang core on every
+        # node), the placing zone's fill or drain and the carry update
+        work = MF_OPS_PER_NODE_FEASIBLE_APP if minfrag else OPS_PER_NODE_FEASIBLE_APP
+        ops = n_b * a_b * (len(zones) + OPS_PER_NODE_VALID_APP) + n_placed * (n_b // len(zones) * work + 3 * n_b)
+        kernels.append(timed(
+            kname, "single_az", lambda: sk.fifo_queue_single_az(*az_arrays, *az_scalars, **flags),
+            lambda: sk.solve_queue_single_az_plain(*az_arrays, *az_scalars, **flags),
+            lambda: sk.fifo_queue_single_az(*az_floor, *az_scalars, **flags), ops, az_bytes,
+        ))
+    for p in solvers:
+        log(f"phase main-path: {p} Filter decision median {median_ms(solve_ms[p])} | {smi}")
+
+    # where a Filter decision's time goes (host clock): tensorizing the
+    # cluster, the solve with vectorized efficiency rows, and the solve with
+    # exact Quantity efficiencies (what solve() runs), for tightly-pack and
+    # minimal-fragmentation; the single-AZ decision against its tensorizing
+    for p in ("tightly-pack", "minimal-fragmentation"):
+        solver = solvers[p]
+        parts = {"tensorize_cluster": [], "solve_tensor_rows": [], "solve_tensor_metadata": []}
+        for _ in range(3):
             t = time.perf_counter()
-            solver.solve_tensor(cluster, earlier, skip, currents[0], metadata=meta)
-            torch.cuda.synchronize()
-            parts[key].append((time.perf_counter() - t) * 1e3)
-    log("phase main-path: breakdown (median ms) " + ", ".join(
-        f"{k} {statistics.median(v):.1f}" for k, v in parts.items()) + f" | {smi}")
-    busy_ms, wall_ms = traced_device_time(
-        lambda: solver.solve(metadata, driver_order, executor_order, earlier, skip, currents[0])
-    )
-    share = "not measured (no device events in the trace)" if busy_ms is None else (
-        f"device busy {busy_ms:.3f} ms of {wall_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.2f} %")
-    log(f"phase main-path: profiler trace of one tightly-pack solve: {share} | {smi}")
+            cluster = tensorize_cluster(metadata, driver_order, executor_order)
+            parts["tensorize_cluster"].append((time.perf_counter() - t) * 1e3)
+            for key, meta in (("solve_tensor_rows", None), ("solve_tensor_metadata", metadata)):
+                t = time.perf_counter()
+                solver.solve_tensor(cluster, earlier, skip, currents[0], metadata=meta)
+                torch.cuda.synchronize()
+                parts[key].append((time.perf_counter() - t) * 1e3)
+        log(f"phase main-path: {p} breakdown (median ms) " + ", ".join(
+            f"{k} {statistics.median(v):.1f}" for k, v in parts.items()) + f" | {smi}")
+    t = time.perf_counter()
+    tensorize_cluster(metadata, driver_order, executor_order)
+    tensorize_ms = (time.perf_counter() - t) * 1e3
+    log(f"phase main-path: single-az-minimal-fragmentation breakdown (ms): decision "
+        f"{statistics.median(solve_ms['single-az-minimal-fragmentation']):.1f}, of which "
+        f"tensorize_cluster {tensorize_ms:.1f} and the queue kernel "
+        f"{kernels[-1]['ms']:.1f} (path {paths['single-az-minimal-fragmentation'][0]}) | {smi}")
+    for p in ("tightly-pack", "minimal-fragmentation", "single-az-minimal-fragmentation"):
+        share = busy_share(
+            lambda: solvers[p].solve(metadata, driver_order, executor_order, earlier, skip, currents[0])
+        )
+        log(f"phase main-path: profiler trace of one {p} decision: {share} | {smi}")
 
     # ---- phase 5: results
     print(json.dumps({"kernels": kernels}))

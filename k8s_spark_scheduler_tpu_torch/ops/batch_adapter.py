@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import logging
 from fractions import Fraction
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,16 +23,25 @@ from ..device import DeviceLike, resolve_device
 from ..types.resources import NodeGroupSchedulingMetadata, Resources
 from ..utils.quantity import Quantity
 from . import packers
-from .batch_solver import solve_single
+from .batch_solver import solve_single, solve_zones
+from .capacity import NodeAndExecutorCapacity
 from .efficiency import compute_packing_efficiencies
 from .packers import PackingResult, empty_packing_result
-from .registry import TPU_BATCH, TPU_BATCH_EVENLY, Binpacker
+from .registry import (
+    TPU_BATCH,
+    TPU_BATCH_AZ_AWARE,
+    TPU_BATCH_EVENLY,
+    TPU_BATCH_MIN_FRAG,
+    TPU_BATCH_SINGLE_AZ,
+    TPU_BATCH_SINGLE_AZ_MIN_FRAG,
+    Binpacker,
+)
 from .sparkapp import AppDemand
 from .tensorize import ClusterTensor, ScaledProblem, scale_problem, tensorize_apps, tensorize_cluster
 
 logger = logging.getLogger(__name__)
 
-POLICIES = ("tightly-pack", "distribute-evenly")
+POLICIES = ("tightly-pack", "distribute-evenly", "minimal-fragmentation")
 
 
 def evenly_counts(cap: np.ndarray, k: int) -> np.ndarray:
@@ -85,6 +94,75 @@ def build_reserved(
     return reserved
 
 
+def min_frag_unclamped_caps(
+    avail: np.ndarray, exec_row: np.ndarray, exec_ok: np.ndarray, driver_idx: int,
+    driver_row: np.ndarray,
+) -> np.ndarray:
+    """Exact UNCLAMPED per-node capacities (int64) for the min-frag
+    decode, from scaled integer availability rows with the driver
+    subtracted on its node (capacity.go:36-75; negative dims are 0 even
+    under a zero requirement — the reserved>available short-circuit)."""
+    avail = avail.astype(np.int64).copy()
+    avail[driver_idx] -= driver_row.astype(np.int64)
+    exec_row = exec_row.astype(np.int64)
+    per_dim = np.where(
+        exec_row[None, :] == 0,
+        np.where(avail >= 0, np.int64(2**62), np.int64(0)),
+        np.floor_divide(avail, np.maximum(exec_row[None, :], 1)),
+    )
+    cap = np.clip(per_dim.min(axis=1), 0, None)
+    return np.where(exec_ok, cap, 0)
+
+
+def minimal_fragmentation_assignment(
+    names: List[str], cap: np.ndarray, k: int
+) -> Optional[List[str]]:
+    """Exact minimal-fragmentation placement from per-node integer
+    capacities (minimal_fragmentation.go:59-137): the capacities equal the
+    oracle's Fraction floor divisions, so the host-side bisect algorithm
+    reproduces the oracle list exactly."""
+    if k == 0:
+        return []
+    capacities = [NodeAndExecutorCapacity(name, int(c)) for name, c in zip(names, cap) if c > 0]
+    nodes, ok = packers.minimal_fragmentation_from_capacities(k, capacities)
+    return nodes if ok else None
+
+
+def min_frag_zone_decode(
+    names: List[str],
+    avail_rows: np.ndarray,
+    exec_row: np.ndarray,
+    zone_exec_ok: np.ndarray,
+    d_idx: int,
+    driver_row: np.ndarray,
+    k: int,
+    strict_reference_parity: bool,
+):
+    """Per-zone minimal-fragmentation decode shared by the single-AZ
+    binpacker and the FIFO solver's host lane: exact bisect placements,
+    the true per-node counts (for the usage carry), and the
+    efficiency-side counts — zeroed under strict parity, where the
+    reference's no-write-back quirk makes the zone choice see only the
+    driver's reservation.  Returns (executor_nodes, counts, eff_counts) or
+    None (infeasible)."""
+    zcap = min_frag_unclamped_caps(avail_rows, exec_row, zone_exec_ok, d_idx, driver_row)
+    executor_nodes = minimal_fragmentation_assignment(names, zcap, k)
+    if executor_nodes is None:
+        return None
+    counts = counts_of(names, executor_nodes)
+    eff_counts = np.zeros_like(counts) if strict_reference_parity else counts
+    return executor_nodes, counts, eff_counts
+
+
+def counts_of(names: List[str], executor_nodes: List[str]) -> np.ndarray:
+    """Executors per node (int64, in `names` order) of a placement list."""
+    counts = np.zeros(len(names), dtype=np.int64)
+    pos = {name: i for i, name in enumerate(names)}
+    for node in executor_nodes:
+        counts[pos[node]] += 1
+    return counts
+
+
 def counts_to_tightly_list(names: List[str], counts: np.ndarray) -> List[str]:
     out: List[str] = []
     for name, c in zip(names, counts):
@@ -121,9 +199,10 @@ def problem_tensors(problem: ScaledProblem, device: torch.device):
 class TpuBatchBinpacker:
     """A drop-in SparkBinPackFunction backed by the PyTorch solver.
 
-    assignment_policy: 'tightly-pack' or 'distribute-evenly' — controls
-    the executor placement list (feasibility and driver choice are
-    policy-invariant, see batch_solver docstring).  device: None = CUDA.
+    assignment_policy: 'tightly-pack', 'distribute-evenly' or
+    'minimal-fragmentation' — controls the executor placement list
+    (feasibility and driver choice are policy-invariant, see batch_solver
+    docstring).  device: None = CUDA.
     """
 
     def __init__(
@@ -156,11 +235,12 @@ class TpuBatchBinpacker:
         )
         apps = tensorize_apps([AppDemand(driver_resources, executor_resources, executor_count)])
         problem = scale_problem(cluster, apps)
-        oracle = (
-            packers.tightly_pack
-            if self.assignment_policy == "tightly-pack"
-            else packers.distribute_evenly
-        )
+        oracle = {
+            "tightly-pack": packers.tightly_pack,
+            "minimal-fragmentation": packers.make_minimal_fragmentation_pack(
+                self.strict_reference_parity
+            ),
+        }.get(self.assignment_policy, packers.distribute_evenly)
         if not problem.ok:
             logger.warning("snapshot not exactly tensorizable; using host oracle")
             return oracle(
@@ -225,6 +305,26 @@ class TpuBatchBinpacker:
         if self.assignment_policy == "tightly-pack":
             counts = solve.exec_counts.cpu().numpy()[: len(names)]
             executor_nodes = counts_to_tightly_list(names, counts)
+        elif self.assignment_policy == "minimal-fragmentation":
+            # the (k+max)/2 subset threshold needs UNCLAMPED capacities (the
+            # solve clamps to k): recompute exactly from the scaled integer
+            # rows, with the driver subtracted on its node
+            cap = min_frag_unclamped_caps(
+                problem.avail[: len(names)],
+                problem.executor[0],
+                problem.exec_ok[: len(names)],
+                driver_idx,
+                problem.driver[0],
+            )
+            executor_nodes = minimal_fragmentation_assignment(names, cap, executor_count)
+            if executor_nodes is None:
+                return empty_packing_result()
+            # QUIRK (switchable): the reference's min-frag does not fold the
+            # placements into reserved, so under strict parity efficiencies
+            # see only the driver
+            counts = np.zeros(len(names), dtype=np.int64)
+            if not self.strict_reference_parity:
+                counts = counts_of(names, executor_nodes)
         else:
             cap = solve.exec_capacity.cpu().numpy()[: len(names)]
             counts = evenly_counts(cap, executor_count)
@@ -283,3 +383,204 @@ def tpu_batch_evenly_binpacker(
     strict_reference_parity: bool = compat.DEFAULT_STRICT, device: DeviceLike = None
 ) -> Binpacker:
     return _tpu_batch(TPU_BATCH_EVENLY, "distribute-evenly", strict_reference_parity, device)
+
+
+def tpu_batch_min_frag_binpacker(
+    strict_reference_parity: bool = compat.DEFAULT_STRICT, device: DeviceLike = None
+) -> Binpacker:
+    return _tpu_batch(TPU_BATCH_MIN_FRAG, "minimal-fragmentation", strict_reference_parity, device)
+
+
+def candidate_zone_masks(driver_order, executor_order, metadata, names, nb):
+    """Zone ordering + per-zone node masks shared by the single-AZ gang
+    and FIFO paths (single_az.go:30-45 first-appearance order; zones
+    without executor candidates are dropped)."""
+    driver_zones_in_order, _ = packers.group_nodes_by_zone(driver_order, metadata)
+    _, executor_by_zone = packers.group_nodes_by_zone(executor_order, metadata)
+    candidate_zones = [z for z in driver_zones_in_order if z in executor_by_zone]
+    zone_of = {name: metadata[name].zone_label for name in names}
+    zone_masks = np.zeros((max(len(candidate_zones), 1), nb), dtype=bool)
+    for zi, zone in enumerate(candidate_zones):
+        for i, name in enumerate(names):
+            zone_masks[zi, i] = zone_of[name] == zone
+    return candidate_zones, zone_masks
+
+
+class TpuSingleAzBinpacker:
+    """Single-AZ combinator on the device (single_az.go:23-55): every
+    zone's gang solve in one call (batch_solver.solve_zones), the zone
+    chosen on the host with the oracle's exact efficiency math
+    (_choose_best_result).  az_aware=True adds the cross-zone fallback
+    (az_aware_pack_tightly.go:27-38).
+
+    inner_policy selects the per-zone distribution: "tightly-pack" (device
+    counts) or "minimal-fragmentation" (single-az-minimal-fragmentation:
+    zone feasibility and driver choice are policy-invariant, so the zone
+    solves are shared; placements come from the exact host bisect, and
+    under strict parity the reference's no-efficiency-write-back quirk
+    makes the zone choice see only the driver's reservation).  device:
+    None = CUDA."""
+
+    def __init__(
+        self,
+        az_aware: bool = False,
+        inner_policy: str = "tightly-pack",
+        strict_reference_parity: bool = compat.DEFAULT_STRICT,
+        device: DeviceLike = None,
+    ):
+        self.az_aware = az_aware
+        self.inner_policy = inner_policy
+        self.strict_reference_parity = strict_reference_parity
+        self.device = resolve_device(device)
+
+    def __call__(
+        self,
+        driver_resources: Resources,
+        executor_resources: Resources,
+        executor_count: int,
+        driver_node_priority_order: Sequence[str],
+        executor_node_priority_order: Sequence[str],
+        metadata: NodeGroupSchedulingMetadata,
+    ) -> PackingResult:
+        cluster = tensorize_cluster(
+            metadata, driver_node_priority_order, executor_node_priority_order
+        )
+        apps = tensorize_apps([AppDemand(driver_resources, executor_resources, executor_count)])
+        problem = scale_problem(cluster, apps)
+        if self.inner_policy == "minimal-fragmentation":
+            oracle = packers.make_single_az_minimal_fragmentation(self.strict_reference_parity)
+        else:
+            oracle = packers.az_aware_tightly_pack if self.az_aware else packers.single_az_tightly_pack
+        if not problem.ok:
+            logger.warning("snapshot not exactly tensorizable; using host oracle")
+            return oracle(
+                driver_resources,
+                executor_resources,
+                executor_count,
+                driver_node_priority_order,
+                executor_node_priority_order,
+                metadata,
+            )
+
+        names = cluster.node_names
+        n = len(names)
+        nb = problem.avail.shape[0]
+        candidate_zones, zone_masks = candidate_zone_masks(
+            driver_node_priority_order, executor_node_priority_order, metadata, names, nb
+        )
+        avail, driver_rank, exec_ok = problem_tensors(problem, self.device)
+        solves = solve_zones(
+            avail,
+            driver_rank,
+            exec_ok,
+            torch.as_tensor(zone_masks, device=self.device),
+            torch.as_tensor(problem.driver[0], device=self.device),
+            torch.as_tensor(problem.executor[0], device=self.device),
+            int(problem.count[0]),
+        )
+        feasible = solves.feasible.cpu().numpy()
+        driver_idx = solves.driver_idx.cpu().numpy()
+        counts = solves.exec_counts.cpu().numpy()
+
+        results = []
+        for zi, zone in enumerate(candidate_zones):
+            if not feasible[zi]:
+                continue
+            d_idx = int(driver_idx[zi])
+            driver_node = names[d_idx]
+            if self.inner_policy == "minimal-fragmentation":
+                decoded = min_frag_zone_decode(
+                    names,
+                    problem.avail[:n],
+                    problem.executor[0],
+                    problem.exec_ok[:n] & zone_masks[zi][:n],
+                    d_idx,
+                    problem.driver[0],
+                    executor_count,
+                    self.strict_reference_parity,
+                )
+                if decoded is None:  # unreachable: zone feasibility proven
+                    continue
+                executor_nodes, _counts, eff_counts = decoded
+            else:
+                eff_counts = counts[zi][:n]
+                executor_nodes = counts_to_tightly_list(names, eff_counts)
+            results.append(
+                PackingResult(
+                    driver_node=driver_node,
+                    executor_nodes=executor_nodes,
+                    has_capacity=True,
+                    packing_efficiencies=compute_packing_efficiencies(
+                        metadata,
+                        build_reserved(
+                            names, eff_counts, driver_node, driver_resources, executor_resources
+                        ),
+                    ),
+                )
+            )
+
+        if results:
+            best = packers._choose_best_result(metadata, results)
+            # _choose_best_result returns the empty result when every
+            # candidate has zero avg efficiency (the documented quirk) —
+            # az-aware must then still take the cross-zone fallback, like
+            # az_aware_pack_tightly.go:34-37's has_capacity check
+            if best.has_capacity or not self.az_aware:
+                return best
+        if self.az_aware:
+            # cross-zone fallback: plain tightly-pack on the device
+            return TpuBatchBinpacker(
+                assignment_policy="tightly-pack",
+                strict_reference_parity=self.strict_reference_parity,
+                device=self.device,
+            )(
+                driver_resources,
+                executor_resources,
+                executor_count,
+                driver_node_priority_order,
+                executor_node_priority_order,
+                metadata,
+            )
+        return empty_packing_result()
+
+
+def _tpu_batch_single_az(
+    name: str, az_aware: bool, inner_policy: str, strict: bool, device: DeviceLike
+) -> Binpacker:
+    from .fifo_solver import TpuSingleAzFifoSolver
+
+    return Binpacker(
+        name=name,
+        binpack_func=TpuSingleAzBinpacker(
+            az_aware=az_aware, inner_policy=inner_policy, strict_reference_parity=strict,
+            device=device,
+        ),
+        is_single_az=True,
+        queue_solver=TpuSingleAzFifoSolver(
+            az_aware=az_aware, inner_policy=inner_policy, strict_reference_parity=strict,
+            device=device,
+        ),
+    )
+
+
+def tpu_batch_single_az_binpacker(
+    strict_reference_parity: bool = compat.DEFAULT_STRICT, device: DeviceLike = None
+) -> Binpacker:
+    return _tpu_batch_single_az(
+        TPU_BATCH_SINGLE_AZ, False, "tightly-pack", strict_reference_parity, device
+    )
+
+
+def tpu_batch_single_az_min_frag_binpacker(
+    strict_reference_parity: bool = compat.DEFAULT_STRICT, device: DeviceLike = None
+) -> Binpacker:
+    return _tpu_batch_single_az(
+        TPU_BATCH_SINGLE_AZ_MIN_FRAG, False, "minimal-fragmentation", strict_reference_parity,
+        device,
+    )
+
+
+def tpu_batch_az_aware_binpacker(
+    strict_reference_parity: bool = compat.DEFAULT_STRICT, device: DeviceLike = None
+) -> Binpacker:
+    return _tpu_batch_single_az(TPU_BATCH_AZ_AWARE, True, "tightly-pack", strict_reference_parity, device)

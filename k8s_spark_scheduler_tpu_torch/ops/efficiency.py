@@ -1,14 +1,14 @@
 """Packing-efficiency math (reference ``lib/pkg/binpack/efficiency.go``).
 
-Efficiency is reporting/selection metadata (metrics here; the best-AZ
-choice of the single-AZ combinator, which is not ported yet, also reads
-it), so float math is acceptable exactly as in the reference.
+Efficiency is reporting/selection metadata (used to pick the best AZ in
+the single-AZ combinator and for metrics), so float math is acceptable
+exactly as in the reference.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List
 
 from ..types.resources import (
     NodeGroupResources,
@@ -28,6 +28,23 @@ class PackingEfficiency:
 
     def max(self) -> float:
         return max(self.gpu, self.cpu, self.memory)
+
+
+@dataclass
+class AvgPackingEfficiency:
+    """Average over nodes (efficiency.go:25-30)."""
+
+    cpu: float
+    memory: float
+    gpu: float
+    max: float
+
+    def less_than(self, other: "AvgPackingEfficiency") -> bool:
+        return self.max < other.max
+
+
+def worst_avg_packing_efficiency() -> AvgPackingEfficiency:
+    return AvgPackingEfficiency(0.0, 0.0, 0.0, 0.0)
 
 
 def _normalize(v: int) -> int:
@@ -70,3 +87,35 @@ def compute_packing_efficiencies(
         node_name: compute_packing_efficiency(node_name, md, reserved_resources)
         for node_name, md in metadata.items()
     }
+
+
+def compute_avg_packing_efficiency(
+    metadata: NodeGroupSchedulingMetadata,
+    packing_efficiencies: List[PackingEfficiency],
+) -> AvgPackingEfficiency:
+    """Average of per-node efficiencies; GPU averaged only over GPU nodes,
+    defaulting to 1.0 when none (efficiency.go:114-156).  Callers may pass
+    one entry per pod occurrence: the average weights by occurrences, as
+    single_az.go:75-97 uses it."""
+    if not packing_efficiencies:
+        return worst_avg_packing_efficiency()
+
+    cpu_sum = memory_sum = gpu_sum = max_sum = 0.0
+    nodes_with_gpu = 0
+    for eff in packing_efficiencies:
+        md = metadata[eff.node_name]
+        cpu_sum += eff.cpu
+        memory_sum += eff.memory
+        if md.schedulable.nvidia_gpu.value() != 0:
+            gpu_sum += eff.gpu
+            nodes_with_gpu += 1
+        max_sum += max(eff.gpu, eff.cpu, eff.memory)
+
+    length = max(float(len(packing_efficiencies)), 1.0)
+    gpu_eff = 1.0 if nodes_with_gpu == 0 else gpu_sum / float(nodes_with_gpu)
+    return AvgPackingEfficiency(
+        cpu=cpu_sum / length,
+        memory=memory_sum / length,
+        gpu=gpu_eff,
+        max=max_sum / length,
+    )

@@ -1,12 +1,15 @@
-"""FIFO queue solver: the extender's earlier-drivers pass on the device.
+"""FIFO queue solvers: the extender's earlier-drivers pass on the device.
 
 Replaces the host loop of resource.go:224-262 (binpack every earlier
 driver, subtract its usage, fail if an enforced driver doesn't fit) with
-ONE whole-queue solve — the CUDA queue kernel (:mod:`.queue_kernel`) on
-a CUDA device, its plain PyTorch version on the CPU — then packs the
-current driver against the resulting availability.  Decisions are
-bit-identical to the JAX package's ``TpuFifoSolver`` (tests/
-test_torch_fifo_solver.py); problems that can't be exactly tensorized
+ONE whole-queue solve — a CUDA kernel on a CUDA device (:mod:`.queue_kernel`
+for tightly-pack / distribute-evenly, :mod:`.minfrag_kernel` for
+minimal-fragmentation, :mod:`.single_az_kernel` for the single-AZ
+policies), its plain PyTorch version on the CPU — then packs the current
+driver against the resulting availability.  Decisions are bit-identical
+to the JAX package's ``TpuFifoSolver`` and ``TpuSingleAzFifoSolver``
+(tests/test_torch_fifo_solver.py, test_torch_min_frag.py,
+test_torch_single_az.py); problems that can't be exactly tensorized
 return ``supported=False`` and the caller uses the host oracle path.
 """
 
@@ -23,18 +26,26 @@ from .. import compat
 from ..device import DeviceLike, lane_of, resolve_device
 from ..types.resources import NodeGroupSchedulingMetadata, Resources
 from ..utils.quantity import Quantity
+from . import packers
 from .batch_adapter import (
     POLICIES,
     build_reserved,
+    candidate_zone_masks,
+    counts_of,
     counts_to_evenly_list,
     counts_to_tightly_list,
     evenly_counts,
+    min_frag_unclamped_caps,
+    min_frag_zone_decode,
+    minimal_fragmentation_assignment,
     problem_tensors,
 )
-from .batch_solver import solve_single
+from .batch_solver import mf_sentinel_safe, solve_single, solve_zones
 from .efficiency import PackingEfficiency, compute_packing_efficiencies
+from .minfrag_kernel import fifo_queue_min_frag
 from .packers import PackingResult, empty_packing_result
 from .queue_kernel import fifo_queue
+from .single_az_kernel import fifo_queue_single_az
 from .sparkapp import AppDemand
 from .tensorize import (
     AppTensor,
@@ -186,15 +197,17 @@ class FifoOutcome:
 class TpuFifoSolver:
     """One device round for the whole FIFO queue + the current driver.
 
-    The queue pass is one launch of the CUDA queue kernel on a CUDA
-    device (lane "cuda") or its plain PyTorch version on the CPU (lane
-    "torch"); the current driver is decoded with one O(N) solve_single
-    against the carried availability.
+    The queue pass is one launch of a CUDA queue kernel on a CUDA device
+    (lane "cuda": fifo_queue for tightly-pack / distribute-evenly,
+    fifo_queue_min_frag for minimal-fragmentation) or its plain PyTorch
+    version on the CPU (lane "torch"); the current driver is decoded with
+    one O(N) solve_single against the carried availability, its min-frag
+    placement by the exact host bisect.  A min-frag snapshot whose scaled
+    availability could reach the drain's unbounded sentinel
+    (batch_solver.mf_sentinel_safe) reports supported=False.
 
     backend: "auto" (the lane of `device`), "cuda" or "torch"; a backend
-    that does not match the device raises.  device: None = CUDA.
-    minimal-fragmentation is not ported yet: its solves report
-    supported=False."""
+    that does not match the device raises.  device: None = CUDA."""
 
     def __init__(
         self,
@@ -306,6 +319,11 @@ class TpuFifoSolver:
             return FifoOutcome(supported=False)
 
         evenly = self.assignment_policy == "distribute-evenly"
+        minfrag = self.assignment_policy == "minimal-fragmentation"
+        if minfrag and not mf_sentinel_safe(problem.avail):
+            # a real capacity could collide with the drain's
+            # unbounded-capacity sentinel (batch_solver.MF_SENT)
+            return FifoOutcome(supported=False)
         n_earlier = len(earlier_apps)
         avail, driver_rank, exec_ok = problem_tensors(problem, self.device)
         if n_earlier > 0:
@@ -313,7 +331,7 @@ class TpuFifoSolver:
             queue_valid = problem.app_valid.copy()
             queue_valid[n_earlier:] = False
             self.last_queue_lane = lane_of(self.device)
-            feasible_dev, _, avail = fifo_queue(
+            queue_args = (
                 avail,
                 driver_rank,
                 exec_ok,
@@ -321,8 +339,11 @@ class TpuFifoSolver:
                 torch.as_tensor(problem.executor, device=self.device),
                 torch.as_tensor(problem.count, device=self.device),
                 torch.as_tensor(queue_valid, device=self.device),
-                evenly=evenly,
             )
+            if minfrag:
+                feasible_dev, _, avail = fifo_queue_min_frag(*queue_args)
+            else:
+                feasible_dev, _, avail = fifo_queue(*queue_args, evenly=evenly)
             feasible = feasible_dev[:n_earlier].cpu().numpy()
             # an enforced (old-enough) earlier driver that doesn't fit
             # fails the whole request (resource.go:244-253)
@@ -360,6 +381,23 @@ class TpuFifoSolver:
             cap = solve.exec_capacity.cpu().numpy()[: len(names)]
             counts = evenly_counts(cap, k)
             executor_nodes = counts_to_evenly_list(names, counts)
+        elif self.assignment_policy == "minimal-fragmentation":
+            cap = min_frag_unclamped_caps(
+                avail_after.cpu().numpy()[: len(names)],
+                problem.executor[n_earlier],
+                problem.exec_ok[: len(names)],
+                driver_idx,
+                problem.driver[n_earlier],
+            )
+            executor_nodes = minimal_fragmentation_assignment(names, cap, k)
+            if executor_nodes is None:  # unreachable: feasibility proven above
+                return FifoOutcome(supported=True, earlier_ok=True, result=empty_packing_result())
+            # QUIRK (switchable): min-frag reports only the driver in
+            # reserved/efficiencies under strict parity
+            # (packers.make_minimal_fragmentation)
+            counts = np.zeros(len(names), dtype=np.int64)
+            if not self.strict_reference_parity:
+                counts = counts_of(names, executor_nodes)
         else:
             counts = solve.exec_counts.cpu().numpy()[: len(names)]
             executor_nodes = counts_to_tightly_list(names, counts)
@@ -407,3 +445,317 @@ class TpuFifoSolver:
             ),
         )
         return FifoOutcome(supported=True, earlier_ok=True, result=result)
+
+
+def _fused_efficiency_inputs(cluster, problem):
+    """Inputs and numeric-range guards of the device zone-efficiency score
+    (single_az_kernel).  Returns None when any bound fails and the host
+    zone-choice lane must take over.  The bounds guarantee: int32
+    exactness of every reserved numerator (r_base = sched_base − m·scale),
+    float32 exactness of all ratio operands (ints ≤ 2^24), ratios ≤ 1
+    (avail ≤ schedulable), and an int32-safe score accumulator
+    ((k+1)·2^EFF_SHIFT < 2^31)."""
+    n = len(cluster.node_names)
+    nb = problem.avail.shape[0]
+    sched = cluster.sched[:n]  # int64 base units (milli-cpu, bytes, milli-gpu)
+    avail_base = cluster.avail[:n]
+    scale = problem.scale.astype(np.int64)
+    k_max = int(problem.count.max()) if problem.count.size else 0
+    if k_max + 1 > 4096:
+        return None
+    if n == 0:
+        return None
+    if (sched[:, 0] <= 0).any() or (sched[:, 1] <= 0).any():
+        # zero-schedulable dims hit the normalize(0)→1 divisor and can
+        # produce efficiencies ≫ 1 — the exact float64 host lane handles those
+        return None
+    if (sched[:, 0] > 2**31 - 1024).any() or (sched[:, 2] > 2**31 - 1024).any():
+        return None
+    if (avail_base > sched).any():
+        return None
+    if int(scale[0]) > 2**31 - 1 or int(scale[2]) > 2**31 - 1:
+        return None
+    th_mem = _ceil_div(sched[:, 1], int(scale[1]))
+    den_c = _ceil_div(sched[:, 0], 1000)
+    den_g = _ceil_div(sched[:, 2], 1000)
+    if (th_mem > 2**24).any() or (den_c > 2**24).any() or (den_g > 2**24).any():
+        return None
+
+    s_cpu = np.zeros(nb, np.int32)
+    s_cpu[:n] = sched[:, 0]
+    s_gpu = np.zeros(nb, np.int32)
+    s_gpu[:n] = sched[:, 2]
+    inv_m = np.zeros(nb, np.float32)
+    inv_m[:n] = (float(scale[1]) / sched[:, 1].astype(np.float64)).astype(np.float32)
+    th = np.zeros(nb, np.int32)
+    th[:n] = th_mem
+    return s_cpu, s_gpu, inv_m, th, int(scale[0]), int(scale[2])
+
+
+def single_az_queue_inputs(cluster, problem, zone_masks, n_zones: int, n_earlier: int):
+    """The fused single-AZ lane's arguments for the earlier-driver queue:
+    ((avail, driver_rank, exec_ok, zone_id, drivers, executors, counts,
+    queue_valid, s_cpu, s_gpu, inv_mem, th_mem) as numpy arrays,
+    (scale_cpu, scale_gpu, n_zones)) for single_az_kernel.
+    fifo_queue_single_az, or None when the score's numeric bounds fail
+    (_fused_efficiency_inputs)."""
+    eff_inputs = _fused_efficiency_inputs(cluster, problem)
+    if eff_inputs is None:
+        return None
+    s_cpu, s_gpu, inv_m, th_m, scale_c, scale_g = eff_inputs
+    # disjoint zone masks → one zone index per node (-1 = none)
+    zone_id = np.full(problem.avail.shape[0], -1, np.int32)
+    for zi in range(n_zones):
+        zone_id[zone_masks[zi]] = zi
+    queue_valid = problem.app_valid.copy()
+    queue_valid[n_earlier:] = False
+    arrays = (
+        problem.avail, problem.driver_rank, problem.exec_ok, zone_id, problem.driver,
+        problem.executor, problem.count, queue_valid, s_cpu, s_gpu, inv_m, th_m,
+    )
+    return arrays, (scale_c, scale_g, n_zones)
+
+
+class TpuSingleAzFifoSolver:
+    """FIFO pass for the single-AZ policies.
+
+    Fused lane (one launch): single_az_kernel.fifo_queue_single_az runs
+    the whole earlier-driver queue — per-zone solves (tightly-pack, or the
+    min-frag drain), the zone-efficiency choice in certified fixed point
+    (batch_solver.EFF_SHIFT), the az-aware cross-zone fallback and the
+    carried usage subtraction — as the CUDA kernel on a CUDA device, its
+    plain PyTorch version on the CPU.
+
+    Exactness valve: if any earlier app's zone scores land inside the
+    fixed-point margin (`uncertain`), the whole queue is re-solved on the
+    host lane — per-driver zone solves (batch_solver.solve_zones on the
+    device) with the zone choice in the oracle's float64 efficiency math —
+    restoring bit-exact reference parity.  Snapshots outside the fused
+    lane's numeric bounds (_fused_efficiency_inputs) or, for the min-frag
+    inner policy, failing batch_solver.mf_sentinel_safe go straight to the
+    host lane.  The current app's packing is always chosen with the exact
+    host math.  `last_path` records which lane served the earlier drivers
+    ("fused" / "host"; None when the queue is empty or the snapshot is
+    not exactly tensorizable).
+
+    inner_policy "minimal-fragmentation" gives the
+    single-az-minimal-fragmentation semantics: zone feasibility and driver
+    choice are shared with tightly (work-conserving drain), placements
+    come from the min-frag drain / host bisect, and the zone choice sees
+    driver-only reserved under strict parity (the reference's
+    no-write-back quirk).  az_aware has no min-frag variant in the
+    reference.  backend: "auto" (the lane of `device`), "cuda" or "torch".
+    device: None = CUDA."""
+
+    def __init__(
+        self,
+        az_aware: bool = False,
+        backend: str = "auto",
+        inner_policy: str = "tightly-pack",
+        strict_reference_parity: bool = compat.DEFAULT_STRICT,
+        device: DeviceLike = None,
+    ):
+        if az_aware and inner_policy == "minimal-fragmentation":
+            raise ValueError("az_aware has no minimal-fragmentation variant")
+        self.az_aware = az_aware
+        self.inner_policy = inner_policy
+        self.strict_reference_parity = strict_reference_parity
+        self.device = resolve_device(device)
+        if backend not in ("auto", lane_of(self.device)):
+            raise ValueError(f"backend {backend!r} does not run on device {self.device}")
+        self.backend = backend
+        self.last_path: Optional[str] = None
+
+    def solve(
+        self,
+        metadata: NodeGroupSchedulingMetadata,
+        driver_order: Sequence[str],
+        executor_order: Sequence[str],
+        earlier_apps: List[AppDemand],
+        earlier_skip_allowed: List[bool],
+        current_app: AppDemand,
+    ) -> FifoOutcome:
+        dev = self.device
+        cluster = tensorize_cluster(metadata, driver_order, executor_order)
+        problem = scale_problem(cluster, tensorize_apps(list(earlier_apps) + [current_app]))
+        self.last_path = None
+        if not problem.ok:
+            return FifoOutcome(supported=False)
+
+        names = cluster.node_names
+        n = len(names)
+        nb = problem.avail.shape[0]
+        scale = problem.scale.astype(np.int64)
+        candidate_zones, zone_masks = candidate_zone_masks(
+            driver_order, executor_order, metadata, names, nb
+        )
+        zone_masks_dev = torch.as_tensor(zone_masks, device=dev)
+        _, rank_dev, exec_dev = problem_tensors(problem, dev)
+        avail = problem.avail.astype(np.int32).copy()  # scaled, carried per driver
+        minfrag_inner = self.inner_policy == "minimal-fragmentation"
+
+        def pack_one(app_idx: int):
+            """Device zone solves + host zone choice for one app.  Returns
+            (driver_idx, counts, chosen result) or None when infeasible."""
+            if not candidate_zones:
+                return None  # no zone has both driver and executor candidates
+            solves = solve_zones(
+                torch.as_tensor(avail, device=dev),
+                rank_dev,
+                exec_dev,
+                zone_masks_dev,
+                torch.as_tensor(problem.driver[app_idx], device=dev),
+                torch.as_tensor(problem.executor[app_idx], device=dev),
+                int(problem.count[app_idx]),
+            )
+            feasible = solves.feasible.cpu().numpy()
+            driver_idx = solves.driver_idx.cpu().numpy()
+            counts_all = solves.exec_counts.cpu().numpy()
+
+            results, per_zone = [], []
+            for zi in range(len(candidate_zones)):
+                if not feasible[zi]:
+                    continue
+                d_idx = int(driver_idx[zi])
+                if minfrag_inner:
+                    # exact host bisect on the carried scaled availability
+                    # (capacities are scale-invariant); placement order is
+                    # the drain order, not priority order
+                    decoded = min_frag_zone_decode(
+                        names,
+                        avail.astype(np.int64)[:n],
+                        problem.executor[app_idx],
+                        problem.exec_ok[:n] & zone_masks[zi][:n],
+                        d_idx,
+                        problem.driver[app_idx],
+                        int(problem.count[app_idx]),
+                        self.strict_reference_parity,
+                    )
+                    if decoded is None:  # unreachable: zone feasible
+                        continue
+                    executor_nodes, zone_counts, eff_counts = decoded
+                else:
+                    zone_counts = eff_counts = counts_all[zi][:n]
+                    executor_nodes = counts_to_tightly_list(names, zone_counts)
+                results.append(
+                    PackingResult(
+                        driver_node=names[d_idx],
+                        executor_nodes=executor_nodes,
+                        has_capacity=True,
+                        packing_efficiencies=efficiencies_from_rows(
+                            names,
+                            cluster.sched,
+                            avail.astype(np.int64) * scale[None, :],
+                            _reserved_rows(n, d_idx, eff_counts, problem, app_idx) * scale[None, :],
+                        ),
+                    )
+                )
+                per_zone.append((d_idx, zone_counts))
+            if not results:
+                return None
+            best = packers._choose_best_result(metadata, results)
+            if not best.has_capacity:
+                # the all-zero-efficiency quirk: single-az yields nothing;
+                # the caller's az_aware fallback handles the cross-zone pack
+                return None
+            d_idx, counts = per_zone[results.index(best)]
+            return d_idx, counts, best
+
+        def pack_with_fallback(app_idx: int):
+            packed = pack_one(app_idx)
+            if packed is None and self.az_aware:
+                fallback = self._plain_pack(app_idx, avail, problem, n)
+                packed = None if fallback is None else (*fallback, None)
+            return packed
+
+        n_earlier = len(earlier_apps)
+        # min-frag inner: the fused lane's drain uses the int32 MF_SENT
+        # sentinel, so the sentinel-collision guard gates it; such
+        # snapshots take the exact host lane (its decode uses a 2^62
+        # sentinel no int32 capacity can reach)
+        mf_fused_ok = not minfrag_inner or mf_sentinel_safe(problem.avail)
+        fused_done = False
+        inputs = (
+            single_az_queue_inputs(cluster, problem, zone_masks, len(candidate_zones), n_earlier)
+            if n_earlier > 0 and mf_fused_ok
+            else None
+        )
+        if inputs is not None:
+            arrays, scalars = inputs
+            feas_d, _zone_d, _didx_d, uncertain_d, avail_after_d = fifo_queue_single_az(
+                *(torch.as_tensor(x, device=dev) for x in arrays), *scalars,
+                az_aware=self.az_aware, minfrag=minfrag_inner, strict=self.strict_reference_parity,
+            )
+            if not bool(uncertain_d[:n_earlier].any()):
+                # the one-launch lane's answer is certain: it served this
+                # request, whatever the FIFO verdict
+                self.last_path = "fused"
+                feasible = feas_d[:n_earlier].cpu().numpy()
+                for i in range(n_earlier):
+                    if not feasible[i] and not earlier_skip_allowed[i]:
+                        return FifoOutcome(supported=True, earlier_ok=False)
+                avail[:] = avail_after_d.cpu().numpy()
+                fused_done = True
+
+        if not fused_done and n_earlier > 0:
+            # host lane: per-driver zone solves with the exact float64 zone
+            # choice (the uncertainty / guard valve)
+            self.last_path = "host"
+            for i in range(n_earlier):
+                packed = pack_with_fallback(i)
+                if packed is None:
+                    if earlier_skip_allowed[i]:
+                        continue
+                    return FifoOutcome(supported=True, earlier_ok=False)
+                self._subtract(avail, packed[0], packed[1], problem, i, n)
+
+        packed = pack_with_fallback(n_earlier)
+        if packed is None:
+            return FifoOutcome(supported=True, earlier_ok=True, result=empty_packing_result())
+        d_idx, counts, chosen = packed
+        if chosen is None:
+            # cross-zone fallback: build the result from counts
+            chosen = PackingResult(
+                driver_node=names[d_idx],
+                executor_nodes=counts_to_tightly_list(names, counts),
+                has_capacity=True,
+                packing_efficiencies=efficiencies_from_rows(
+                    names,
+                    cluster.sched,
+                    avail.astype(np.int64) * scale[None, :],
+                    _reserved_rows(n, d_idx, counts, problem, n_earlier) * scale[None, :],
+                ),
+            )
+        return FifoOutcome(supported=True, earlier_ok=True, result=chosen)
+
+    def _plain_pack(self, app_idx, avail, problem, n):
+        """Cross-zone tightly-pack (the az-aware fallback)."""
+        dev = self.device
+        solve = solve_single(
+            torch.as_tensor(avail, device=dev),
+            torch.as_tensor(problem.driver_rank, device=dev),
+            torch.as_tensor(problem.exec_ok, device=dev),
+            torch.as_tensor(problem.driver[app_idx], device=dev),
+            torch.as_tensor(problem.executor[app_idx], device=dev),
+            int(problem.count[app_idx]),
+        )
+        if not bool(solve.feasible):
+            return None
+        return int(solve.driver_idx), solve.exec_counts.cpu().numpy()[:n]
+
+    @staticmethod
+    def _subtract(avail, d_idx, counts, problem, app_idx, n):
+        """The reference's usage-overwrite quirk in scaled int space."""
+        exec_mask = counts > 0
+        delta = np.zeros((avail.shape[0], 3), np.int32)
+        delta[:n][exec_mask] = problem.executor[app_idx]
+        if not exec_mask[d_idx]:
+            delta[d_idx] = problem.driver[app_idx]
+        avail -= delta
+
+
+def _reserved_rows(n, d_idx, counts, problem, app_idx):
+    rows = np.zeros((n, 3), np.int64)
+    rows += counts.astype(np.int64)[:, None] * problem.executor[app_idx].astype(np.int64)[None, :]
+    rows[d_idx] += problem.driver[app_idx].astype(np.int64)
+    return rows

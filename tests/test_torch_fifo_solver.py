@@ -13,16 +13,13 @@ from k8s_spark_scheduler_tpu.models.gang_packer import GangPacker as JaxGangPack
 from k8s_spark_scheduler_tpu.models.gang_packer import GangPackerConfig as JaxGangPackerConfig
 from k8s_spark_scheduler_tpu.ops import tensorize as jax_tensorize
 from k8s_spark_scheduler_tpu.ops.fifo_solver import TpuFifoSolver as JaxFifoSolver
+from k8s_spark_scheduler_tpu.ops.registry import available_binpackers as jax_available_binpackers
 from k8s_spark_scheduler_tpu.ops.registry import select_binpacker as jax_select_binpacker
 from k8s_spark_scheduler_tpu.types.resources import copy_metadata as jax_copy_metadata
 from k8s_spark_scheduler_tpu_torch.models.gang_packer import GangPacker, GangPackerConfig
 from k8s_spark_scheduler_tpu_torch.ops import packers, tensorize
 from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import LazyEfficiencies, TpuFifoSolver
-from k8s_spark_scheduler_tpu_torch.ops.registry import (
-    NOT_PORTED,
-    available_binpackers,
-    select_binpacker,
-)
+from k8s_spark_scheduler_tpu_torch.ops.registry import available_binpackers, select_binpacker
 from k8s_spark_scheduler_tpu_torch.types.resources import copy_metadata
 
 from test_batch_parity import random_app
@@ -114,11 +111,18 @@ def test_fifo_feasible_tensor_and_cache_match_jax():
 
 
 def test_min_frag_policy_is_unsupported_until_ported():
+    """Minimal fragmentation is ported: a sentinel-safe snapshot is served
+    by the min-frag queue pass; only an unknown policy stays unsupported
+    (test_torch_min_frag.py covers the sentinel-unsafe snapshot)."""
     rng = random.Random(3)
-    _, pmeta, dorder, eorder, _, papps = random_snapshot(rng)
+    _, pmeta, dorder, eorder, _, papps = random_snapshot(rng, max_apps=6)
+    papps = papps + papps[:1]  # at least one earlier driver
+    skip = [True] * (len(papps) - 1)
     solver = TpuFifoSolver(assignment_policy="minimal-fragmentation", device="cpu")
-    out = solver.solve(pmeta, dorder, eorder, papps[:-1], [True] * (len(papps) - 1), papps[-1])
-    assert not out.supported and solver.last_queue_lane is None
+    out = solver.solve(pmeta, dorder, eorder, papps[:-1], skip, papps[-1])
+    assert out.supported and solver.last_queue_lane == "torch"
+    unknown = TpuFifoSolver(assignment_policy="no-such-policy", device="cpu")
+    assert not unknown.solve(pmeta, dorder, eorder, papps[:-1], skip, papps[-1]).supported
 
 
 @pytest.mark.parametrize("fractional", [False, True])
@@ -183,14 +187,18 @@ def test_gang_packer_matches_jax(policy):
 
 
 def test_registry_names():
+    """The port serves every name of the JAX registry, with the same
+    single-AZ flag; unknown names fall back to distribute-evenly."""
     assert select_binpacker("tightly-pack").binpack_func is packers.tightly_pack
     assert select_binpacker("no-such-policy").binpack_func is packers.distribute_evenly
-    assert set(available_binpackers()) == {
-        "tightly-pack", "distribute-evenly", "tpu-batch", "tpu-batch-distribute-evenly",
-    }
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError):
-            select_binpacker(name, device="cpu")
+    assert available_binpackers() == jax_available_binpackers()
+    assert len(available_binpackers()) == 12
+    for name in available_binpackers():
+        for strict in (True, False):
+            got = select_binpacker(name, strict_reference_parity=strict, device="cpu")
+            want = jax_select_binpacker(name, strict_reference_parity=strict)
+            assert (got.name, got.is_single_az) == (want.name, want.is_single_az), name
+            assert (got.queue_solver is None) == (want.queue_solver is None), name
 
 
 def test_fifo_decisions_match_host_oracle_loop():

@@ -57,6 +57,26 @@ _BLOCKED_RUN = textwrap.dedent(
     bp = select_binpacker("tpu-batch", device="cpu")
     r = bp.binpack_func(earlier[0].driver_resources, earlier[0].executor_resources, 4, d, e, meta)
     assert r.has_capacity
+
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import TpuSingleAzFifoSolver
+    from k8s_spark_scheduler_tpu_torch.ops.registry import available_binpackers
+
+    current = app_from_plain(("1", "1Gi", 0), ("2", "4Gi", 0), 2)
+    solver = TpuFifoSolver(assignment_policy="minimal-fragmentation", device="cpu")
+    out = solver.solve(meta, d, e, earlier, [False] * 3, current)
+    assert out.supported and out.earlier_ok and out.result.has_capacity, out
+    assert solver.last_queue_lane == "torch"
+    for az_aware, inner in ((False, "tightly-pack"), (True, "tightly-pack"),
+                            (False, "minimal-fragmentation")):
+        solver = TpuSingleAzFifoSolver(az_aware=az_aware, inner_policy=inner, device="cpu")
+        out = solver.solve(meta, d, e, earlier, [False] * 3, current)
+        assert out.supported and out.earlier_ok and out.result.has_capacity, out
+        assert solver.last_path == "fused"
+    assert len(available_binpackers()) == 12
+    for name in available_binpackers():
+        bp = select_binpacker(name, device="cpu")
+        r = bp.binpack_func(current.driver_resources, current.executor_resources, 2, d, e, meta)
+        assert r.has_capacity, name
     bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not bad, bad
     print("ISOLATED-OK")
@@ -95,17 +115,19 @@ def test_package_sources_import_neither_jax_nor_reference_package():
 
 def test_entry_points_default_to_cuda_and_never_fall_back():
     from k8s_spark_scheduler_tpu_torch.models.gang_packer import GangPacker
-    from k8s_spark_scheduler_tpu_torch.ops.batch_adapter import TpuBatchBinpacker
-    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import TpuFifoSolver
-    from k8s_spark_scheduler_tpu_torch.ops.registry import select_binpacker
+    from k8s_spark_scheduler_tpu_torch.ops.batch_adapter import TpuBatchBinpacker, TpuSingleAzBinpacker
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import TpuFifoSolver, TpuSingleAzFifoSolver
+    from k8s_spark_scheduler_tpu_torch.ops.registry import TPU_BATCH_NAMES, select_binpacker
 
     constructors = (
         TpuFifoSolver,
         TpuBatchBinpacker,
+        TpuSingleAzFifoSolver,
+        TpuSingleAzBinpacker,
         GangPacker,
-        lambda: select_binpacker("tpu-batch"),
         lambda: TpuFifoSolver(device="cuda"),
-    )
+        lambda: TpuFifoSolver("minimal-fragmentation"),
+    ) + tuple(lambda name=name: select_binpacker(name) for name in TPU_BATCH_NAMES)
     for make in constructors:
         if torch.cuda.is_available():
             made = make()
@@ -117,8 +139,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 
 
 def test_backend_must_match_device():
-    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import TpuFifoSolver
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import TpuFifoSolver, TpuSingleAzFifoSolver
 
-    assert TpuFifoSolver(backend="torch", device="cpu").backend == "torch"
-    with pytest.raises(ValueError):
-        TpuFifoSolver(backend="cuda", device="cpu")
+    for solver in (TpuFifoSolver, TpuSingleAzFifoSolver):
+        assert solver(backend="torch", device="cpu").backend == "torch"
+        with pytest.raises(ValueError):
+            solver(backend="cuda", device="cpu")
