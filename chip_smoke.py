@@ -7,13 +7,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. device: the card's name, CUDA version, name and power limit;
 2. build: the three kernels from ``ops/csrc/`` (queue_kernel.cu,
    minfrag_kernel.cu, single_az_kernel.cu; one nvcc each, all started
-   together, sm_90a), with ptxas's registers and spills;
+   together, sm_90a);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, on randomized queues (ragged N, k = 0, zero-resource
    executors, negative availability, invalid apps, zone id -1, a problem
    too large for shared memory, more than 127 zones) and at 10,240 nodes ×
-   1,024 apps (3 zones for the single-AZ kernel), every variant; outputs
-   are integers and must be exactly equal;
+   1,024 apps (3 zones for the single-AZ kernel), every variant; also 10,240
+   nodes in one zone, 12,345 in one zone, 4,000 zones, 3 zones with
+   one empty, 9 and 17 zones, an az-aware queue where many apps take the
+   cross-zone solve, min-frag queues where the pass's largest capacity is
+   above k and below it; outputs are integers and must be exactly equal;
 4. main path: Filter decisions on a 10,000-node cluster in 3 zones with a
    1,000-deep pending queue, on the card and equal to the same calls on
    the CPU: ``TpuFifoSolver`` tightly-pack, distribute-evenly and
@@ -22,8 +25,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of every ``tpu-batch*`` binpacker; small snapshots checked against the
    host oracles' sequential FIFO loop for each policy; each policy's
    kernel launch counts, zeroed just before its decisions and read just
-   after; each kernel's time, bound and serial floor
-   at the main path's inputs; decision breakdowns and the device's busy
+   after; each kernel's time, bound and serial floor at the main path's inputs, the apps that take
+   the az-aware cross-zone solve, each variant's cluster size and threads,
+   and ptxas's registers and spills for each kernel instantiation; decision breakdowns and the device's busy
    time in profiler traces of single decisions;
 5. the kernels line (times, bounds, launches) and the device result line.
 
@@ -36,6 +40,7 @@ import argparse
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -340,6 +345,22 @@ def small_oracle_check(seed: int) -> int:
     return checked
 
 
+def ptxas_report(build_log: str):
+    """(kernel<template arguments>, registers, spill stores) for each entry
+    function in nvcc's -Xptxas=-v output."""
+    out, entry, spills = [], None, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(\d+)(fifo_queue\w*?_kernel)I(\w*?)EEv", line)
+        if m:
+            entry = f"{m.group(2)}<{','.join(re.findall(r'L[bi](\d+)E', m.group(3) + 'E'))}>"
+        elif "spill stores" in line:
+            spills = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif "Used" in line and "registers" in line and entry:
+            out.append((entry, int(re.search(r"Used (\d+) registers", line).group(1)), spills))
+            entry = None
+    return out
+
+
 def kernel_entry(name, kind, launches, max_err, ms, plain_ms, t_bytes, t_ops):
     return {
         "name": name, "route": "cuda", "source": SOURCES[kind], "replaces": REPLACES[kind],
@@ -381,10 +402,6 @@ def main() -> int:
         for future in [pool.submit(lib.load) for lib in libraries.values()]:
             future.result()
     log(f"phase build: {len(libraries)} kernels ready in {time.perf_counter() - t0:.2f} s")
-    for kind, lib in libraries.items():
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {kind}: {line.strip()}")
 
     # ---- phase 3: kernel vs plain on the card
     max_err = {"fifo_queue_tightly": 0, "fifo_queue_evenly": 0, "fifo_queue_min_frag": 0}
@@ -397,6 +414,18 @@ def main() -> int:
         if err:
             raise SystemExit(f"{kname} != plain at {where} (max |diff| {err})")
 
+    def check_min_frag(arrays, where):
+        check("fifo_queue_min_frag", mk.fifo_queue_min_frag(*arrays), mk.solve_queue_min_frag_plain(*arrays),
+              where)
+
+    def check_single_az(arrays, scalars, where):
+        """Every variant, both strict values for min-frag."""
+        for kname, (az_aware, minfrag) in SINGLE_AZ.items():
+            for strict in ((True, False) if minfrag else (True,)):
+                flags = dict(az_aware=az_aware, minfrag=minfrag, strict=strict)
+                check(kname, sk.fifo_queue_single_az(*arrays, *scalars, **flags),
+                      sk.solve_queue_single_az_plain(*arrays, *scalars, **flags), f"{where} strict={strict}")
+
     cases = [(2, 5), (31, 17), (100, 40), (129, 64), (300, 100), (1000, 200), (4099, 64),
              (12345, 48), (10240, 1024)]
     for ci, (n, a) in enumerate(cases):
@@ -405,26 +434,60 @@ def main() -> int:
             check("fifo_queue_evenly" if evenly else "fifo_queue_tightly",
                   qk.fifo_queue(*arrays, evenly=evenly), qk.solve_queue_plain(*arrays, evenly=evenly),
                   f"N={n} A={a}")
-        check("fifo_queue_min_frag", mk.fifo_queue_min_frag(*arrays),
-              mk.solve_queue_min_frag_plain(*arrays), f"N={n} A={a}")
+        check_min_frag(arrays, f"N={n} A={a}")
         log(f"phase kernel-vs-plain: queue and min-frag kernels N={n} A={a} equal "
-            f"(shared bytes {qk.shared_bytes(n, dev)} / {mk.shared_bytes(n, dev)})")
-    # more zones than int8 holds, in shared memory (N=1000) and in global
-    # memory; N=10,800 fits shared memory only with the int32-id layout
+            f"(queue kernel shared bytes {qk.shared_bytes(n, dev)})")
+    # min-frag queues whose apps ask for 1-4 executors (the placing pass's
+    # largest capacity reaches k) or 100-300 (capacities stay under 64 < k)
+    for ci, (n, a) in enumerate([(3000, 256), (10240, 256)]):
+        rng = np.random.RandomState(args.seed * 1000 + 300 + ci)
+        arrays = random_queue(rng, n, a)
+        arrays[4][:] = rng.randint(1, 9, size=(a, 3))
+        arrays[5][:] = np.where(rng.rand(a) < 0.5, rng.randint(1, 5, size=a), rng.randint(100, 300, size=a))
+        check_min_frag(on(dev, arrays), f"m >= k and m < k, N={n} A={a}")
+        log(f"phase kernel-vs-plain: min-frag kernel, k in 1-4 and 100-300, N={n} A={a} equal")
+    # 200 and 150 zones: many zones a block; one zone over 12,345 nodes:
+    # that block's node planes in global memory; 4,000 zones: the zone
+    # table in global memory
     az_cases = [(2, 5, 1), (31, 17, 0), (129, 64, 2), (1000, 200, 3), (4099, 64, 3),
                 (12345, 48, 3), (1000, 24, 200), (12345, 8, 150), (10800, 8, 3),
-                (10240, 1024, 3)]
+                (12345, 16, 1), (12000, 4, 4000), (10240, 1024, 3)]
     for ci, (n, a, zones) in enumerate(az_cases):
         arrays, scalars = random_single_az_queue(np.random.RandomState(args.seed * 1000 + 500 + ci), n, a, zones)
         arrays = on(dev, arrays)
-        for kname, (az_aware, minfrag) in SINGLE_AZ.items():
-            for strict in ((True, False) if minfrag else (True,)):
-                flags = dict(az_aware=az_aware, minfrag=minfrag, strict=strict)
-                check(kname, sk.fifo_queue_single_az(*arrays, *scalars, **flags),
-                      sk.solve_queue_single_az_plain(*arrays, *scalars, **flags),
-                      f"N={n} A={a} zones={zones} strict={strict}")
+        check_single_az(arrays, scalars, f"N={n} A={a} zones={zones}")
         log(f"phase kernel-vs-plain: single-AZ kernel, {len(SINGLE_AZ)} variants, N={n} A={a} "
-            f"zones={zones} equal (shared bytes {sk.shared_bytes(n, zones, 0, dev)})")
+            f"zones={zones} equal (cluster {sk.zone_layout(arrays[3], zones).cluster})")
+    # zone layouts the main path does not take: one zone holding every
+    # node, an empty zone, more zones than the cluster has blocks
+    layouts = {
+        "1 zone holds every node": (1, lambda rng, n: np.zeros(n, np.int32)),
+        "3 zones, zone 1 empty": (3, lambda rng, n: rng.choice([0, 2], size=n).astype(np.int32)),
+        "9 zones": (9, lambda rng, n: rng.randint(0, 9, size=n).astype(np.int32)),
+        "17 zones": (17, lambda rng, n: rng.randint(-1, 17, size=n).astype(np.int32)),
+    }
+    for ci, (what, (zones, zone_ids)) in enumerate(layouts.items()):
+        rng = np.random.RandomState(args.seed * 1000 + 700 + ci)
+        arrays, scalars = random_single_az_queue(rng, 10240, 64, zones)
+        arrays[3][:] = zone_ids(rng, 10240)
+        arrays = on(dev, arrays)
+        check_single_az(arrays, scalars, f"{what}, N=10240 A=64")
+        log(f"phase kernel-vs-plain: single-AZ kernel, {what}, N=10240 A=64 equal "
+            f"(cluster {sk.zone_layout(arrays[3], zones).cluster})")
+    # an az-aware queue where many apps fit no single zone: 150 zones of
+    # about 20 nodes and gangs of 60-150 executors
+    rng = np.random.RandomState(args.seed * 1000 + 800)
+    arrays, scalars = random_single_az_queue(rng, 3000, 128, 150)
+    arrays[5][:] = rng.randint(1, 4, size=(128, 3))
+    arrays[6][:] = rng.randint(60, 150, size=128)
+    arrays = on(dev, arrays)
+    check_single_az(arrays, scalars, "cross-zone queue N=3000 A=128 zones=150")
+    az_want = sk.solve_queue_single_az_plain(*arrays, *scalars, az_aware=True)
+    n_cross = int(((az_want[1] == 150) & az_want[0]).sum())
+    if n_cross < 10:
+        raise SystemExit(f"the cross-zone queue sent only {n_cross} apps to the cross-zone solve")
+    log(f"phase kernel-vs-plain: single-AZ kernel, az-aware queue with {n_cross} of 128 apps on the "
+        f"cross-zone solve, N=3000 zones=150 equal")
 
     # ---- phase 4: main path at full size
     t0 = time.perf_counter()
@@ -529,7 +592,8 @@ def main() -> int:
     got = mk.fifo_queue_min_frag(*queue_args)
     check("fifo_queue_min_frag", got, mk.solve_queue_min_frag_plain(*queue_args), "the main-path inputs")
     n_feasible = int(got[0].sum())
-    log(f"phase main-path: fifo_queue_min_frag: {n_feasible} feasible")
+    log(f"phase main-path: fifo_queue_min_frag: {n_feasible} feasible; cluster of "
+        f"{mk.CLUSTER_BLOCKS} blocks of {mk.THREADS} threads")
     ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * MF_OPS_PER_NODE_FEASIBLE_APP)
     kernels.append(timed(
         "fifo_queue_min_frag", "min_frag", lambda: mk.fifo_queue_min_frag(*queue_args),
@@ -551,8 +615,10 @@ def main() -> int:
         check(kname, got, sk.solve_queue_single_az_plain(*az_arrays, *az_scalars, **flags),
               "the main-path inputs")
         n_placed, n_uncertain = int(got[0].sum()), int(got[3][: len(earlier)].sum())
+        n_cross = int((got[1][: len(earlier)] == len(zones)).sum())
         log(f"phase main-path: {kname}: {n_placed} placed, {n_uncertain} of {len(earlier)} "
-            f"queued apps uncertain")
+            f"queued apps uncertain, {n_cross} on the cross-zone solve; cluster of "
+            f"{sk.zone_layout(az_arrays[3], len(zones)).cluster} blocks of {sk.THREADS} threads")
         # every app's zone solves (its zone compare and gang core on every
         # node), the placing zone's fill or drain and the carry update
         work = MF_OPS_PER_NODE_FEASIBLE_APP if minfrag else OPS_PER_NODE_FEASIBLE_APP
@@ -562,6 +628,9 @@ def main() -> int:
             lambda: sk.solve_queue_single_az_plain(*az_arrays, *az_scalars, **flags),
             lambda: sk.fifo_queue_single_az(*az_floor, *az_scalars, **flags), ops, az_bytes,
         ))
+    for kind, lib in libraries.items():
+        for entry, registers, spills in ptxas_report(lib.build_log):
+            log(f"phase main-path: ptxas {kind} {entry}: {registers} registers, {spills} bytes spill stores")
     for p in solvers:
         log(f"phase main-path: {p} Filter decision median {median_ms(solve_ms[p])} | {smi}")
 

@@ -1,23 +1,27 @@
 // Device code shared by the whole-queue gang-solve kernels (queue_kernel.cu,
 // minfrag_kernel.cu, single_az_kernel.cu).
 //
-// Every kernel walks the FIFO queue in ONE block of kThreads threads; thread t
-// owns the contiguous node chunk [lo, hi), so a block-wide exclusive scan of
-// per-thread partial sums is a prefix in node order.  Block reductions are
-// the only synchronisation: each ends with a barrier, so its scratch may be
-// reused at once and every thread returns the same value.
+// A kernel walks the FIFO queue in one block, or in a thread-block cluster
+// whose blocks each hold a segment of the node axis.  A block keeps its
+// segment's state (Nodes) with local indices [0, len); thread t owns a
+// contiguous chunk [lo, hi) of the range it is working on, so a scan of
+// per-thread partial sums in thread order is a prefix in node order.
+// Reductions are the only synchronisation, through a policy object:
+// BlockRed (one block; each reduction ends with a barrier) or ClusterRed
+// (the block's partial is written into every block of the cluster through
+// distributed shared memory, then one cluster barrier).  Every thread of
+// every block gets the same value.
 //
 // The per-app steps below replace the Pallas helpers of
 // k8s_spark_scheduler_tpu/ops/pallas_queue.py: gang_core (_gang_core),
 // tightly_fill (the _solve_tightly fill), min_frag_drain (_solve_min_frag,
-// _mf_run, _mf_caps).  Each takes a node predicate `in(i)` (the zone mask of
-// the single-AZ kernel, always true elsewhere) and touches the per-node work
-// plane only for nodes where it holds.  All arithmetic is int32 with the
-// reference's semantics: truncating division, the zero-requirement
-// dimension, the (rank, node) minimum, argmin meaning the first index.
+// _mf_run, _mf_caps).  All arithmetic is int32 with the reference's
+// semantics: truncating division, the zero-requirement dimension, the
+// (rank, node) minimum, argmin meaning the first index.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,14 +29,15 @@
 
 namespace gang {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+namespace cg = cooperative_groups;
+
 constexpr int kBig = 2147483647;
 // unbounded capacity of the min-frag drain (batch_solver.MF_SENT); callers
 // guard that no real capacity reaches it
 constexpr int kMfSent = 2147483646;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kNoKey = ~0ull;
+constexpr int kMaxCluster = 8;  // the portable cluster size
 
 // ---- capacities --------------------------------------------------------------
 
@@ -55,165 +60,372 @@ __device__ __forceinline__ int mf_cap(int c, int m, int g, int ec, int em, int e
   return max(v, 0);
 }
 
-// ---- block reductions --------------------------------------------------------
+// node_cap from mf_cap's value: under the min-frag guard (no availability
+// above kMfSent - 1) d == kMfSent exactly where node_cap's minimum is kBig.
+__device__ __forceinline__ int clamp_cap(int d, int k) { return d == kMfSent ? k : min(d, k); }
 
-struct Red {
-  int* i;                  // [kWarps]
-  int2* i2;                // [kWarps]
-  unsigned long long* u;   // [kWarps]
+// ---- reductions ----------------------------------------------------------------
+
+// Reductions over one block of kThreads threads.  Each returns the same
+// value in every thread and ends with a barrier, so the storage may be
+// reused at once.
+template <int kThreads>
+struct BlockRed {
+  static constexpr int kWarps = kThreads / 32;
+  struct Storage {
+    int i[kWarps];
+    int2 i2[kWarps];
+    int4 i4[kWarps];
+    unsigned long long u[kWarps];
+  };
+  Storage* st;
+
+  __device__ explicit BlockRed(Storage* storage) : st(storage) {}
+
+  __device__ int sum(int v) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    if (lane == 0) st->i[warp] = v;
+    __syncthreads();
+    int r = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) r += st->i[w];
+    __syncthreads();
+    return r;
+  }
+
+  __device__ int max(int v) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = ::max(v, __shfl_xor_sync(kFull, v, off));
+    if (lane == 0) st->i[warp] = v;
+    __syncthreads();
+    int r = st->i[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) r = ::max(r, st->i[w]);
+    __syncthreads();
+    return r;
+  }
+
+  // Two independent sums in one pass.
+  __device__ int2 sum2(int2 v) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v.x += __shfl_xor_sync(kFull, v.x, off);
+      v.y += __shfl_xor_sync(kFull, v.y, off);
+    }
+    if (lane == 0) st->i2[warp] = v;
+    __syncthreads();
+    int2 r = make_int2(0, 0);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      r.x += st->i2[w].x;
+      r.y += st->i2[w].y;
+    }
+    __syncthreads();
+    return r;
+  }
+
+  // (sum of s.x, sum of s.y, max of m)
+  __device__ int3 sum2max(int2 s, int m) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s.x += __shfl_xor_sync(kFull, s.x, off);
+      s.y += __shfl_xor_sync(kFull, s.y, off);
+      m = ::max(m, __shfl_xor_sync(kFull, m, off));
+    }
+    if (lane == 0) st->i4[warp] = make_int4(s.x, s.y, m, 0);
+    __syncthreads();
+    int3 r = make_int3(0, 0, 0);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int4 p = st->i4[w];
+      r.x += p.x;
+      r.y += p.y;
+      r.z = ::max(r.z, p.z);
+    }
+    __syncthreads();
+    return r;
+  }
+
+  __device__ unsigned long long min(unsigned long long v) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      unsigned long long o = __shfl_xor_sync(kFull, v, off);
+      v = o < v ? o : v;
+    }
+    if (lane == 0) st->u[warp] = v;
+    __syncthreads();
+    unsigned long long r = kNoKey;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) r = st->u[w] < r ? st->u[w] : r;
+    __syncthreads();
+    return r;
+  }
+
+  // Exclusive scan over threads in thread order.
+  __device__ int exclusive_scan(int v) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) st->i[warp] = incl;
+    __syncthreads();
+    int before = 0;
+    for (int w = 0; w < warp; ++w) before += st->i[w];
+    __syncthreads();
+    return before + incl - v;
+  }
+
+  // (exclusive scan of v.x in thread order, sum of v.y) in one pass.
+  __device__ int2 scan_sum(int2 v) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = v.x, tot = v.y;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+      tot += __shfl_xor_sync(kFull, tot, off);
+    }
+    if (lane == 31) st->i2[warp] = make_int2(incl, tot);
+    __syncthreads();
+    int before = 0, all = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int2 p = st->i2[w];
+      before += w < warp ? p.x : 0;
+      all += p.y;
+    }
+    __syncthreads();
+    return make_int2(before + incl - v.x, all);
+  }
 };
 
-__device__ __forceinline__ int block_sum(int v, const Red& red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  if (lane == 0) red.i[warp] = v;
-  __syncthreads();
-  int r = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) r += red.i[w];
-  __syncthreads();
-  return r;
-}
+// Reductions over a thread-block cluster of kThreads-thread blocks whose
+// blocks hold consecutive segments of the node axis in cluster rank order.
+// A reduction is a warp step (__reduce_*_sync where it fits), the warps'
+// partials combined by C threads of each block, each writing its block's
+// partial into one block's exchange slots through distributed shared
+// memory, one cluster barrier, and every thread combining the C slots.
+// The exchange is double-buffered: a block writes parity p's slots again
+// only after the next reduction's barrier, which every block reaches after
+// reading them.  The object is per thread (it carries the parity).
+template <int kThreads>
+struct ClusterRed {
+  static constexpr int kWarps = kThreads / 32;
+  struct Storage {
+    int4 part[kWarps];
+    int4 slot[2][kMaxCluster];
+  };
+  Storage* st;
+  int rank, size, parity;
 
-// Two independent sums in one pass.
-__device__ __forceinline__ int2 block_sum2(int2 v, const Red& red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v.x += __shfl_xor_sync(kFull, v.x, off);
-    v.y += __shfl_xor_sync(kFull, v.y, off);
+  __device__ explicit ClusterRed(Storage* storage) : st(storage), parity(0) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
+    size = static_cast<int>(cluster.num_blocks());
   }
-  if (lane == 0) red.i2[warp] = v;
-  __syncthreads();
-  int2 r = make_int2(0, 0);
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    r.x += red.i2[w].x;
-    r.y += red.i2[w].y;
-  }
-  __syncthreads();
-  return r;
-}
 
-__device__ __forceinline__ int block_max(int v, const Red& red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // Lane 0 of each warp has written st->part[warp]; combine them per block
+  // with `op` and exchange.  Returns this reduction's C slots.
+  template <class Op>
+  __device__ const int4* exchange(Op op) {
+    __syncthreads();
+    cg::cluster_group cluster = cg::this_cluster();
+    if (static_cast<int>(threadIdx.x) < size) {
+      int4 acc = st->part[0];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(kFull, v, off));
-  if (lane == 0) red.i[warp] = v;
-  __syncthreads();
-  int r = red.i[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = max(r, red.i[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ unsigned long long block_min(unsigned long long v, const Red& red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    unsigned long long o = __shfl_xor_sync(kFull, v, off);
-    v = o < v ? o : v;
+      for (int w = 1; w < kWarps; ++w) acc = op(acc, st->part[w]);
+      int4* dst = cluster.map_shared_rank(&st->slot[parity][0], threadIdx.x);
+      dst[rank] = acc;
+    }
+    cluster.sync();
+    const int4* got = st->slot[parity];
+    parity ^= 1;
+    return got;
   }
-  if (lane == 0) red.u[warp] = v;
-  __syncthreads();
-  unsigned long long r = kNoKey;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) r = red.u[w] < r ? red.u[w] : r;
-  __syncthreads();
-  return r;
-}
 
-// Exclusive scan over threads in thread order.
-__device__ __forceinline__ int block_exclusive_scan(int v, const Red& red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    int y = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += y;
+  __device__ int sum(int v) {
+    v = __reduce_add_sync(kFull, v);
+    if ((threadIdx.x & 31) == 0) st->part[threadIdx.x >> 5] = make_int4(v, 0, 0, 0);
+    const int4* got = exchange([](int4 a, int4 b) { return make_int4(a.x + b.x, 0, 0, 0); });
+    int r = 0;
+    for (int b = 0; b < size; ++b) r += got[b].x;
+    return r;
   }
-  if (lane == 31) red.i[warp] = incl;
-  __syncthreads();
-  int before = 0;
-  for (int w = 0; w < warp; ++w) before += red.i[w];
-  __syncthreads();
-  return before + incl - v;
-}
+
+  __device__ int max(int v) {
+    v = __reduce_max_sync(kFull, v);
+    if ((threadIdx.x & 31) == 0) st->part[threadIdx.x >> 5] = make_int4(v, 0, 0, 0);
+    const int4* got = exchange([](int4 a, int4 b) { return make_int4(::max(a.x, b.x), 0, 0, 0); });
+    int r = got[0].x;
+    for (int b = 1; b < size; ++b) r = ::max(r, got[b].x);
+    return r;
+  }
+
+  __device__ int3 sum2max(int2 s, int m) {
+    s.x = __reduce_add_sync(kFull, s.x);
+    s.y = __reduce_add_sync(kFull, s.y);
+    m = __reduce_max_sync(kFull, m);
+    if ((threadIdx.x & 31) == 0) st->part[threadIdx.x >> 5] = make_int4(s.x, s.y, m, 0);
+    const int4* got = exchange(
+        [](int4 a, int4 b) { return make_int4(a.x + b.x, a.y + b.y, ::max(a.z, b.z), 0); });
+    int3 r = make_int3(0, 0, 0);
+    for (int b = 0; b < size; ++b) {
+      r.x += got[b].x;
+      r.y += got[b].y;
+      r.z = ::max(r.z, got[b].z);
+    }
+    return r;
+  }
+
+  __device__ unsigned long long min(unsigned long long v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      unsigned long long o = __shfl_xor_sync(kFull, v, off);
+      v = o < v ? o : v;
+    }
+    if ((threadIdx.x & 31) == 0) {
+      st->part[threadIdx.x >> 5] =
+          make_int4(static_cast<int>(v & 0xffffffffu), static_cast<int>(v >> 32), 0, 0);
+    }
+    const auto key = [](int4 a) {
+      return (static_cast<unsigned long long>(static_cast<unsigned>(a.y)) << 32) |
+             static_cast<unsigned>(a.x);
+    };
+    const int4* got = exchange([&](int4 a, int4 b) { return key(b) < key(a) ? b : a; });
+    unsigned long long r = kNoKey;
+    for (int b = 0; b < size; ++b) r = key(got[b]) < r ? key(got[b]) : r;
+    return r;
+  }
+
+  // Exclusive scan of v.x over the cluster's threads in (rank, thread)
+  // order, and the sum of v.y, in one exchange.
+  __device__ int2 scan_sum(int2 v) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = v.x;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int tot = __reduce_add_sync(kFull, v.y);
+    if (lane == 31) st->part[warp] = make_int4(incl, tot, 0, 0);
+    __syncthreads();
+    int before = 0;
+    for (int w = 0; w < warp; ++w) before += st->part[w].x;
+    const int4* got = exchange([](int4 a, int4 b) { return make_int4(a.x + b.x, a.y + b.y, 0, 0); });
+    int2 r = make_int2(before + incl - v.x, 0);
+    for (int b = 0; b < size; ++b) {
+      r.x += b < rank ? got[b].x : 0;
+      r.y += got[b].y;
+    }
+    return r;
+  }
+};
 
 // ---- the queue state one block walks ------------------------------------------
 
 struct Nodes {
-  int* cpu;          // [n] carried availability, updated after each app
+  int* cpu;          // [len] carried availability, updated after each app
   int* mem;
   int* gpu;
-  int* work;         // [n] per-app work plane: capacities, then executor counts
-  const int* rank;   // [n] driver rank, kBig = not a candidate
-  const uint8_t* ok; // [n] executor candidate
-  int n, lo, hi;     // node count and this thread's chunk [lo, hi)
+  int* work;         // [len] per-app work plane: capacities, then executor counts
+  const int* rank;   // [len] driver rank, kBig = not a candidate
+  const uint8_t* ok; // [len] executor candidate
+  int n;             // node count of the whole problem (the "no driver" index)
+  int base;          // node index of local node 0 (in the kernel's node order)
+  int len;           // nodes this block holds
+  int lo, hi;        // this thread's chunk of the current range, local
 };
 
-// The chunk of nodes this thread owns.
-__device__ __forceinline__ void chunk_of(int n, int* lo, int* hi) {
-  const int chunk = (n + kThreads - 1) / kThreads;
-  *lo = min(static_cast<int>(threadIdx.x) * chunk, n);
-  *hi = min(*lo + chunk, n);
+// This thread's chunk of the local range [begin, end) over kThreads threads.
+template <int kThreads>
+__device__ __forceinline__ void set_range(Nodes* s, int begin, int end) {
+  const int chunk = (end - begin + kThreads - 1) / kThreads;
+  s->lo = min(begin + static_cast<int>(threadIdx.x) * chunk, end);
+  s->hi = min(s->lo + chunk, end);
 }
 
-// Bytes of dynamic shared memory the queue state takes: the cpu, mem, gpu,
-// work and rank int32 planes, exec_ok and `extra` more bytes a node,
-// 16-byte aligned.
-inline long long node_shared_bytes(int n, int extra) {
-  return 20ll * n + ((static_cast<long long>(n) * (1 + extra) + 15) / 16) * 16;
-}
+// Bytes of dynamic shared memory `cap` nodes of queue state take: the cpu,
+// mem, gpu, work and rank int32 planes and exec_ok.
+constexpr long long kNodeBytes = 21;
 
-// Lays the queue state out in dynamic shared memory (`smem`, rank and
-// exec_ok copied in) or, when it does not fit, in global scratch ([4N]
-// int32; rank and exec_ok read in place), loads the availability and
-// sets this thread's chunk.  Returns the first shared byte after the
-// state (where a kernel may keep `extra` bytes a node), or nullptr.
-__device__ __forceinline__ uint8_t* init_nodes(Nodes* s, int* smem, int* scratch, int in_shared,
-                                               const int* avail_in, const int* rank_in,
-                                               const uint8_t* ok_in, int n) {
-  int* base = in_shared ? smem : scratch;
-  s->cpu = base;
-  s->mem = s->cpu + n;
-  s->gpu = s->mem + n;
-  s->work = s->gpu + n;
-  s->rank = rank_in;
-  s->ok = ok_in;
+// Lays out the state of the nodes [base, base + len) of the kernel's node
+// order in `smem` (room for that many nodes) or, when smem is nullptr, at
+// offset `base` of planar global scratch: [4n] int32 (cpu, mem, gpu, work)
+// with rank and exec_ok read in place when `src` is the identity, else
+// [5n] int32 and [n] bytes that hold them too.  Node j of the kernel's
+// order is input node src(j).  Loads the state and sets this thread's
+// chunk of the whole segment.
+template <int kThreads, bool kIdentity, class Src>
+__device__ void init_nodes(Nodes* s, uint8_t* smem, int* scratch, Src src, const int* avail_in,
+                           const int* rank_in, const uint8_t* ok_in, int n, int base, int len) {
   s->n = n;
-  uint8_t* rest = nullptr;
-  if (in_shared) {
-    int* rank_s = s->work + n;
-    uint8_t* ok_s = reinterpret_cast<uint8_t*>(rank_s + n);
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      rank_s[i] = rank_in[i];
-      ok_s[i] = ok_in[i];
+  s->base = base;
+  s->len = len;
+  int* rank_w;
+  uint8_t* ok_w;
+  if (smem != nullptr) {
+    int* p = reinterpret_cast<int*>(smem);
+    s->cpu = p;
+    s->mem = p + len;
+    s->gpu = p + 2 * len;
+    s->work = p + 3 * len;
+    rank_w = p + 4 * len;
+    ok_w = reinterpret_cast<uint8_t*>(p + 5 * len);
+  } else {
+    s->cpu = scratch + base;
+    s->mem = scratch + n + base;
+    s->gpu = scratch + 2 * n + base;
+    s->work = scratch + 3 * n + base;
+    rank_w = kIdentity ? nullptr : scratch + 4 * n + base;
+    ok_w = kIdentity ? nullptr : reinterpret_cast<uint8_t*>(scratch + 5 * n) + base;
+  }
+  if (rank_w == nullptr) {
+    s->rank = rank_in + base;
+    s->ok = ok_in + base;
+  } else {
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      const int o = src(base + i);
+      rank_w[i] = rank_in[o];
+      ok_w[i] = ok_in[o];
     }
-    s->rank = rank_s;
-    s->ok = ok_s;
-    rest = ok_s + n;
+    s->rank = rank_w;
+    s->ok = ok_w;
   }
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    s->cpu[i] = avail_in[3 * i];
-    s->mem[i] = avail_in[3 * i + 1];
-    s->gpu[i] = avail_in[3 * i + 2];
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    const int o = src(base + i);
+    s->cpu[i] = avail_in[3 * o];
+    s->mem[i] = avail_in[3 * o + 1];
+    s->gpu[i] = avail_in[3 * o + 2];
   }
-  chunk_of(n, &s->lo, &s->hi);
+  set_range<kThreads>(s, 0, len);
   __syncthreads();
-  return rest;
 }
 
-__device__ __forceinline__ void store_avail(const Nodes& s, int* avail_out) {
+template <int kThreads, class Src>
+__device__ void store_avail(const Nodes& s, Src src, int* avail_out) {
   __syncthreads();
-  for (int i = threadIdx.x; i < s.n; i += kThreads) {
-    avail_out[3 * i] = s.cpu[i];
-    avail_out[3 * i + 1] = s.mem[i];
-    avail_out[3 * i + 2] = s.gpu[i];
+  for (int i = threadIdx.x; i < s.len; i += kThreads) {
+    const int o = src(s.base + i);
+    avail_out[3 * o] = s.cpu[i];
+    avail_out[3 * o + 1] = s.mem[i];
+    avail_out[3 * o + 2] = s.gpu[i];
   }
 }
+
+// The node order of a kernel that keeps the input's order.
+struct Identity {
+  __device__ __forceinline__ int operator()(int i) const { return i; }
+};
 
 struct App {
   int dc, dm, dg;  // driver
@@ -227,57 +439,78 @@ __device__ __forceinline__ App load_app(const int* drivers, const int* executors
              executors[3 * a], executors[3 * a + 1], executors[3 * a + 2], counts[a]};
 }
 
-// Feasibility and the first driver (pallas_queue._gang_core) over the nodes
-// where in(i) holds: writes each such node's executor capacity to `work`
-// (the driver's node keeps the capacity left beside the driver) and returns
-// the driver's index, or n when the gang does not fit.
-template <typename In>
-__device__ int gang_core(const Nodes& s, const App& a, In in, const Red& red) {
+// The gang core's driver: idx is its node index as `key` numbers nodes (n
+// when the gang does not fit), local its local index in the thread whose
+// chunk holds it and -1 in every other thread.
+struct Driver {
+  int idx;
+  int local;
+};
+
+// Feasibility and the first driver (pallas_queue._gang_core) over this
+// thread's chunk: writes each node's executor capacity to `work` (the
+// driver's node keeps the capacity left beside the driver), clamped to
+// [0, k], or kUnclamped: the min-frag drain's unclamped capacity (callers
+// guard mf_sentinel_safe).  `key(i)` numbers local node i for the (rank,
+// node) minimum.
+template <bool kUnclamped, class R, class Key>
+__device__ Driver gang_core(const Nodes& s, const App& a, R& red, Key key) {
   int part = 0;
   for (int i = s.lo; i < s.hi; ++i) {
-    if (!in(i)) continue;
-    const int c = s.ok[i] ? node_cap(s.cpu[i], s.mem[i], s.gpu[i], a.ec, a.em, a.eg, a.k) : 0;
-    s.work[i] = c;
+    int c = 0;
+    if (kUnclamped) {
+      const int d = s.ok[i] ? mf_cap(s.cpu[i], s.mem[i], s.gpu[i], a.ec, a.em, a.eg) : 0;
+      s.work[i] = d;
+      c = clamp_cap(d, a.k);
+    } else {
+      c = s.ok[i] ? node_cap(s.cpu[i], s.mem[i], s.gpu[i], a.ec, a.em, a.eg, a.k) : 0;
+      s.work[i] = c;
+    }
     part += c;
   }
-  const int total = block_sum(part, red);
+  const int total = red.sum(part);
 
   unsigned long long best = kNoKey;
+  int best_i = -1;
   for (int i = s.lo; i < s.hi; ++i) {
     const int r = s.rank[i];
-    if (r < kBig && in(i) && s.cpu[i] >= a.dc && s.mem[i] >= a.dm && s.gpu[i] >= a.dg) {
+    if (r < kBig && s.cpu[i] >= a.dc && s.mem[i] >= a.dm && s.gpu[i] >= a.dg) {
       const int cd = s.ok[i] ? node_cap(s.cpu[i] - a.dc, s.mem[i] - a.dm, s.gpu[i] - a.dg,
                                         a.ec, a.em, a.eg, a.k)
                              : 0;
-      if (total - s.work[i] + cd >= a.k) {
+      const int c = kUnclamped ? clamp_cap(s.work[i], a.k) : s.work[i];
+      if (total - c + cd >= a.k) {
         // flipping the sign bit orders signed ranks as unsigned keys
-        const unsigned long long key =
+        const unsigned long long kv =
             (static_cast<unsigned long long>(static_cast<unsigned>(r) ^ 0x80000000u) << 32) |
-            static_cast<unsigned>(i);
-        best = key < best ? key : best;
+            static_cast<unsigned>(key(i));
+        if (kv < best) {
+          best = kv;
+          best_i = i;
+        }
       }
     }
   }
-  best = block_min(best, red);
-  if (best == kNoKey) return s.n;  // a candidate's rank is < kBig
-  const int didx = static_cast<int>(best & 0xffffffffu);
-  if (didx >= s.lo && didx < s.hi) {
-    s.work[didx] = s.ok[didx] ? node_cap(s.cpu[didx] - a.dc, s.mem[didx] - a.dm,
-                                         s.gpu[didx] - a.dg, a.ec, a.em, a.eg, a.k)
-                              : 0;
+  const unsigned long long won = red.min(best);
+  if (won == kNoKey) return Driver{s.n, -1};  // a candidate's rank is < kBig
+  const int local = best == won ? best_i : -1;  // keys are unique: one thread holds it
+  if (local >= 0) {
+    const int c = s.cpu[local] - a.dc, m = s.mem[local] - a.dm, g = s.gpu[local] - a.dg;
+    s.work[local] = !s.ok[local] ? 0
+                    : kUnclamped ? mf_cap(c, m, g, a.ec, a.em, a.eg)
+                                 : node_cap(c, m, g, a.ec, a.em, a.eg, a.k);
   }
-  return didx;
+  return Driver{static_cast<int>(won & 0xffffffffu), local};
 }
 
 // Tightly-pack fill over a feasible gang_core's capacities:
-// work[i] = clip(k - exclusive_cumsum(cap)[i], 0, cap[i]) on the nodes in(i).
-template <typename In>
-__device__ void tightly_fill(const Nodes& s, const App& a, In in, const Red& red) {
+// work[i] = clip(k - exclusive_cumsum(cap)[i], 0, cap[i]).
+template <class R>
+__device__ void tightly_fill(const Nodes& s, const App& a, R& red) {
   int part = 0;
-  for (int i = s.lo; i < s.hi; ++i) part += in(i) ? s.work[i] : 0;
-  int run = block_exclusive_scan(part, red);
+  for (int i = s.lo; i < s.hi; ++i) part += s.work[i];
+  int run = red.exclusive_scan(part);
   for (int i = s.lo; i < s.hi; ++i) {
-    if (!in(i)) continue;
     const int c = s.work[i];
     s.work[i] = min(max(a.k - run, 0), c);
     run += c;
@@ -285,33 +518,28 @@ __device__ void tightly_fill(const Nodes& s, const App& a, In in, const Red& red
 }
 
 // The minimal-fragmentation drain (pallas_queue._solve_min_frag after
-// _gang_core) for a feasible app with its driver on node didx: writes each
-// node's executor count to work[i] on the nodes in(i).
+// _gang_core) for a feasible app, over gang_core<true>'s capacities
+// d (the driver subtracted on its node): writes each node's executor count
+// to work.  Node order for its ties is s.base + i.
 //
-// d = the unclamped capacity with the driver subtracted on its node.  The
-// reference tries the (k+max)/2 subset and then the full set, each a drain
-// over value classes: v* = max{v : sum over d >= v of min(d, k) >= k} (31
-// probes of a binary search), the classes above v* drain fully, the first
-// t* = (r-1)/v* nodes at v* drain in node order, and the remaining k* go
-// to the smallest remaining capacity >= k*, first index among equals.  The
-// subset wins when it fits, so which pass places is known from the two
-// passes' totals before any probe: only that pass is run.
-template <typename In>
-__device__ void min_frag_drain(const Nodes& s, const App& a, int didx, In in, const Red& red) {
+// The reference tries the (k+max)/2 subset and then the full set, each a
+// drain over value classes: v* = max{v : sum over d >= v of min(d, k) >= k}
+// (31 probes of a binary search over [1, kMfSent]), the classes above v*
+// drain fully, the first t* = (r-1)/v* nodes at v* drain in node order, and
+// the remaining k* go to the smallest remaining capacity >= k*, first index
+// among equals.  The subset wins when it fits, so which pass places is
+// known from the two passes' totals: only that pass is run.  Let m be the
+// pass's largest capacity.  If m >= k, one node alone gives k, so v* = m,
+// r = k, t* = 0, k* = k and the drain is the final minimum alone.  Else
+// min(d, k) = d on the pass and v* lies in [1, m]: ceil(log2 m) probes find
+// it, then one scan gives the drained sum and the class ranks together.
+// minfrag_kernel.vstar_short is the same search in plain PyTorch.
+template <class R>
+__device__ void min_frag_drain(const Nodes& s, const App& a, R& red) {
   const int k = a.k;
   int mx = 0;
-  for (int i = s.lo; i < s.hi; ++i) {
-    if (!in(i)) continue;
-    int d = 0;
-    if (s.ok[i]) {
-      const bool drv = i == didx;
-      d = mf_cap(s.cpu[i] - (drv ? a.dc : 0), s.mem[i] - (drv ? a.dm : 0),
-                 s.gpu[i] - (drv ? a.dg : 0), a.ec, a.em, a.eg);
-    }
-    s.work[i] = d;
-    mx = max(mx, d);
-  }
-  const int max_cap = block_max(mx, red);
+  for (int i = s.lo; i < s.hi; ++i) mx = max(mx, s.work[i]);
+  const int max_cap = red.max(mx);
   const bool has_sent = max_cap == kMfSent;
   // floor((k + max) / 2) without int32 overflow; >> is floor division by 2
   const int target = (k >> 1) + (max_cap >> 1) + (((k & 1) + (max_cap & 1)) >> 1);
@@ -321,57 +549,61 @@ __device__ void min_frag_drain(const Nodes& s, const App& a, int didx, In in, co
   };
 
   int2 part2 = make_int2(0, 0);
+  int sub_max = 0;
   for (int i = s.lo; i < s.hi; ++i) {
-    if (!in(i)) continue;
     const int d = s.work[i];
-    part2.x += in_subset(d) ? min(d, k) : 0;
+    if (in_subset(d)) {
+      part2.x += min(d, k);
+      sub_max = max(sub_max, d);
+    }
     part2.y += d > 0 ? min(d, k) : 0;
   }
-  const int2 totals = block_sum2(part2, red);
+  const int3 totals = red.sum2max(part2, sub_max);
   const bool full_ok = totals.y >= k && k > 0;
   if (!full_ok) {  // no executor is placed
-    for (int i = s.lo; i < s.hi; ++i)
-      if (in(i)) s.work[i] = 0;
+    for (int i = s.lo; i < s.hi; ++i) s.work[i] = 0;
     return;
   }
   const bool use_sub = attempt && totals.x >= k;  // k > 0 here
   auto in_pass = [&](int d) { return use_sub ? in_subset(d) : d > 0; };
+  const int m = use_sub ? totals.z : max_cap;
 
-  int lo = 1, hi = kMfSent;
-  for (int probe = 0; probe < 31; ++probe) {
-    const int mid = lo + (hi - lo + 1) / 2;  // hi - lo + 1 >= 0: truncation is floor
-    int part = 0;
+  int vstar = m, tstar = 0, kstar = k, at_before = 0;
+  if (m < k) {
+    int lo = 1, hi = m;
+    while (lo < hi) {  // uniform: every thread holds the same bounds
+      const int mid = lo + (hi - lo + 1) / 2;
+      int part = 0;
+      for (int i = s.lo; i < s.hi; ++i) {
+        const int d = s.work[i];
+        part += in_pass(d) && d >= mid ? d : 0;
+      }
+      if (red.sum(part) >= k) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    vstar = lo;
+    int2 at_drained = make_int2(0, 0);
     for (int i = s.lo; i < s.hi; ++i) {
-      if (!in(i)) continue;
       const int d = s.work[i];
-      part += in_pass(d) && d >= mid ? min(d, k) : 0;
+      if (!in_pass(d)) continue;
+      at_drained.x += d == vstar;
+      at_drained.y += d > vstar ? d : 0;
     }
-    if (block_sum(part, red) >= k) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
-    }
+    const int2 scan = red.scan_sum(at_drained);
+    at_before = scan.x;
+    const int r = k - scan.y;
+    tstar = max(r - 1, 0) / vstar;
+    kstar = r - tstar * vstar;
   }
-  const int vstar = lo;
 
-  int drained_sum = 0, at_count = 0;
-  for (int i = s.lo; i < s.hi; ++i) {
-    if (!in(i)) continue;
-    const int d = s.work[i];
-    if (!in_pass(d)) continue;
-    drained_sum += d > vstar ? d : 0;
-    at_count += d == vstar;
-  }
-  const int r = k - block_sum(drained_sum, red);
-  const int tstar = max(r - 1, 0) / vstar;
-  const int kstar = r - tstar * vstar;
-  const int at_before = block_exclusive_scan(at_count, red);
-
-  // the final placement: smallest remaining capacity >= k*, first index
+  // the final placement: smallest remaining capacity >= k*, first index (a
+  // feasible pass always has one: some node at v* is left, and v* >= k*)
   unsigned long long best = kNoKey;
   int run = at_before;
   for (int i = s.lo; i < s.hi; ++i) {
-    if (!in(i)) continue;
     const int d = s.work[i];
     if (!in_pass(d)) continue;
     const bool at = d == vstar;
@@ -380,16 +612,15 @@ __device__ void min_frag_drain(const Nodes& s, const App& a, int didx, In in, co
     if (!drained && d >= kstar) {
       const unsigned long long key =
           (static_cast<unsigned long long>(static_cast<unsigned>(d)) << 32) |
-          static_cast<unsigned>(i);
+          static_cast<unsigned>(s.base + i);
       best = key < best ? key : best;
     }
   }
-  best = block_min(best, red);
-  const int partial = best == kNoKey ? 0 : static_cast<int>(best & 0xffffffffu);
+  best = red.min(best);
+  const int partial = best == kNoKey ? -1 : static_cast<int>(best & 0xffffffffu);
 
   run = at_before;
   for (int i = s.lo; i < s.hi; ++i) {
-    if (!in(i)) continue;
     const int d = s.work[i];
     int count = 0;
     if (in_pass(d)) {
@@ -397,20 +628,20 @@ __device__ void min_frag_drain(const Nodes& s, const App& a, int didx, In in, co
       if (d > vstar || (at && run < tstar)) count = d;
       run += at;
     }
-    s.work[i] = count + (i == partial ? kstar : 0);
+    s.work[i] = count + (s.base + i == partial ? kstar : 0);
   }
 }
 
-// The reference's usage subtraction: one executor's worth on every node
-// where placed(i) (work[i] > 0), else the driver on its node.
-template <typename Placed>
-__device__ void subtract_usage(const Nodes& s, const App& a, int didx, Placed placed) {
+// The reference's usage subtraction over this thread's chunk: one
+// executor's worth on every node with work[i] > 0, else the driver on the
+// driver's node (local index `driver`, -1 when not in this chunk).
+__device__ __forceinline__ void subtract_usage(const Nodes& s, const App& a, int driver) {
   for (int i = s.lo; i < s.hi; ++i) {
-    if (placed(i)) {
+    if (s.work[i] > 0) {
       s.cpu[i] -= a.ec;
       s.mem[i] -= a.em;
       s.gpu[i] -= a.eg;
-    } else if (i == didx) {
+    } else if (i == driver) {
       s.cpu[i] -= a.dc;
       s.mem[i] -= a.dm;
       s.gpu[i] -= a.dg;
@@ -454,5 +685,27 @@ class SharedLimit {
   std::mutex lock_;
   long long limit_[kMaxDevices] = {};  // 0 = not looked up yet
 };
+
+// Launches `kernel` as clusters of `cluster` blocks (grid = one cluster) of
+// `threads` threads with `smem` dynamic shared bytes on `stream`.
+template <class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int cluster, int threads, long long smem,
+                           void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 }  // namespace gang

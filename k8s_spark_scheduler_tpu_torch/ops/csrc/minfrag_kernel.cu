@@ -12,18 +12,27 @@
 // driver_idx = N.  The caller guards batch_solver.mf_sentinel_safe, so no
 // real capacity reaches the unbounded sentinel.
 //
-// Design.  As queue_kernel.cu: one block of 1024 threads walks the queue,
-// the carry, work plane, ranks and exec_ok in 21 bytes a node of shared
-// memory while they fit (215,040 bytes at the 10,240-node bucket), planar
-// global scratch above that.
+// Bound.  The apps depend on each other through the carry, so the kernel
+// is a serial chain of per-app steps; each step is a few walks over a
+// thread's nodes and reductions across the threads that hold them.  The
+// reference's drain takes 31 binary-search probes for v*, each a walk and a
+// reduction (some 38 reductions and 35 walks a feasible app).  This drain
+// (gang_common.cuh) takes none when the placing pass's largest capacity m
+// reaches k, the common case for gangs of up to 32 on nodes of up to 96
+// cores, and ceil(log2 m) otherwise: a feasible app then takes 5 reductions
+// (gang core 2, the maximum, the passes' totals and maximum, the final
+// minimum) and 7 walks.  The gang core keeps the unclamped capacities, so
+// the drain divides again only on the driver's node.
 //
-// Bound.  Each feasible app takes some 38 block reductions in sequence
-// (two for the gang core, the maximum, the two passes' totals, 31 probes of
-// the binary search, the drained sum, the class scan and the final
-// placement's minimum), each a few barriers on one SM.  The kernel is bound
-// by that serial chain, not by device memory or by the ALUs.  Narrowing the
-// search to [1, max capacity] or spreading an app over several SMs are the
-// ways to go faster.
+// Design.  A cluster of 8 blocks of 512 threads splits the node axis into 8
+// segments (1,280 nodes a block, 2.5 a thread, at the 10,240-node bucket),
+// each in its block's shared memory (the carry, work plane, ranks and
+// exec_ok in 21 bytes a node; planar global scratch when a segment does not
+// fit).  A reduction is a block reduction whose partial goes to every block
+// through distributed shared memory and one cluster barrier
+// (gang_common.cuh: ClusterRed); the scans' cross-block offsets come from
+// the same exchange.  At the main path's inputs this launch took 11.8 ms
+// against 26.1 ms for one block of 1,024 threads (PERF.md).
 
 #include "gang_common.cuh"
 
@@ -31,6 +40,7 @@ namespace {
 
 using namespace gang;
 
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads, 1)
 fifo_queue_min_frag_kernel(const int* __restrict__ avail_in,    // [N, 3]
                            const int* __restrict__ rank_in,     // [N]
@@ -46,67 +56,66 @@ fifo_queue_min_frag_kernel(const int* __restrict__ avail_in,    // [N, 3]
                            int* __restrict__ scratch,           // [4N] when not in shared memory
                            int in_shared) {
   extern __shared__ int4 smem_raw[];
-  __shared__ int red_i[kWarps];
-  __shared__ int2 red_i2[kWarps];
-  __shared__ unsigned long long red_u[kWarps];
-  const Red red{red_i, red_i2, red_u};
+  __shared__ typename ClusterRed<kThreads>::Storage red_storage;
+  ClusterRed<kThreads> red(&red_storage);
 
+  const int rank = red.rank, size = red.size;
+  const int chunk = (n + size - 1) / size;
+  const int base = min(rank * chunk, n);
   Nodes s;
-  init_nodes(&s, reinterpret_cast<int*>(smem_raw), scratch, in_shared, avail_in, rank_in, ok_in, n);
-  const auto all = [](int) { return true; };
+  init_nodes<kThreads, true>(&s, in_shared ? reinterpret_cast<uint8_t*>(smem_raw) : nullptr,
+                             scratch, Identity{}, avail_in, rank_in, ok_in, n, base,
+                             min(base + chunk, n) - base);
+  cg::this_cluster().sync();  // every block runs before DSMEM writes
+  const bool writer = rank == 0 && threadIdx.x == 0;
+  const auto node = [&](int i) { return s.base + i; };
 
   for (int a = 0; a < n_apps; ++a) {
-    if (!valid[a]) {  // uniform across the block
-      if (threadIdx.x == 0) {
+    if (!valid[a]) {  // uniform across the cluster
+      if (writer) {
         feasible_out[a] = 0;
         driver_idx_out[a] = n;
       }
       continue;
     }
     const App app = load_app(drivers, executors, counts, a);
-    const int didx = gang_core(s, app, all, red);
-    if (threadIdx.x == 0) {
-      feasible_out[a] = didx < n ? 1 : 0;
-      driver_idx_out[a] = didx;
+    const Driver drv = gang_core<true>(s, app, red, node);
+    if (writer) {
+      feasible_out[a] = drv.idx < n ? 1 : 0;
+      driver_idx_out[a] = drv.idx;
     }
-    if (didx == n) continue;
-    min_frag_drain(s, app, didx, all, red);
-    subtract_usage(s, app, didx, [&](int i) { return s.work[i] > 0; });
+    if (drv.idx == n) continue;
+    min_frag_drain(s, app, red);
+    subtract_usage(s, app, drv.local);
   }
-  store_avail(s, avail_out);
+  store_avail<kThreads>(s, Identity{}, avail_out);
+  cg::this_cluster().sync();
 }
+
+constexpr int kBlocks = kMaxCluster;
+constexpr int kThreads = 512;
+const auto kKernel = fifo_queue_min_frag_kernel<kThreads>;
 
 SharedLimit g_limit;
 
 }  // namespace
 
-// Dynamic shared memory the kernel takes for n nodes on the current
-// device, or 0 when they do not fit and the kernel works from global
-// scratch.  A negative value is a CUDA error code, negated.
-extern "C" long long fifo_queue_min_frag_shared_bytes(int n) {
-  long long limit = 0;
-  cudaError_t err =
-      g_limit.get(reinterpret_cast<const void*>(fifo_queue_min_frag_kernel), &limit);
-  if (err != cudaSuccess) return -static_cast<long long>(err);
-  const long long bytes = node_shared_bytes(n, 0);
-  return n > 0 && bytes <= limit ? bytes : 0;
-}
-
-// Launches the kernel on `stream` on the current device; `scratch` ([4N]
-// int32) is needed only when fifo_queue_min_frag_shared_bytes(n) is 0.
-// Returns the CUDA error code (0 = ok).
+// Launches the kernel on `stream` on the current device as one cluster of 8
+// blocks; `scratch` is [4N] int32.  Returns the CUDA error code (0 = ok); a
+// refused launch returns its error and nothing runs.
 extern "C" int fifo_queue_min_frag_launch(const int* avail, const int* rank,
                                           const uint8_t* exec_ok, const int* drivers,
                                           const int* executors, const int* counts,
                                           const uint8_t* valid, int n, int n_apps,
                                           uint8_t* feasible_out, int* driver_idx_out,
                                           int* avail_out, int* scratch, void* stream) {
-  const long long smem = fifo_queue_min_frag_shared_bytes(n);
-  if (smem < 0) return static_cast<int>(-smem);
-  if (smem == 0 && scratch == nullptr && n > 0) return cudaErrorInvalidValue;
-  fifo_queue_min_frag_kernel<<<1, kThreads, static_cast<size_t>(smem),
-                               static_cast<cudaStream_t>(stream)>>>(
-      avail, rank, exec_ok, drivers, executors, counts, valid, n, n_apps, feasible_out,
-      driver_idx_out, avail_out, scratch, smem > 0 ? 1 : 0);
-  return cudaGetLastError();
+  if (scratch == nullptr && n > 0) return cudaErrorInvalidValue;
+  long long limit = 0;
+  cudaError_t err = g_limit.get(reinterpret_cast<const void*>(kKernel), &limit);
+  if (err != cudaSuccess) return err;
+  const long long bytes = kNodeBytes * ((n + kBlocks - 1) / kBlocks);
+  const long long smem = n > 0 && bytes <= limit ? bytes : 0;
+  return launch_cluster(kKernel, kBlocks, kThreads, smem, stream, avail, rank, exec_ok, drivers,
+                        executors, counts, valid, n, n_apps, feasible_out, driver_idx_out,
+                        avail_out, scratch, smem > 0 ? 1 : 0);
 }

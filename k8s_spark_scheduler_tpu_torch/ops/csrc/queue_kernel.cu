@@ -42,6 +42,9 @@ namespace {
 
 using namespace gang;
 
+constexpr int kThreads = 1024;
+using Red = BlockRed<kThreads>;
+
 template <bool kEvenly>
 __global__ void __launch_bounds__(kThreads, 1)
 fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
@@ -58,14 +61,12 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
                   int* __restrict__ scratch,            // [4N] when not in shared memory
                   int in_shared) {
   extern __shared__ int4 smem_raw[];
-  __shared__ int red_i[kWarps];
-  __shared__ int2 red_i2[kWarps];
-  __shared__ unsigned long long red_u[kWarps];
-  const Red red{red_i, red_i2, red_u};
+  __shared__ Red::Storage red_storage;
+  const Red red(&red_storage);
 
   Nodes s;
-  init_nodes(&s, reinterpret_cast<int*>(smem_raw), scratch, in_shared, avail_in, rank_in, ok_in, n);
-  const auto all = [](int) { return true; };
+  init_nodes<kThreads, true>(&s, in_shared ? reinterpret_cast<uint8_t*>(smem_raw) : nullptr,
+                             scratch, Identity{}, avail_in, rank_in, ok_in, n, 0, n);
 
   for (int a = 0; a < n_apps; ++a) {
     if (!valid[a]) {  // uniform across the block
@@ -76,7 +77,7 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
       continue;
     }
     const App app = load_app(drivers, executors, counts, a);
-    const int didx = gang_core(s, app, all, red);
+    const int didx = gang_core<false>(s, app, red, Identity{}).idx;
     if (threadIdx.x == 0) {
       feasible_out[a] = didx < n ? 1 : 0;
       driver_idx_out[a] = didx;
@@ -87,7 +88,7 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
     // the usage subtraction: executor on filled nodes, else driver on its node
     int part = 0;
     for (int i = s.lo; i < s.hi; ++i) part += kEvenly ? (s.work[i] > 0) : s.work[i];
-    int run = block_exclusive_scan(part, red);
+    int run = red.exclusive_scan(part);
     for (int i = s.lo; i < s.hi; ++i) {
       const int c = s.work[i];
       bool filled;
@@ -109,7 +110,7 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
       }
     }
   }
-  store_avail(s, avail_out);
+  store_avail<kThreads>(s, Identity{}, avail_out);
 }
 
 SharedLimit g_limit[2];  // per variant
@@ -120,7 +121,7 @@ long long shared_bytes(int n) {
   cudaError_t err =
       g_limit[kEvenly].get(reinterpret_cast<const void*>(fifo_queue_kernel<kEvenly>), &limit);
   if (err != cudaSuccess) return -static_cast<long long>(err);
-  const long long bytes = node_shared_bytes(n, 0);
+  const long long bytes = kNodeBytes * n;
   return n > 0 && bytes <= limit ? bytes : 0;
 }
 

@@ -7,7 +7,8 @@ The kernel replaces the JAX package's Pallas kernel
 ``fifo_queue_min_frag`` is the wrapper every caller goes through: a tensor
 on the CPU takes the plain version (``solve_queue_min_frag_plain``), a
 CUDA tensor launches the kernel, and anything else raises.  There is no
-fallback from the kernel to the plain version.  The caller guards
+fallback from the kernel to the plain version: a refused cluster launch
+raises.  The caller guards
 ``batch_solver.mf_sentinel_safe``: no real capacity may reach ``MF_SENT``.
 """
 
@@ -19,7 +20,7 @@ from typing import Tuple
 import torch
 
 from .batch_solver import MF_SENT
-from .cuda_build import KernelLibrary, shared_bytes_or_raise
+from .cuda_build import KernelLibrary
 from .queue_kernel import (
     BIG,
     check_queue_args,
@@ -34,8 +35,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fifo_queue_min_frag_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, p]
     lib.fifo_queue_min_frag_launch.restype = ctypes.c_int
-    lib.fifo_queue_min_frag_shared_bytes.argtypes = [i]
-    lib.fifo_queue_min_frag_shared_bytes.restype = ctypes.c_longlong
 
 
 LIBRARY = KernelLibrary("minfrag_kernel.cu", _declare)
@@ -49,12 +48,9 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def shared_bytes(n: int, device: torch.device) -> int:
-    """Dynamic shared memory the kernel takes for n nodes (0: it works
-    from global memory because they do not fit)."""
-    lib = LIBRARY.load()
-    with torch.cuda.device(device):
-        return shared_bytes_or_raise(lib.fifo_queue_min_frag_shared_bytes(n), "min-frag")
+# the kernel's launch: the node axis over one cluster of 8 blocks of 512
+# threads (csrc/minfrag_kernel.cu)
+CLUSTER_BLOCKS, THREADS = 8, 512
 
 
 def mf_caps_plain(cpu, mem, gpu, ex, exec_ok):
@@ -72,7 +68,7 @@ def mf_caps_plain(cpu, mem, gpu, ex, exec_ok):
 def _mf_run(d, sub, k, node_ids):
     """pallas_queue._mf_run for every pass at once: d [..., N], sub
     [..., P, N] one eligibility mask per pass.  Returns (ok [..., P],
-    drained [..., P, N], partial [..., P], kstar [..., P])."""
+    drained [..., P, N], partial [..., P], kstar [..., P], vstar [..., P])."""
     dd = torch.where(sub, d[..., None, :], 0)
     dc = torch.minimum(dd, k)
     ok = (dc.sum(-1, dtype=torch.int32) >= k) & (k > 0)
@@ -98,7 +94,30 @@ def _mf_run(d, sub, k, node_ids):
     partial = last_axis_min(torch.where(cand & (dd == vp[..., None]), node_ids, BIG), BIG)
     # empty candidate set → index 0, replicating the host argmax default
     partial = torch.where(partial == BIG, 0, partial)
-    return ok, drained, partial, kstar
+    return ok, drained, partial, kstar, vstar
+
+
+def vstar_short(d: torch.Tensor, k: int, in_pass: torch.Tensor) -> Tuple[int, int]:
+    """v* of a feasible min-frag pass as the kernel finds it
+    (csrc/gang_common.cuh: min_frag_drain), step by step: (v*, probes).
+    d [N] are the capacities, in_pass [N] the pass's nodes, k > 0 and the
+    pass holds k (sum of min(d, k) >= k).  With m the pass's largest
+    capacity: m >= k gives v* = m with no probe; else a binary search over
+    [1, m] with d in place of min(d, k).  It equals _mf_run's 31-probe
+    search; it exists for the tests."""
+    dd = torch.where(in_pass, d, 0)
+    m = int(dd.max()) if dd.numel() else 0
+    if m >= k:
+        return m, 0
+    lo, hi, probes = 1, m, 0
+    while lo < hi:
+        mid = lo + (hi - lo + 1) // 2
+        probes += 1
+        if int(torch.where(dd >= mid, dd, 0).sum()) >= k:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo, probes
 
 
 def min_frag_plain(cpu, mem, gpu, rank, exec_ok, dr, ex, k):
@@ -127,7 +146,7 @@ def min_frag_plain(cpu, mem, gpu, rank, exec_ok, dr, ex, k):
     attempt = has_sent | (k < max_cap)
 
     passes = torch.stack([subset & attempt[..., None], elig], dim=-2)
-    ok, drained, partial, kstar = _mf_run(d, passes, k, node_ids)
+    ok, drained, partial, kstar, _ = _mf_run(d, passes, k, node_ids)
     use_sub = attempt & ok[..., 0]
     drained = torch.where(use_sub[..., None], drained[..., 0, :], drained[..., 1, :])
     partial = torch.where(use_sub, partial[..., 0], partial[..., 1])
@@ -177,7 +196,7 @@ def fifo_queue_min_frag(
     """Whole-queue min-frag gang solve: (feasible [A] bool, driver_idx [A]
     int32, avail_after [N, 3] int32).  CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream (no
-    synchronisation)."""
+    synchronisation) as one cluster of CLUSTER_BLOCKS blocks."""
     device = avail.device
     if device.type == "cpu":
         return solve_queue_min_frag_plain(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid)
@@ -190,15 +209,14 @@ def fifo_queue_min_frag(
     feasible = torch.empty((a,), dtype=torch.bool, device=device)
     driver_idx = torch.empty((a,), dtype=torch.int32, device=device)
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
+    # the node planes when a block's nodes do not fit in its shared memory
+    scratch = torch.empty((4 * n,), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        # global scratch only when the nodes do not fit in shared memory
-        scratch = None if shared_bytes(n, device) else torch.empty((4 * n,), dtype=torch.int32, device=device)
         err = lib.fifo_queue_min_frag_launch(
             avail.data_ptr(), driver_rank.data_ptr(), exec_ok.data_ptr(),
             drivers.data_ptr(), executors.data_ptr(), counts.data_ptr(), app_valid.data_ptr(),
             n, a,
-            feasible.data_ptr(), driver_idx.data_ptr(), avail_after.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
+            feasible.data_ptr(), driver_idx.data_ptr(), avail_after.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

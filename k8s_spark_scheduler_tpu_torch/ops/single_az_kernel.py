@@ -6,12 +6,13 @@ The kernel replaces the JAX package's Pallas kernel
 app, every zone's gang solve (tightly-pack, or the min-frag drain), the
 fixed-point zone score, the strict-improvement choice in zone order with
 its ``uncertain`` flag, the az-aware cross-zone fallback and the carried
-usage subtraction, for the whole queue in one launch.
+usage subtraction, for the whole queue in one launch of a thread-block
+cluster whose blocks each own a run of zones (``zone_layout``).
 ``fifo_queue_single_az`` is the wrapper every caller goes through: a
 tensor on the CPU takes the plain version
 (``solve_queue_single_az_plain``), a CUDA tensor launches the kernel, and
 anything else raises.  There is no fallback from the kernel to the plain
-version.  The caller guards the score's numeric bounds
+version: a refused cluster launch raises.  The caller guards the score's numeric bounds
 (``fifo_solver._fused_efficiency_inputs``) and, for the min-frag drain,
 ``batch_solver.mf_sentinel_safe``.
 """
@@ -19,12 +20,12 @@ version.  The caller guards the score's numeric bounds
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .batch_solver import EFF_SHIFT
-from .cuda_build import KernelLibrary, check_tensor, shared_bytes_or_raise
+from .cuda_build import KernelLibrary, check_tensor
 from .minfrag_kernel import min_frag_plain
 from .queue_kernel import BIG, check_queue_args, gang_core_plain, subtract_usage_plain
 
@@ -39,10 +40,8 @@ VARIANTS = (
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fifo_queue_single_az_launch.argtypes = [p] * 12 + [i] * 7 + [p] * 7
+    lib.fifo_queue_single_az_launch.argtypes = [p] * 14 + [i] * 8 + [p] * 9
     lib.fifo_queue_single_az_launch.restype = ctypes.c_int
-    lib.fifo_queue_single_az_shared_bytes.argtypes = [i, i, i]
-    lib.fifo_queue_single_az_shared_bytes.restype = ctypes.c_longlong
 
 
 LIBRARY = KernelLibrary("single_az_kernel.cu", _declare)
@@ -62,15 +61,58 @@ def variant_of(az_aware: bool, minfrag: bool) -> int:
     return 2 if minfrag else int(az_aware)
 
 
-def shared_bytes(n: int, n_zones: int, variant: int, device: torch.device) -> int:
-    """Dynamic shared memory the kernel's variant takes for n nodes in
-    n_zones zones (0: it works from global memory because they do not
-    fit)."""
-    lib = LIBRARY.load()
-    with torch.cuda.device(device):
-        return shared_bytes_or_raise(
-            lib.fifo_queue_single_az_shared_bytes(n, n_zones, variant), "single-AZ"
-        )
+# the most blocks a cluster takes (the portable cluster size), and the
+# threads of each block (csrc/single_az_kernel.cu)
+MAX_CLUSTER = 8
+THREADS = 512
+
+
+class ZoneLayout(NamedTuple):
+    """The kernel's node order and its cluster's blocks: perm [N] int32 is
+    the input node at each position (zone 0's nodes in input order, then
+    zone 1's, ..., then the nodes of no zone), pos_of [N] int32 its
+    inverse, zone_start [Z + 1] int32 each zone's first position (the last
+    entry is where the nodes of no zone start), block_zone [C + 1] int32
+    each block's first zone (block b owns zones [block_zone[b],
+    block_zone[b + 1]); the last block also holds the nodes of no zone)."""
+
+    perm: torch.Tensor
+    pos_of: torch.Tensor
+    zone_start: torch.Tensor
+    block_zone: torch.Tensor
+
+    @property
+    def cluster(self) -> int:
+        return self.block_zone.shape[0] - 1
+
+
+def zone_layout(zone_id: torch.Tensor, n_zones: int) -> ZoneLayout:
+    """The zone-major layout for ``zone_id`` [N] int32 (an id outside
+    [0, n_zones) is no zone), computed with torch ops on its device.  The
+    cluster has C = min(max(n_zones, 1), MAX_CLUSTER) blocks; a zone goes
+    to the block its middle node falls in when the zoned nodes are cut into
+    C equal parts, kept so that zone 0 is in block 0, the last zone in the
+    last block, and each zone at most one block after the zone before it,
+    so that no block is left without a zone."""
+    dev = zone_id.device
+    n = zone_id.shape[0]
+    c = min(max(n_zones, 1), MAX_CLUSTER)
+    key = torch.where((zone_id >= 0) & (zone_id < n_zones), zone_id, n_zones).to(torch.int64)
+    perm = torch.sort(key, stable=True).indices
+    pos_of = torch.empty_like(perm)
+    pos_of[perm] = torch.arange(n, dtype=torch.int64, device=dev)
+    sizes = torch.bincount(key, minlength=n_zones + 1)[:n_zones]
+    zone_start = torch.zeros(n_zones + 1, dtype=torch.int64, device=dev)
+    zone_start[1:] = torch.cumsum(sizes, 0)
+    z = torch.arange(n_zones, dtype=torch.int64, device=dev)
+    total = torch.clamp(zone_start[-1], min=1)
+    block = torch.div((2 * zone_start[:-1] + sizes) * c, 2 * total, rounding_mode="floor")
+    block = torch.minimum(torch.maximum(block, c - n_zones + z), torch.clamp(z, max=c - 1))
+    # block[z] = min(block[z], block[z - 1] + 1), for every z at once
+    block = z + torch.cummin(block - z, 0).values
+    block_zone = torch.searchsorted(block, torch.arange(c + 1, dtype=torch.int64, device=dev))
+    i32 = torch.int32
+    return ZoneLayout(perm.to(i32), pos_of.to(i32), zone_start.to(i32), block_zone.to(i32))
 
 
 def _tightly_plain(cpu, mem, gpu, rank, exec_ok, dr, ex, k):
@@ -233,25 +275,29 @@ def fifo_queue_single_az(
         check_tensor(t, what, dtype, (n,), device)
 
     lib = LIBRARY.load()
+    layout = zone_layout(zone_id, n_zones)
+    blocks = torch.cat((layout.zone_start, layout.block_zone))
     feasible = torch.empty((a,), dtype=torch.bool, device=device)
     zone_idx = torch.empty((a,), dtype=torch.int32, device=device)
     driver_idx = torch.empty((a,), dtype=torch.int32, device=device)
     uncertain = torch.empty((a,), dtype=torch.bool, device=device)
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
+    # node planes of the blocks whose segment does not fit in shared memory
+    # ([5N] int32 and [N] bytes), the cross-zone capacities, and the zone
+    # table when it does not fit in shared memory
+    scratch = torch.empty((5 * n + (n + 3) // 4,), dtype=torch.int32, device=device)
+    cross_caps = torch.empty((n,), dtype=torch.int32, device=device)
+    zone_table = torch.empty((2 * n_zones, 4), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        # global scratch only when the nodes do not fit in shared memory
-        scratch = (
-            None if shared_bytes(n, n_zones, variant, device)
-            else torch.empty((4 * n,), dtype=torch.int32, device=device)
-        )
         err = lib.fifo_queue_single_az_launch(
-            avail.data_ptr(), driver_rank.data_ptr(), exec_ok.data_ptr(), zone_id.data_ptr(),
+            avail.data_ptr(), driver_rank.data_ptr(), exec_ok.data_ptr(), layout.perm.data_ptr(),
+            layout.pos_of.data_ptr(), blocks.data_ptr(),
             drivers.data_ptr(), executors.data_ptr(), counts.data_ptr(), app_valid.data_ptr(),
             s_cpu.data_ptr(), s_gpu.data_ptr(), inv_mem.data_ptr(), th_mem.data_ptr(),
-            int(scale_cpu), int(scale_gpu), n, a, n_zones, variant, int(strict),
+            int(scale_cpu), int(scale_gpu), n, a, n_zones, layout.cluster, variant, int(strict),
             feasible.data_ptr(), zone_idx.data_ptr(), driver_idx.data_ptr(), uncertain.data_ptr(),
-            avail_after.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
+            avail_after.data_ptr(), scratch.data_ptr(), cross_caps.data_ptr(),
+            zone_table.data_ptr() if n_zones else None,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

@@ -302,6 +302,71 @@ def test_min_frag_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
         mk.fifo_queue_min_frag(*meta)
 
 
+def _vstar_31_probes(d, in_pass, k):
+    """v* as the plain version's _mf_run finds it (the Pallas kernel's 31
+    probes over [1, MF_SENT])."""
+    n = d.shape[0]
+    *_, vstar = mk._mf_run(d, in_pass[None, :], torch.tensor(k, dtype=torch.int32),
+                           torch.arange(n, dtype=torch.int32))
+    return int(vstar[0])
+
+
+def _subset_pass(d, k):
+    """min_frag_plain's (k + max) / 2 subset of capacities d."""
+    m = int(d.max())
+    has_sent = bool((d == bs.MF_SENT).any())
+    return (d > 0) & ((d < bs.MF_SENT) if has_sent else (d < (k + m) // 2))
+
+
+VSTAR_EDGES = {
+    # name: (capacities, k, pass: "all" = d > 0, "subset" = the (k+max)/2 subset)
+    "m_equals_k": ([3, 5, 2, 0], 5, "all"),
+    "m_is_k_minus_1": ([4, 4, 1, 0], 5, "all"),
+    "k_is_1": ([1, 7, 0], 1, "all"),
+    "sentinel": ([bs.MF_SENT, 3, 0], 4, "all"),
+    "sentinel_subset": ([bs.MF_SENT, 3, 2, 2], 4, "subset"),
+    "pass_max_1": ([1] * 10 + [0], 6, "all"),
+    "subset_pass": ([10, 3, 3, 2], 4, "subset"),
+    "one_class_exact": ([2, 2, 2], 6, "all"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VSTAR_EDGES))
+def test_vstar_short_matches_31_probes_edge_cases(case):
+    caps, k, which = VSTAR_EDGES[case]
+    d = torch.tensor(caps, dtype=torch.int32)
+    in_pass = _subset_pass(d, k) if which == "subset" else d > 0
+    assert int(torch.clamp(torch.where(in_pass, d, 0), max=k).sum()) >= k > 0
+    vstar, probes = mk.vstar_short(d, k, in_pass)
+    assert vstar == _vstar_31_probes(d, in_pass, k), case
+    m = int(torch.where(in_pass, d, 0).max())
+    assert probes == 0 if m >= k else probes <= (m - 1).bit_length()
+
+
+def test_vstar_short_matches_31_probes_random():
+    """Seeded random passes (the full pass or the subset pass, capacities up
+    to 96 with ties, zeros and sentinels, k up to 59): the short search
+    finds the 31-probe v* in at most ceil(log2 m) probes, none when the
+    pass's largest capacity reaches k."""
+    rng = np.random.RandomState(31)
+    checked = 0
+    for trial in range(600):
+        n = int(rng.randint(1, 40))
+        caps = np.where(rng.rand(n) < 0.5, rng.randint(1, 9, size=n), rng.randint(0, 97, size=n))
+        caps[rng.rand(n) < 0.05] = bs.MF_SENT
+        k = int(rng.randint(1, 60))
+        d = torch.as_tensor(caps.astype(np.int32))
+        in_pass = _subset_pass(d, k) if rng.rand() < 0.5 else d > 0
+        if not in_pass.any() or int(torch.clamp(torch.where(in_pass, d, 0), max=k).sum()) < k:
+            continue
+        vstar, probes = mk.vstar_short(d, k, in_pass)
+        assert vstar == _vstar_31_probes(d, in_pass, k), f"trial {trial}: k={k} caps={caps.tolist()}"
+        m = int(torch.where(in_pass, d, 0).max())
+        assert probes == 0 if m >= k else probes <= (m - 1).bit_length(), f"trial {trial}"
+        checked += 1
+    assert checked >= 300
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,a", [(2, 5), (129, 64), (4099, 64), (12345, 16), (10240, 1024)])
 def test_cuda_min_frag_kernel_matches_plain(n, a):

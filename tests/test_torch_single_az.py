@@ -527,9 +527,92 @@ def test_single_az_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
         fs.TpuSingleAzFifoSolver(az_aware=True, inner_policy="minimal-fragmentation", device="cpu")
 
 
+def skewed_zone_ids(rng, n, n_zones):
+    """Zone ids with skewed zone sizes (zone z drawn with weight 2^-z,
+    floored), zone 1 left empty when there are at least 3 zones, and some
+    nodes of no zone (-1 and ids >= n_zones)."""
+    if n_zones == 0:
+        return rng.randint(-2, 1, size=n).astype(np.int32)
+    w = np.maximum(0.5 ** np.arange(n_zones), 1.0 / n_zones)
+    if n_zones >= 3:
+        w[1] = 0.0
+    zone_id = rng.choice(n_zones, size=n, p=w / w.sum()).astype(np.int32)
+    none = rng.rand(n) < 0.1
+    zone_id[none] = np.where(rng.rand(int(none.sum())) < 0.5, -1, n_zones + 3)
+    return zone_id
+
+
+@pytest.mark.parametrize("n_zones", [0, 1, 3, 9, 17, 200])
+def test_zone_layout(n_zones):
+    """The kernel's zone-major layout: a permutation that keeps input order
+    within a zone and puts the nodes of no zone last, zone starts that
+    match, and blocks that own contiguous runs of zones in zone order,
+    covering every zone, with at most 8 blocks and none skipped."""
+    rng = np.random.RandomState(70 + n_zones)
+    n = 3000
+    zone_id = skewed_zone_ids(rng, n, n_zones)
+    layout = sk.zone_layout(torch.as_tensor(zone_id), n_zones)
+    perm, pos_of = layout.perm.numpy(), layout.pos_of.numpy()
+    zone_start, block_zone = layout.zone_start.numpy(), layout.block_zone.numpy()
+    assert all(t.dtype == torch.int32 for t in layout)
+    assert sorted(perm.tolist()) == list(range(n))  # every node exactly once
+    assert (pos_of[perm] == np.arange(n)).all()
+    key = np.where((zone_id >= 0) & (zone_id < n_zones), zone_id, n_zones)
+    assert (np.diff(key[perm]) >= 0).all()  # zone-major, no-zone nodes last
+    for z in range(n_zones + 1):  # input order kept within a zone
+        assert (np.diff(perm[key[perm] == z]) > 0).all()
+    assert zone_start.shape == (n_zones + 1,) and zone_start[0] == 0
+    assert (zone_start[1:] == np.cumsum(np.bincount(key, minlength=n_zones + 1)[:n_zones])).all()
+    for z in range(n_zones):
+        assert (key[perm[zone_start[z]:zone_start[z + 1]]] == z).all()
+    c = min(max(n_zones, 1), sk.MAX_CLUSTER)
+    assert layout.cluster == c and block_zone.shape == (c + 1,)
+    assert block_zone[0] == 0 and block_zone[-1] == n_zones and (np.diff(block_zone) >= 0).all()
+    if n_zones >= c:
+        assert (np.diff(block_zone) >= 1).all()  # every block owns a zone
+    if n_zones >= 3:
+        assert zone_start[2] == zone_start[1]  # the empty zone
+    # the zoned nodes spread over the blocks: no block holds more than the
+    # largest zone plus an even share
+    sizes = np.diff(zone_start)
+    seg = [zone_start[block_zone[b + 1]] - zone_start[block_zone[b]] for b in range(c)]
+    assert sum(seg) == zone_start[-1]
+    if n_zones:
+        assert max(seg) <= sizes.max() + zone_start[-1] / c + 1
+
+
+def test_zone_layout_one_zone_and_no_zone_only():
+    layout = sk.zone_layout(torch.zeros(7, dtype=torch.int32), 1)
+    assert layout.perm.tolist() == list(range(7)) and layout.zone_start.tolist() == [0, 7]
+    assert layout.block_zone.tolist() == [0, 1]
+    layout = sk.zone_layout(torch.full((5,), -1, dtype=torch.int32), 2)
+    assert layout.perm.tolist() == list(range(5)) and layout.zone_start.tolist() == [0, 0, 0]
+    assert layout.block_zone.tolist() == [0, 1, 2]
+
+
+@pytest.mark.parametrize("sizes", [
+    [1, 1, 1, 1, 100, 1, 1, 1, 1],  # a large zone amid small ones
+    [1] * 8 + [1000],
+    [1000] + [1] * 16,
+    [0, 0, 0, 500, 0, 0, 0, 0, 0, 0, 7],
+])
+def test_zone_layout_leaves_no_block_idle(sizes):
+    """However skewed the zone sizes, each zone goes at most one block after
+    the zone before it, so every block of the cluster owns a zone."""
+    zone_id = torch.cat([torch.full((s,), z, dtype=torch.int32) for z, s in enumerate(sizes)])
+    layout = sk.zone_layout(zone_id, len(sizes))
+    block_zone = layout.block_zone.numpy()
+    assert layout.cluster == sk.MAX_CLUSTER
+    assert block_zone[0] == 0 and block_zone[-1] == len(sizes)
+    assert (np.diff(block_zone) >= 1).all()
+    if sizes[:5] == [1, 1, 1, 1, 100]:
+        assert block_zone.tolist() == [0, 2, 3, 4, 5, 6, 7, 8, 9]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,a,n_zones", [(2, 5, 1), (129, 64, 3), (4099, 64, 2), (12345, 16, 3), (10240, 1024, 3),
-                                         (1000, 16, 200), (12345, 8, 150)])
+                                         (1000, 16, 200), (12345, 8, 150), (3000, 64, 9), (10240, 64, 17),
+                                         (12345, 16, 1), (12000, 4, 4000)])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_cuda_single_az_kernel_matches_plain(variant, n, a, n_zones):
     if not torch.cuda.is_available():
@@ -546,6 +629,27 @@ def test_cuda_single_az_kernel_matches_plain(variant, n, a, n_zones):
     for g, w in zip(got, want):
         assert torch.equal(g, w), f"{variant} n={n} a={a}"
     assert sk.launch_counts[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_zones", [1, 3, 9, 17])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_cuda_single_az_kernel_uneven_zones_matches_plain(variant, n_zones):
+    """Skewed zone sizes, an empty zone and nodes of no zone, with fewer
+    and more zones than the cluster has blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the single-AZ kernel has no CPU mode")
+    az_aware, minfrag, strict = VARIANTS[variant]
+    rng = np.random.RandomState(900 + n_zones)
+    arrays = list(random_single_az_queue(rng, 4000, 96, n_zones))
+    arrays[3] = skewed_zone_ids(rng, 4000, n_zones)
+    tensors = tuple(torch.as_tensor(x, device="cuda") for x in arrays[:12])
+    flags = dict(az_aware=az_aware, minfrag=minfrag, strict=strict)
+    got = sk.fifo_queue_single_az(*tensors, *arrays[12:], **flags)
+    want = sk.solve_queue_single_az_plain(*tensors, *arrays[12:], **flags)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), f"{variant} zones={n_zones}"
 
 
 @pytest.mark.cuda
