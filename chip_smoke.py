@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    nodes in one zone, 12,345 in one zone, 4,000 zones, 3 zones with
    one empty, 9 and 17 zones, an az-aware queue where many apps take the
    cross-zone solve, min-frag queues where the pass's largest capacity is
-   above k and below it; outputs are integers and must be exactly equal;
+   above k and below it; the queue kernel also on 7 nodes (fewer than its
+   cluster's blocks), on 100,000 (its node planes in global scratch) and
+   on values near the int32 range (availabilities near 2^31 - 1, large,
+   odd and power-of-two requests, gangs whose capacity sums wrap), with
+   its cluster size, threads and shared bytes a block; outputs are
+   integers and must be exactly equal;
 4. main path: Filter decisions on a 10,000-node cluster in 3 zones with a
    1,000-deep pending queue, on the card and equal to the same calls on
    the CPU: ``TpuFifoSolver`` tightly-pack, distribute-evenly and
@@ -129,6 +134,33 @@ def random_queue(rng: np.random.RandomState, n: int, a: int):
     counts = rng.randint(0, 40, size=a).astype(np.int32)
     valid = rng.rand(a) < 0.9
     return avail, rank, exec_ok, drivers, executors, counts, valid
+
+
+def random_queue_large(rng: np.random.RandomState, n: int, a: int):
+    """random_queue with values near the int32 range, as GCD-scaled
+    quantities reach it: availabilities near 2^31 - 1 (some anywhere in
+    int32), large, odd and power-of-two requests, large drivers, and some
+    gangs of up to 2^31 - 1 executors, so capacity sums and prefixes wrap."""
+    _, rank, exec_ok, _, _, _, valid = random_queue(rng, n, a)
+    avail = BIG - rng.randint(0, 2**16, size=(n, 3)).astype(np.int64)
+    spread = rng.rand(n, 3) < 0.3
+    avail[spread] = rng.randint(-(2**31), BIG, size=int(spread.sum()))
+    choices = np.array([1, 2, 3, 7, 2**16, 2**20, 2**30, BIG, BIG - 1, 12345677, 1000003])
+    executors = np.where(rng.rand(a, 3) < 0.5, rng.choice(choices, size=(a, 3)),
+                         rng.randint(1, BIG, size=(a, 3)))
+    executors[rng.rand(a, 3) < 0.1] = 0
+    drivers = rng.randint(0, 2**30, size=(a, 3))
+    counts = np.where(rng.rand(a) < 0.3, rng.randint(0, BIG, size=a), rng.randint(0, 40, size=a))
+    return (avail.astype(np.int32), rank, exec_ok, drivers.astype(np.int32),
+            executors.astype(np.int32), counts.astype(np.int32), valid)
+
+
+def queue_layout(qk, n: int, device) -> str:
+    """The queue kernel's launch for n nodes, for the log."""
+    lay = qk.layout(n, device)
+    where = "in shared memory" if lay.segment_bytes else "in global scratch"
+    return (f"cluster of {lay.blocks} blocks of {lay.threads} threads, "
+            f"{lay.segment_bytes + lay.static_bytes} shared bytes a block, node planes {where}")
 
 
 def random_single_az_queue(rng: np.random.RandomState, n: int, a: int, n_zones: int):
@@ -436,7 +468,20 @@ def main() -> int:
                   f"N={n} A={a}")
         check_min_frag(arrays, f"N={n} A={a}")
         log(f"phase kernel-vs-plain: queue and min-frag kernels N={n} A={a} equal "
-            f"(queue kernel shared bytes {qk.shared_bytes(n, dev)})")
+            f"(queue kernel: {queue_layout(qk, n, dev)})")
+    # the queue kernel on fewer nodes than its cluster has blocks, above the
+    # cluster's shared memory (global scratch), and near the int32 range
+    queue_cases = [("N=7 A=20", random_queue, 7, 20), ("N=100000 A=32", random_queue, 100000, 32),
+                   ("large values N=7 A=20", random_queue_large, 7, 20),
+                   ("large values N=3000 A=128", random_queue_large, 3000, 128),
+                   ("large values N=10240 A=256", random_queue_large, 10240, 256),
+                   ("large values N=100000 A=16", random_queue_large, 100000, 16)]
+    for ci, (what, make, n, a) in enumerate(queue_cases):
+        arrays = on(dev, make(np.random.RandomState(args.seed * 1000 + 900 + ci), n, a))
+        for evenly in (False, True):
+            check("fifo_queue_evenly" if evenly else "fifo_queue_tightly",
+                  qk.fifo_queue(*arrays, evenly=evenly), qk.solve_queue_plain(*arrays, evenly=evenly), what)
+        log(f"phase kernel-vs-plain: queue kernel {what} equal ({queue_layout(qk, n, dev)})")
     # min-frag queues whose apps ask for 1-4 executors (the placing pass's
     # largest capacity reaches k) or 100-300 (capacities stay under 64 < k)
     for ci, (n, a) in enumerate([(3000, 256), (10240, 256)]):
@@ -582,7 +627,7 @@ def main() -> int:
         check(kname, got, qk.solve_queue_plain(*queue_args, evenly=evenly), "the main-path inputs")
         n_feasible = int(got[0].sum())
         ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * OPS_PER_NODE_FEASIBLE_APP)
-        log(f"phase main-path: {kname}: {n_feasible} feasible")
+        log(f"phase main-path: {kname}: {n_feasible} feasible; {queue_layout(qk, n_b, dev)}")
         kernels.append(timed(
             kname, "queue", lambda: qk.fifo_queue(*queue_args, evenly=evenly),
             lambda: qk.solve_queue_plain(*queue_args, evenly=evenly),

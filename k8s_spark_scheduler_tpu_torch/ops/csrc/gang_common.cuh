@@ -9,8 +9,8 @@
 // Reductions are the only synchronisation, through a policy object:
 // BlockRed (one block; each reduction ends with a barrier) or ClusterRed
 // (the block's partial is written into every block of the cluster through
-// distributed shared memory, then one cluster barrier).  Every thread of
-// every block gets the same value.
+// distributed shared memory, each write announced on that block's
+// mbarrier).  Every thread of every block gets the same value.
 //
 // The per-app steps below replace the Pallas helpers of
 // k8s_spark_scheduler_tpu/ops/pallas_queue.py: gang_core (_gang_core),
@@ -65,6 +65,17 @@ __device__ __forceinline__ int mf_cap(int c, int m, int g, int ec, int em, int e
 __device__ __forceinline__ int clamp_cap(int d, int k) { return d == kMfSent ? k : min(d, k); }
 
 // ---- reductions ----------------------------------------------------------------
+
+// A (rank, node) key packed in an int4's x (low) and y (high) lanes.
+__device__ __forceinline__ unsigned long long key_of(int4 a) {
+  return (static_cast<unsigned long long>(static_cast<unsigned>(a.y)) << 32) |
+         static_cast<unsigned>(a.x);
+}
+
+struct KeyPay {
+  unsigned long long key;
+  int pay;
+};
 
 // Reductions over one block of kThreads threads.  Each returns the same
 // value in every thread and ends with a barrier, so the storage may be
@@ -210,43 +221,85 @@ struct BlockRed {
 
 // Reductions over a thread-block cluster of kThreads-thread blocks whose
 // blocks hold consecutive segments of the node axis in cluster rank order.
-// A reduction is a warp step (__reduce_*_sync where it fits), the warps'
-// partials combined by C threads of each block, each writing its block's
-// partial into one block's exchange slots through distributed shared
-// memory, one cluster barrier, and every thread combining the C slots.
-// The exchange is double-buffered: a block writes parity p's slots again
-// only after the next reduction's barrier, which every block reaches after
-// reading them.  The object is per thread (it carries the parity).
+// A reduction is a warp step (__reduce_*_sync where it fits), one block
+// barrier, then C threads of each block combine the warps' partials and
+// each writes the block's partial into one block's exchange slots through
+// distributed shared memory and arrives (release, cluster scope) on that
+// block's mbarrier; every thread waits (acquire) until its block's mbarrier
+// has its C arrivals and combines the C slots.  No cluster-wide barrier:
+// a block goes on as soon as every block's partial has reached it.
+// Slots, mbarriers and warp partials are double-buffered by parity: a block
+// writes parity p's again only after passing the next reduction's wait,
+// which needs every block's next partial, which each block sends after the
+// block barrier that follows its reads of parity p.  The object is per
+// thread (it carries the parity and the mbarriers' phases); construct it
+// before the kernel's first cluster barrier, which publishes the mbarriers'
+// initialisation to the other blocks.
 template <int kThreads>
 struct ClusterRed {
   static constexpr int kWarps = kThreads / 32;
   struct Storage {
-    int4 part[kWarps];
+    int4 part[2][kWarps];
     int4 slot[2][kMaxCluster];
+    unsigned long long bar[2];  // mbarriers
   };
   Storage* st;
   int rank, size, parity;
+  unsigned phases;  // bit p: the phase parity the next wait on bar[p] expects
 
-  __device__ explicit ClusterRed(Storage* storage) : st(storage), parity(0) {
+  static __device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+  }
+
+  __device__ explicit ClusterRed(Storage* storage) : st(storage), parity(0), phases(0) {
     cg::cluster_group cluster = cg::this_cluster();
     rank = static_cast<int>(cluster.block_rank());
     size = static_cast<int>(cluster.num_blocks());
+    if (threadIdx.x == 0) {
+      for (int p = 0; p < 2; ++p) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(&st->bar[p])),
+                     "r"(size)
+                     : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
   }
 
-  // Lane 0 of each warp has written st->part[warp]; combine them per block
+  // This reduction's warp partials.
+  __device__ __forceinline__ int4* part() const { return st->part[parity]; }
+
+  // Lane 0 of each warp has written part()[warp]; combine them per block
   // with `op` and exchange.  Returns this reduction's C slots.
   template <class Op>
   __device__ const int4* exchange(Op op) {
     __syncthreads();
-    cg::cluster_group cluster = cg::this_cluster();
+    const unsigned bar = smem_addr(&st->bar[parity]);
     if (static_cast<int>(threadIdx.x) < size) {
-      int4 acc = st->part[0];
+      const int4* part = this->part();
+      int4 acc = part[0];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) acc = op(acc, st->part[w]);
-      int4* dst = cluster.map_shared_rank(&st->slot[parity][0], threadIdx.x);
+      for (int w = 1; w < kWarps; ++w) acc = op(acc, part[w]);
+      int4* dst = cg::this_cluster().map_shared_rank(&st->slot[parity][0], threadIdx.x);
       dst[rank] = acc;
+      unsigned remote;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(remote)
+                   : "r"(bar), "r"(static_cast<unsigned>(threadIdx.x)));
+      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote)
+                   : "memory");
     }
-    cluster.sync();
+    asm volatile(
+        "{\n\t"
+        ".reg .pred done;\n\t"
+        "LAB_WAIT:\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n\t"
+        "@done bra DONE;\n\t"
+        "bra LAB_WAIT;\n\t"
+        "DONE:\n\t"
+        "}" ::"r"(bar),
+        "r"((phases >> parity) & 1u)
+        : "memory");
+    phases ^= 1u << parity;
     const int4* got = st->slot[parity];
     parity ^= 1;
     return got;
@@ -254,19 +307,21 @@ struct ClusterRed {
 
   __device__ int sum(int v) {
     v = __reduce_add_sync(kFull, v);
-    if ((threadIdx.x & 31) == 0) st->part[threadIdx.x >> 5] = make_int4(v, 0, 0, 0);
+    if ((threadIdx.x & 31) == 0) part()[threadIdx.x >> 5] = make_int4(v, 0, 0, 0);
     const int4* got = exchange([](int4 a, int4 b) { return make_int4(a.x + b.x, 0, 0, 0); });
     int r = 0;
-    for (int b = 0; b < size; ++b) r += got[b].x;
+#pragma unroll
+    for (int b = 0; b < kMaxCluster; ++b) r += b < size ? got[b].x : 0;
     return r;
   }
 
   __device__ int max(int v) {
     v = __reduce_max_sync(kFull, v);
-    if ((threadIdx.x & 31) == 0) st->part[threadIdx.x >> 5] = make_int4(v, 0, 0, 0);
+    if ((threadIdx.x & 31) == 0) part()[threadIdx.x >> 5] = make_int4(v, 0, 0, 0);
     const int4* got = exchange([](int4 a, int4 b) { return make_int4(::max(a.x, b.x), 0, 0, 0); });
     int r = got[0].x;
-    for (int b = 1; b < size; ++b) r = ::max(r, got[b].x);
+#pragma unroll
+    for (int b = 1; b < kMaxCluster; ++b) r = b < size ? ::max(r, got[b].x) : r;
     return r;
   }
 
@@ -274,14 +329,17 @@ struct ClusterRed {
     s.x = __reduce_add_sync(kFull, s.x);
     s.y = __reduce_add_sync(kFull, s.y);
     m = __reduce_max_sync(kFull, m);
-    if ((threadIdx.x & 31) == 0) st->part[threadIdx.x >> 5] = make_int4(s.x, s.y, m, 0);
+    if ((threadIdx.x & 31) == 0) part()[threadIdx.x >> 5] = make_int4(s.x, s.y, m, 0);
     const int4* got = exchange(
         [](int4 a, int4 b) { return make_int4(a.x + b.x, a.y + b.y, ::max(a.z, b.z), 0); });
     int3 r = make_int3(0, 0, 0);
-    for (int b = 0; b < size; ++b) {
-      r.x += got[b].x;
-      r.y += got[b].y;
-      r.z = ::max(r.z, got[b].z);
+#pragma unroll
+    for (int b = 0; b < kMaxCluster; ++b) {
+      if (b < size) {
+        r.x += got[b].x;
+        r.y += got[b].y;
+        r.z = ::max(r.z, got[b].z);
+      }
     }
     return r;
   }
@@ -293,21 +351,41 @@ struct ClusterRed {
       v = o < v ? o : v;
     }
     if ((threadIdx.x & 31) == 0) {
-      st->part[threadIdx.x >> 5] =
+      part()[threadIdx.x >> 5] =
           make_int4(static_cast<int>(v & 0xffffffffu), static_cast<int>(v >> 32), 0, 0);
     }
-    const auto key = [](int4 a) {
-      return (static_cast<unsigned long long>(static_cast<unsigned>(a.y)) << 32) |
-             static_cast<unsigned>(a.x);
-    };
-    const int4* got = exchange([&](int4 a, int4 b) { return key(b) < key(a) ? b : a; });
+    const int4* got = exchange([](int4 a, int4 b) { return key_of(b) < key_of(a) ? b : a; });
     unsigned long long r = kNoKey;
-    for (int b = 0; b < size; ++b) r = key(got[b]) < r ? key(got[b]) : r;
+#pragma unroll
+    for (int b = 0; b < kMaxCluster; ++b) r = b < size && key_of(got[b]) < r ? key_of(got[b]) : r;
     return r;
   }
 
+  // The smallest key over the cluster's threads and the payload of the
+  // thread that holds it, in one exchange.  Keys other than kNoKey are
+  // unique; when every key is kNoKey the payload is meaningless.
+  __device__ KeyPay min_pay(unsigned long long key, int pay) {
+    const unsigned hi = static_cast<unsigned>(key >> 32), lo = static_cast<unsigned>(key);
+    const unsigned min_hi = __reduce_min_sync(kFull, hi);
+    const unsigned min_lo = __reduce_min_sync(kFull, hi == min_hi ? lo : 0xffffffffu);
+    const unsigned owner = __ballot_sync(kFull, hi == min_hi && lo == min_lo);
+    pay = __shfl_sync(kFull, pay, __ffs(owner) - 1);
+    if ((threadIdx.x & 31) == 0) {
+      part()[threadIdx.x >> 5] =
+          make_int4(static_cast<int>(min_lo), static_cast<int>(min_hi), pay, 0);
+    }
+    const int4* got = exchange([](int4 a, int4 b) { return key_of(b) < key_of(a) ? b : a; });
+    int4 r = got[0];
+#pragma unroll
+    for (int b = 1; b < kMaxCluster; ++b) r = b < size && key_of(got[b]) < key_of(r) ? got[b] : r;
+    return KeyPay{key_of(r), r.z};
+  }
+
   // Exclusive scan of v.x over the cluster's threads in (rank, thread)
-  // order, and the sum of v.y, in one exchange.
+  // order, and the sum of v.y, in one exchange.  The offset of this
+  // thread's warp within its block is read after the exchange, whose
+  // barrier publishes the warp partials too (they stay until the
+  // reduction after next, by parity).
   __device__ int2 scan_sum(int2 v) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     int incl = v.x;
@@ -317,15 +395,16 @@ struct ClusterRed {
       if (lane >= off) incl += y;
     }
     const int tot = __reduce_add_sync(kFull, v.y);
-    if (lane == 31) st->part[warp] = make_int4(incl, tot, 0, 0);
-    __syncthreads();
-    int before = 0;
-    for (int w = 0; w < warp; ++w) before += st->part[w].x;
+    int4* warps = part();
+    if (lane == 31) warps[warp] = make_int4(incl, tot, 0, 0);
     const int4* got = exchange([](int4 a, int4 b) { return make_int4(a.x + b.x, a.y + b.y, 0, 0); });
-    int2 r = make_int2(before + incl - v.x, 0);
-    for (int b = 0; b < size; ++b) {
+    int2 r = make_int2(incl - v.x, 0);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) r.x += w < warp ? warps[w].x : 0;
+#pragma unroll
+    for (int b = 0; b < kMaxCluster; ++b) {
       r.x += b < rank ? got[b].x : 0;
-      r.y += got[b].y;
+      r.y += b < size ? got[b].y : 0;
     }
     return r;
   }

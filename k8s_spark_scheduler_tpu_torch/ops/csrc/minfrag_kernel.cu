@@ -29,7 +29,7 @@
 // each in its block's shared memory (the carry, work plane, ranks and
 // exec_ok in 21 bytes a node; planar global scratch when a segment does not
 // fit).  A reduction is a block reduction whose partial goes to every block
-// through distributed shared memory and one cluster barrier
+// through distributed shared memory, announced on each block's mbarrier
 // (gang_common.cuh: ClusterRed); the scans' cross-block offsets come from
 // the same exchange.  At the main path's inputs this launch took 11.8 ms
 // against 26.1 ms for one block of 1,024 threads (PERF.md).

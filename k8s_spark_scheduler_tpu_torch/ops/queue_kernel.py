@@ -4,10 +4,16 @@
 The kernel replaces the JAX package's Pallas kernel
 ``pallas_queue.pallas_solve_queue`` / ``_queue_kernel``: the whole queue
 of earlier drivers in one launch, the availability carry resident on
-chip.  ``fifo_queue`` is the wrapper every caller goes through: a tensor
-on the CPU takes the plain version (``solve_queue_plain``), a CUDA tensor
-launches the kernel, and anything else raises.  There is no fallback from
-the kernel to the plain version.
+chip.  It launches as one thread-block cluster whose blocks each hold a
+segment of the node axis in shared memory (planar global scratch when a
+segment does not fit) and exchange partial results through distributed
+shared memory, two exchanges an app: the capacity total with the fill's
+prefix, then the driver with the one correction its node makes to that
+prefix (``layout`` reports the launch).  ``fifo_queue`` is the wrapper
+every caller goes through: a tensor on the CPU takes the plain version
+(``solve_queue_plain``), a CUDA tensor launches the kernel, and anything
+else raises.  There is no fallback from the kernel to the plain version:
+a refused cluster launch raises.
 
 The kernel is compiled from the package's sources at first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
@@ -17,7 +23,7 @@ loaded with ctypes, under ``<package>/_build`` (listed in .gitignore).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -30,8 +36,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fifo_queue_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p, p, p]
     lib.fifo_queue_launch.restype = ctypes.c_int
-    lib.fifo_queue_shared_bytes.argtypes = [i]
+    lib.fifo_queue_shared_bytes.argtypes = [i, p]
     lib.fifo_queue_shared_bytes.restype = ctypes.c_longlong
+    lib.fifo_queue_blocks.argtypes = lib.fifo_queue_threads.argtypes = []
+    lib.fifo_queue_blocks.restype = lib.fifo_queue_threads.restype = i
 
 
 LIBRARY = KernelLibrary("queue_kernel.cu", _declare)
@@ -45,12 +53,22 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def shared_bytes(n: int, device: torch.device) -> int:
-    """Dynamic shared memory the kernel takes for n nodes (0: it works
-    from global memory because they do not fit)."""
+class Layout(NamedTuple):
+    """The kernel's launch for a problem of n nodes."""
+
+    blocks: int  # blocks of the one thread-block cluster
+    threads: int  # threads a block
+    segment_bytes: int  # dynamic shared memory a block keeps its nodes in (0: global scratch)
+    static_bytes: int  # static shared memory a block keeps (the app tile, the exchange slots)
+
+
+def layout(n: int, device: torch.device) -> Layout:
+    """How the kernel launches for n nodes on `device`."""
     lib = LIBRARY.load()
+    static = ctypes.c_longlong(0)
     with torch.cuda.device(device):
-        return shared_bytes_or_raise(lib.fifo_queue_shared_bytes(n), "queue")
+        segment = shared_bytes_or_raise(lib.fifo_queue_shared_bytes(n, ctypes.byref(static)), "queue")
+    return Layout(lib.fifo_queue_blocks(), lib.fifo_queue_threads(), segment, static.value)
 
 
 def last_axis_min(x: torch.Tensor, empty: int) -> torch.Tensor:
@@ -172,7 +190,8 @@ def fifo_queue(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-queue gang solve: (feasible [A] bool, driver_idx [A] int32,
     avail_after [N, 3] int32).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream (no synchronisation)."""
+    tensors launch the kernel on the current stream (no synchronisation)
+    as one thread-block cluster."""
     device = avail.device
     if device.type == "cpu":
         return solve_queue_plain(
@@ -188,8 +207,9 @@ def fifo_queue(
     driver_idx = torch.empty((a,), dtype=torch.int32, device=device)
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        # global scratch only when the nodes do not fit in shared memory
-        scratch = None if shared_bytes(n, device) else torch.empty((4 * n,), dtype=torch.int32, device=device)
+        # global scratch only when a block's nodes do not fit in its shared memory
+        in_shared = shared_bytes_or_raise(lib.fifo_queue_shared_bytes(n, None), "queue") > 0
+        scratch = None if in_shared else torch.empty((4 * n,), dtype=torch.int32, device=device)
         err = lib.fifo_queue_launch(
             avail.data_ptr(), driver_rank.data_ptr(), exec_ok.data_ptr(),
             drivers.data_ptr(), executors.data_ptr(), counts.data_ptr(), app_valid.data_ptr(),
