@@ -34,7 +34,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the az-aware cross-zone solve, each variant's cluster size and threads,
    and ptxas's registers and spills for each kernel instantiation; decision breakdowns and the device's busy
    time in profiler traces of single decisions;
-5. the kernels line (times, bounds, launches) and the device result line.
+5. server: the port's Filter server on the card — ``init_server_with_clients``
+   (binpack ``tpu-batch``, then ``tpu-batch-distribute-evenly``, fifo) with
+   ``ExtenderHTTPServer`` on port 0, bench.py's headline HTTP snapshot
+   (10,000 nodes in 3 zones, allocatable 4–96 CPU / 8–256 Gi, 1,000 queued
+   drivers of 1–32 executors of 1–8 CPU / 2–16 Gi) rebuilt from ``--seed``;
+   2 warmup and 24 timed ``POST /predicates`` probes with all 10,000 node
+   names, each retired and settled before the next; every response body
+   equal to the same probe on a ``device="cpu"`` server fed the same
+   objects, every timed probe on the tensor lane (``lane=fast``) with the
+   CUDA queue kernel (one launch a probe); for 3 granted probes the driver
+   is bound and every executor POSTed, each granted its reserved node;
+   request latency p50 / p99, span medians and the device's idle share in
+   a profiler trace of one request;
+6. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -205,6 +218,243 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# -- phase 5: the Filter server -------------------------------------------------
+
+SERVER_POLICIES = ("tpu-batch", "tpu-batch-distribute-evenly")
+SERVER_WARMUP_PROBES, SERVER_TIMED_PROBES, SERVER_EXECUTOR_CHECKS = 2, 24, 3
+SERVER_SPANS = ("http.read", "serde.decode", "predicate", "fast_path.build_tensor", "fifo_gate",
+                "kernel:fifo_queue", "binpack", "serde.encode", "http.request")
+
+
+def server_objects(seed: int):
+    """bench.py's headline HTTP snapshot (bench.py:1533-1562) in the
+    port's types, from `seed`: node names, 10,000 nodes in 3 zones with
+    allocatable 4–96 CPU / 8–256 Gi, 1,000 queued drivers of 1–32
+    executors of 1–8 CPU / 2–16 Gi created a second apart, the probe
+    generator's random state and the queue's base creation time."""
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+    from k8s_spark_scheduler_tpu_torch.types.objects import Node, ObjectMeta
+    from k8s_spark_scheduler_tpu_torch.types.resources import ZONE_LABEL, Resources
+
+    rng = np.random.RandomState(seed + 5)
+    names, nodes = [], []
+    for i in range(N_NODES):
+        name = f"n{i:05d}"
+        names.append(name)
+        nodes.append(Node(
+            meta=ObjectMeta(name=name, labels={ZONE_LABEL: f"z{i % N_ZONES}",
+                                               "resource_channel": "batch-medium-priority"}),
+            allocatable=Resources.of(str(int(rng.randint(4, 96))), f"{int(rng.randint(8, 256))}Gi"),
+        ))
+    base = time.time() - 10_000.0
+    queue = [
+        Harness.static_allocation_spark_pods(
+            f"queue-{i:04d}", int(rng.randint(1, 32)), executor_cpu=str(int(rng.randint(1, 8))),
+            executor_mem=f"{int(rng.randint(2, 16))}Gi", creation_timestamp=base + i,
+        )[0]
+        for i in range(N_APPS)
+    ]
+    return names, nodes, queue, rng, base
+
+
+class PortServer:
+    """The port's server on its own embedded API server, serving HTTP on
+    an ephemeral port."""
+
+    def __init__(self, policy: str, device: str, nodes, queue):
+        from k8s_spark_scheduler_tpu_torch.config import Install
+        from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
+        from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
+        from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
+        from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
+
+        self.api = APIServer()
+        self.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
+        self.scheduler = init_server_with_clients(
+            self.api, Install(binpack_algo=policy, fifo=True), demand_poll_interval=0.5, device=device
+        )
+        self.http = None
+        try:
+            for obj in nodes + queue:
+                self.api.create(obj.deepcopy())
+            self.http = ExtenderHTTPServer(self.scheduler, port=0, host="127.0.0.1")
+            self.http.start()
+            if not self.scheduler.wait_ready(timeout=600.0):
+                raise SystemExit(f"the {device} server did not become ready")
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self) -> None:
+        if self.http is not None:
+            self.http.stop()
+        self.scheduler.stop()
+
+    def post(self, pod, names):
+        """(ms on the host clock, status, body bytes) of one Filter of the
+        pod as this server's API stores it."""
+        import urllib.error
+        import urllib.request
+
+        from k8s_spark_scheduler_tpu_torch.types import serde
+
+        stored = self.api.get("Pod", pod.namespace, pod.name)
+        data = json.dumps({"Pod": serde.pod_to_dict(stored), "NodeNames": names}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{self.http.port}/predicates", data=data,
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                status, body = resp.status, resp.read()
+        except urllib.error.HTTPError as err:
+            status, body = err.code, err.read()
+        return (time.perf_counter() - t) * 1e3, status, body
+
+    def reserved_node(self, pod) -> str:
+        rr = self.scheduler.resource_reservation_cache.get(pod.namespace, pod.labels["spark-app-id"])
+        for key, pod_name in rr.status.pods.items():
+            if pod_name == pod.name:
+                return rr.spec.reservations[key].node
+        raise SystemExit(f"no reservation holds {pod.name}")
+
+    def bind(self, pod, node: str) -> None:
+        stored = self.api.get("Pod", pod.namespace, pod.name)
+        stored.node_name, stored.phase = node, "Running"
+        self.api.update(stored)
+
+    def retire(self, pods) -> None:
+        """The app-finished flow: delete its pods (owner GC collects the
+        reservation) and wait until the reservation cache dropped it."""
+        for pod in pods:
+            self.api.delete("Pod", pod.namespace, pod.name)
+        app_id = pods[0].labels["spark-app-id"]
+        deadline = time.monotonic() + 30.0
+        while self.scheduler.resource_reservation_cache.get(pods[0].namespace, app_id) is not None:
+            if time.monotonic() > deadline:
+                raise SystemExit(f"the reservation of {app_id} was not collected")
+            time.sleep(0.002)
+
+    def fast_lane_count(self) -> float:
+        from k8s_spark_scheduler_tpu_torch.metrics import names as mnames
+
+        return self.scheduler.metrics.get_counter(mnames.TPU_FASTPATH, {"path": "driver", "lane": "fast"})
+
+
+def span_durations(span: dict, out: dict) -> dict:
+    out.setdefault(span["name"], []).append(span["durationMs"])
+    for child in span.get("children", ()):
+        span_durations(child, out)
+    return out
+
+
+def server_phase(seed: int, smi: str) -> None:
+    """Phase 5 (see the module docstring); raises SystemExit on any failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    try:
+        t0 = time.perf_counter()
+        names, nodes, queue, rng, base = server_objects(seed)
+        log(f"phase server: snapshot {len(nodes)} nodes in {N_ZONES} zones, {len(queue)} queued drivers "
+            f"built in {time.perf_counter() - t0:.2f} s")
+        for pi, policy in enumerate(SERVER_POLICIES):
+            t0 = time.perf_counter()
+            servers = {}
+            try:
+                for device in ("cuda", "cpu"):
+                    servers[device] = PortServer(policy, device, nodes, queue)
+                log(f"phase server: {policy}: cuda and cpu servers ready in {time.perf_counter() - t0:.2f} s")
+                card = servers["cuda"]
+                solver = card.scheduler.extender.binpacker.queue_solver
+                kname = "fifo_queue_evenly" if policy.endswith("distribute-evenly") else "fifo_queue_tightly"
+                lat_ms, traces, granted, exec_checked = [], [], 0, 0
+                n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
+                for i in range(n_probes):
+                    timed = i >= SERVER_WARMUP_PROBES
+                    if i == SERVER_WARMUP_PROBES:
+                        qk.reset_launch_counts()  # the timed probes' run starts here
+                    pods = Harness.static_allocation_spark_pods(
+                        f"probe-{pi}-{i:03d}", int(rng.randint(1, 32)),
+                        executor_cpu=str(int(rng.randint(1, 8))),
+                        executor_mem=f"{int(rng.randint(2, 16))}Gi",
+                        creation_timestamp=base + N_APPS + i,
+                    )
+                    created = pods[:1]
+                    for server in servers.values():
+                        server.api.create(pods[0].deepcopy())
+                    fast_before = card.fast_lane_count()
+                    ms, status, body = card.post(pods[0], names)
+                    if timed:
+                        lat_ms.append(ms)
+                        traces.append(card.scheduler.tracer.traces(limit=1)[0])
+                    _, cpu_status, cpu_body = servers["cpu"].post(pods[0], names)
+                    if (status, body) != (cpu_status, cpu_body) or status != 200:
+                        raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}, "
+                                         f"cpu {cpu_status} {cpu_body[:300]!r}")
+                    if card.fast_lane_count() != fast_before + 1 or solver.last_queue_lane != "cuda":
+                        raise SystemExit(f"{policy} probe {i} did not take the tensor lane with the CUDA "
+                                         f"kernel (queue lane {solver.last_queue_lane!r})")
+                    result = json.loads(body)
+                    if result["NodeNames"]:
+                        granted += 1
+                        if timed and exec_checked < SERVER_EXECUTOR_CHECKS:
+                            exec_checked += 1
+                            for server in servers.values():
+                                server.bind(pods[0], result["NodeNames"][0])
+                            for pod in pods[1:]:
+                                created.append(pod)
+                                for server in servers.values():
+                                    server.api.create(pod.deepcopy())
+                                _, e_status, e_body = card.post(pod, names)
+                                _, c_status, c_body = servers["cpu"].post(pod, names)
+                                e_nodes = json.loads(e_body).get("NodeNames") if e_status == 200 else None
+                                if (e_status, e_body) != (c_status, c_body) or not e_nodes:
+                                    raise SystemExit(f"{policy} executor {pod.name}: cuda {e_status} "
+                                                     f"{e_body[:300]!r}, cpu {c_status} {c_body[:300]!r}")
+                                if e_nodes[0] != card.reserved_node(pod):
+                                    raise SystemExit(f"{policy} executor {pod.name} placed on {e_nodes[0]}, "
+                                                     f"reserved {card.reserved_node(pod)}")
+                            log(f"phase server: {policy}: probe {i} bound on {result['NodeNames'][0]}; "
+                                f"its {len(pods) - 1} executors each granted their reserved node, "
+                                f"equal on cuda and cpu")
+                    for server in servers.values():
+                        server.retire(created)
+                launches = qk.launch_counts[kname]
+                if launches != SERVER_TIMED_PROBES:
+                    raise SystemExit(f"{policy}: {launches} {kname} launches for {SERVER_TIMED_PROBES} timed probes")
+                if exec_checked < SERVER_EXECUTOR_CHECKS:
+                    raise SystemExit(f"{policy}: only {exec_checked} granted probes to check executors on")
+                log(f"phase server: {policy}: {n_probes} probes equal on cuda and cpu, {granted} granted, "
+                    f"all on lane=fast with the cuda queue kernel; {kname} launches in the timed run "
+                    f"{launches} (one a probe)")
+                log(f"phase server: {policy}: /predicates at {N_NODES} nodes x {N_APPS} queued drivers: "
+                    f"p50 {statistics.median(lat_ms):.3f} ms, p99 {float(np.percentile(lat_ms, 99)):.3f} ms "
+                    f"over {len(lat_ms)} probes (runs {', '.join(f'{x:.1f}' for x in lat_ms)}) | {smi}")
+                spans = {}
+                for trace in traces:
+                    span_durations(trace["root"], spans)
+                log(f"phase server: {policy}: span medians (ms) " + ", ".join(
+                    f"{name} {statistics.median(spans[name]):.3f}" for name in SERVER_SPANS if name in spans
+                ) + f" | {smi}")
+                missing = [name for name in SERVER_SPANS if name not in spans]
+                if missing:
+                    raise SystemExit(f"{policy}: the request traces lack spans {missing}")
+                pods = Harness.static_allocation_spark_pods(
+                    f"probe-{pi}-traced", 4, creation_timestamp=base + N_APPS + n_probes)
+                card.api.create(pods[0].deepcopy())
+                share = busy_share(lambda: card.post(pods[0], names))
+                card.retire(pods[:1])
+                log(f"phase server: {policy}: profiler trace of one /predicates request: {share} | {smi}")
+            finally:
+                for server in servers.values():
+                    server.stop()
+    finally:
+        logging.disable(logging.NOTSET)
 
 
 # -- phase 4 snapshot ---------------------------------------------------------
@@ -422,6 +672,7 @@ def main() -> int:
     from k8s_spark_scheduler_tpu_torch.ops.tensorize import scale_problem, tensorize_cluster
 
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
     # ---- phase 1: device
     name = torch.cuda.get_device_name(0)
     smi = gpu_line()
@@ -710,7 +961,15 @@ def main() -> int:
         )
         log(f"phase main-path: profiler trace of one {p} decision: {share} | {smi}")
 
-    # ---- phase 5: results
+    log(f"phase main-path: phases 1-4 took {time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 5: the Filter server on the card
+    t = time.perf_counter()
+    server_phase(args.seed, smi)
+    log(f"phase server: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 6: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,7 +3,9 @@
 A snapshot that another implementation also holds (the JAX package, a
 test, a benchmark) is carried into this package's own types through plain
 Python and numpy values, so both sides see identical state without this
-package importing the other.
+package importing the other.  Cluster objects travel as k8s wire dicts
+(the shapes of ``types/serde.py``): ``object_from_wire`` builds a Node,
+Pod, ResourceReservation or Demand from one.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numpy as np
 
 from .ops.sparkapp import AppDemand
 from .ops.tensorize import ScaledProblem
+from .types import serde
+from .types.objects import APIObject
 from .types.resources import ZONE_LABEL_PLACEHOLDER, NodeSchedulingMetadata, Resources
 from .utils.quantity import QuantityLike
 
@@ -66,3 +70,23 @@ def problem_from_numpy(
         scale=np.array(scale, dtype=np.int64),
         ok=ok,
     )
+
+
+_FROM_WIRE = {
+    "Node": serde.node_from_dict,
+    "Pod": serde.pod_from_dict,
+    "ResourceReservation": serde.rr_from_dict_v1beta2,
+    "Demand": serde.demand_from_dict_v1alpha2,
+}
+
+
+def object_from_wire(d: Mapping, kind: Optional[str] = None) -> APIObject:
+    """A Node, Pod, ResourceReservation (v1beta2) or Demand (v1alpha2)
+    from its wire dict; `kind` defaults to the dict's own "kind" field
+    (Pod dicts may omit it, and then it is "Pod")."""
+    kind = kind or d.get("kind") or "Pod"
+    try:
+        decode = _FROM_WIRE[kind]
+    except KeyError:
+        raise ValueError(f"no wire decoder for kind {kind!r}") from None
+    return decode(dict(d))

@@ -24,6 +24,8 @@ import torch
 
 from .. import compat
 from ..device import DeviceLike, lane_of, resolve_device
+from ..tracing import spans as tracing
+from ..tracing.profiling import default_profiler
 from ..types.resources import NodeGroupSchedulingMetadata, Resources
 from ..utils.quantity import Quantity
 from . import packers
@@ -327,29 +329,43 @@ class TpuFifoSolver:
         n_earlier = len(earlier_apps)
         avail, driver_rank, exec_ok = problem_tensors(problem, self.device)
         if n_earlier > 0:
-            # whole-queue pass over the earlier drivers only
-            queue_valid = problem.app_valid.copy()
-            queue_valid[n_earlier:] = False
-            self.last_queue_lane = lane_of(self.device)
-            queue_args = (
-                avail,
-                driver_rank,
-                exec_ok,
-                torch.as_tensor(problem.driver, device=self.device),
-                torch.as_tensor(problem.executor, device=self.device),
-                torch.as_tensor(problem.count, device=self.device),
-                torch.as_tensor(queue_valid, device=self.device),
-            )
-            if minfrag:
-                feasible_dev, _, avail = fifo_queue_min_frag(*queue_args)
-            else:
-                feasible_dev, _, avail = fifo_queue(*queue_args, evenly=evenly)
-            feasible = feasible_dev[:n_earlier].cpu().numpy()
-            # an enforced (old-enough) earlier driver that doesn't fit
-            # fails the whole request (resource.go:244-253)
-            for i in range(n_earlier):
-                if not feasible[i] and not earlier_skip_allowed[i]:
-                    return FifoOutcome(supported=True, earlier_ok=False)
+            # whole-queue pass over the earlier drivers only.  The
+            # fifo_gate span is the request's "earlier drivers fit?"
+            # phase; the kernel profile inside it splits the dispatch
+            # into build vs execute time (tracing/profiling.py).
+            with tracing.child_span("fifo_gate", {"earlierApps": n_earlier}) as gate_span:
+                queue_valid = problem.app_valid.copy()
+                queue_valid[n_earlier:] = False
+                self.last_queue_lane = lane_of(self.device)
+                queue_args = (
+                    avail,
+                    driver_rank,
+                    exec_ok,
+                    torch.as_tensor(problem.driver, device=self.device),
+                    torch.as_tensor(problem.executor, device=self.device),
+                    torch.as_tensor(problem.count, device=self.device),
+                    torch.as_tensor(queue_valid, device=self.device),
+                )
+                kernel = "fifo_queue_min_frag" if minfrag else "fifo_queue"
+                shape_key = (problem.avail.shape, problem.driver.shape)
+                with default_profiler.profile(kernel, lane=self.last_queue_lane, shape_key=shape_key) as rec:
+                    if minfrag:
+                        feasible_dev, _, avail = fifo_queue_min_frag(*queue_args)
+                    else:
+                        feasible_dev, _, avail = fifo_queue(*queue_args, evenly=evenly)
+                    rec.sync(avail)
+                feasible = feasible_dev[:n_earlier].cpu().numpy()
+                gate_span.tag("lane", self.last_queue_lane)
+                # an enforced (old-enough) earlier driver that doesn't fit
+                # fails the whole request (resource.go:244-253)
+                for i in range(n_earlier):
+                    if not feasible[i] and not earlier_skip_allowed[i]:
+                        gate_span.tag("earlierOk", False)
+                        return FifoOutcome(supported=True, earlier_ok=False)
+                gate_span.tag("earlierOk", True)
+        else:
+            with tracing.child_span("fifo_gate", {"earlierApps": 0, "earlierOk": True}):
+                pass
 
         return self._pack_current(
             cluster, problem, (avail, driver_rank, exec_ok), n_earlier, current_app,
@@ -369,7 +385,13 @@ class TpuFifoSolver:
         availability carry: solve + placement decode + efficiency rows.
         node_tensors = (avail_after, driver_rank, exec_ok) on the device."""
         avail_after = node_tensors[0]
-        solve = self._single(problem, *node_tensors, n_earlier)
+        lane = lane_of(self.device)
+        with tracing.child_span("binpack", {"policy": self.assignment_policy}) as binpack_span:
+            binpack_span.tag("lane", lane)
+            with default_profiler.profile("solve_single", lane=lane, shape_key=avail_after.shape) as rec:
+                solve = self._single(problem, *node_tensors, n_earlier)
+                rec.sync(solve.exec_counts)
+            binpack_span.tag("feasible", bool(solve.feasible))
         if not bool(solve.feasible):
             return FifoOutcome(supported=True, earlier_ok=True, result=empty_packing_result())
 
@@ -682,10 +704,15 @@ class TpuSingleAzFifoSolver:
         )
         if inputs is not None:
             arrays, scalars = inputs
-            feas_d, _zone_d, _didx_d, uncertain_d, avail_after_d = fifo_queue_single_az(
-                *(torch.as_tensor(x, device=dev) for x in arrays), *scalars,
-                az_aware=self.az_aware, minfrag=minfrag_inner, strict=self.strict_reference_parity,
-            )
+            with default_profiler.profile(
+                "fifo_queue_single_az", lane=lane_of(dev),
+                shape_key=(problem.avail.shape, problem.driver.shape),
+            ) as rec:
+                feas_d, _zone_d, _didx_d, uncertain_d, avail_after_d = fifo_queue_single_az(
+                    *(torch.as_tensor(x, device=dev) for x in arrays), *scalars,
+                    az_aware=self.az_aware, minfrag=minfrag_inner, strict=self.strict_reference_parity,
+                )
+                rec.sync(avail_after_d)
             if not bool(uncertain_d[:n_earlier].any()):
                 # the one-launch lane's answer is certain: it served this
                 # request, whatever the FIFO verdict

@@ -2,9 +2,8 @@
 
 Covers the reference's ``pkg/resources/resources.go`` —
 ``Resources`` (3-dim quantity vector), ``NodeGroupResources``,
-``NodeSchedulingMetadata``, the usage subtraction and the test-helper
-metadata builder.  The builders from kube node objects belong to the
-extender layers, which are not ported yet.
+``NodeSchedulingMetadata`` and the builders that derive availability from
+node allocatable minus usage minus overhead.
 
 Unlike the Go original (mutating methods on shared pointers), ``Resources``
 here is an immutable value type: the scheduler core threads updated copies
@@ -16,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional
 
 from ..utils.quantity import Quantity, QuantityLike, parse_quantity
 
@@ -117,6 +116,16 @@ class Resources:
 NodeGroupResources = Dict[str, Resources]
 
 
+def group_add(into: NodeGroupResources, other: NodeGroupResources) -> None:
+    for node, r in other.items():
+        into[node] = into.get(node, Resources.zero()).add(r)
+
+
+def group_sub(into: NodeGroupResources, other: NodeGroupResources) -> None:
+    for node, r in other.items():
+        into[node] = into.get(node, Resources.zero()).sub(r)
+
+
 @dataclass
 class NodeSchedulingMetadata:
     """Per-node scheduling view (resources.go:158-166)."""
@@ -145,6 +154,52 @@ def subtract_usage_if_exists(
         md = metadata.get(node_name)
         if md is not None:
             md.available = md.available.sub(used_resources)
+
+
+def usage_for_nodes(resource_reservations: Iterable) -> NodeGroupResources:
+    """Tally reserved resources per node from reservations
+    (resources.go:31-43).  Accepts any iterable of objects exposing
+    ``spec.reservations`` mapping name → object with .node / .resources.
+    """
+    usage: NodeGroupResources = {}
+    for rr in resource_reservations:
+        for reservation in rr.spec.reservations.values():
+            node = reservation.node
+            usage[node] = usage.get(node, Resources.zero()).add(reservation.resources_value())
+    return usage
+
+
+def available_for_nodes(nodes: Iterable, current_usage: NodeGroupResources) -> NodeGroupResources:
+    """allocatable − usage per node (resources.go:46-56)."""
+    out: NodeGroupResources = {}
+    for node in nodes:
+        used = current_usage.get(node.name, Resources.zero())
+        out[node.name] = node.allocatable.sub(used)
+    return out
+
+
+def node_scheduling_metadata_for_nodes(
+    nodes: Iterable,
+    current_usage: NodeGroupResources,
+    overhead_usage: NodeGroupResources,
+) -> NodeGroupSchedulingMetadata:
+    """available = allocatable − usage − overhead; schedulable =
+    allocatable − overhead (resources.go:61-100)."""
+    out: NodeGroupSchedulingMetadata = {}
+    for node in nodes:
+        overhead = overhead_usage.get(node.name, Resources.zero())
+        used = current_usage.get(node.name, Resources.zero()).add(overhead)
+        zone = node.labels.get(ZONE_LABEL, ZONE_LABEL_PLACEHOLDER)
+        out[node.name] = NodeSchedulingMetadata(
+            available=node.allocatable.sub(used),
+            schedulable=node.allocatable.sub(overhead),
+            creation_timestamp=node.creation_timestamp,
+            zone_label=zone,
+            all_labels=dict(node.labels),
+            unschedulable=node.unschedulable,
+            ready=node.ready,
+        )
+    return out
 
 
 def create_scheduling_metadata(

@@ -94,6 +94,76 @@ def test_port_runs_with_jax_and_reference_package_blocked():
     assert "ISOLATED-OK" in proc.stdout
 
 
+_BLOCKED_SERVE = textwrap.dedent(
+    """
+    import importlib, json, pkgutil, sys, urllib.request
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    import k8s_spark_scheduler_tpu_torch as port
+
+    # every module of the package imports (the server CLI module too)
+    for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+        importlib.import_module(info.name)
+
+    from k8s_spark_scheduler_tpu_torch.config import Install
+    from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
+    from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
+    from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+    from k8s_spark_scheduler_tpu_torch.types import serde
+
+    api = APIServer()
+    scheduler = init_server_with_clients(api, Install(fifo=True, binpack_algo="tpu-batch"), device="cpu")
+    http = ExtenderHTTPServer(scheduler, port=0, host="127.0.0.1")
+    http.start()
+    try:
+        assert scheduler.wait_ready(60)
+        h_nodes = [f"n{i}" for i in range(3)]
+        from k8s_spark_scheduler_tpu_torch.types.objects import Node, ObjectMeta
+        from k8s_spark_scheduler_tpu_torch.types.resources import ZONE_LABEL, Resources
+        for name in h_nodes:
+            api.create(Node(meta=ObjectMeta(name=name, labels={ZONE_LABEL: "z1",
+                            "resource_channel": "batch-medium-priority"}),
+                            allocatable=Resources.of("8", "8Gi", "1")))
+        pods = Harness.static_allocation_spark_pods("app-iso", 2)
+        api.create(pods[0])
+        body = json.dumps({"Pod": serde.pod_to_dict(pods[0]), "NodeNames": h_nodes}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{http.port}/predicates", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            result = json.loads(resp.read())
+        assert result["NodeNames"] and result["NodeNames"][0] in h_nodes, result
+    finally:
+        http.stop()
+        scheduler.stop()
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("SERVED-OK")
+    """
+)
+
+
+def test_server_imports_and_serves_with_jax_and_reference_package_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SERVE],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "SERVED-OK" in proc.stdout
+
+
 def test_package_sources_import_neither_jax_nor_reference_package():
     import re
 
