@@ -47,7 +47,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    is bound and every executor POSTed, each granted its reserved node;
    request latency p50 / p99, span medians and the device's idle share in
    a profiler trace of one request;
-6. the kernels line (times, bounds, launches) and the device result line.
+6. cluster: the same server against a Kubernetes API over REST — a cuda
+   and a cpu server, each on its own ``FakeKubeAPI`` (a local HTTP
+   Kubernetes API) holding phase 5's objects, reached through a
+   kubeconfig as the CLI's ``--kubeconfig`` reaches it; the first full
+   LIST's time and decode and the time until the informers watch; phase
+   5's probe protocol under ``tpu-batch`` (2 warmup and 24 timed probes,
+   bodies equal, one ``fifo_queue`` launch a timed probe, 3 granted
+   probes' executors), with every pod created, bound and deleted in the
+   fake and seen through the watches, and the reservations and demands
+   each server wrote back read over REST and equal; the invariant checker
+   (I1-I5, I5 at 10,000 nodes) after every Filter of the cuda server,
+   no violation, and the request latency given without and with its time;
+   ``/metrics`` with ``Accept: text/plain`` parsed as Prometheus text,
+   its fast-lane counter equal to the probes; ``/convert`` round-tripping
+   a v1beta1 reservation; one unschedulable-marker scan of the 1,000
+   queued drivers on each server, verdicts equal, with its time;
+7. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -454,6 +470,402 @@ def server_phase(seed: int, smi: str) -> None:
                 for server in servers.values():
                     server.stop()
     finally:
+        logging.disable(logging.NOTSET)
+
+
+# -- phase 6: the server against a cluster over REST ----------------------------
+
+CLUSTER_POLICY = "tpu-batch"
+WAIT_S = 60.0
+_PROM_TYPE = re.compile(r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|summary)$")
+_PROM_SERIES = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*",?)*\})? (\S+)$'
+)
+
+
+def wait_for(cond, what: str, timeout: float = WAIT_S) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def parse_prometheus(text: str) -> dict:
+    """{series line's name and labels: value} of a Prometheus 0.0.4
+    exposition; raises SystemExit on a line that is neither a TYPE line
+    nor a sample."""
+    samples = {}
+    for line in text.rstrip("\n").split("\n"):
+        if line.startswith("#"):
+            if not _PROM_TYPE.match(line):
+                raise SystemExit(f"/metrics: bad comment line {line!r}")
+            continue
+        m = _PROM_SERIES.match(line)
+        if m is None:
+            raise SystemExit(f"/metrics: bad sample line {line!r}")
+        samples[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return samples
+
+
+def identity_free(wire: dict) -> dict:
+    """A wire object without what each API server assigns itself (uids,
+    resource versions, creation times)."""
+    meta = {k: v for k, v in (wire.get("metadata") or {}).items()
+            if k not in ("uid", "resourceVersion", "creationTimestamp")}
+    meta["ownerReferences"] = [{k: v for k, v in ref.items() if k != "uid"}
+                               for ref in meta.get("ownerReferences") or []]
+    return dict(wire, metadata=meta)
+
+
+class ClusterServer(PortServer):
+    """The port's server against its own FakeKubeAPI over REST: the fake
+    holds the cluster's objects, a kubeconfig names it, and the backend
+    is the one the CLI's ``--kubeconfig`` flag builds.  Filters, binds
+    and deletes act on the fake's store; the server sees them through its
+    watches."""
+
+    def __init__(self, device: str, nodes, queue, workdir: str):
+        from k8s_spark_scheduler_tpu_torch.config import Install
+        from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
+        from k8s_spark_scheduler_tpu_torch.server.__main__ import api_backend
+        from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
+        from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
+        from k8s_spark_scheduler_tpu_torch.testing.fake_kube_api import FakeKubeAPI
+
+        self.fake = FakeKubeAPI().start()
+        self.scheduler = self.http = self.backend = None
+        try:
+            self.api = self.fake.api  # the cluster's own store
+            self.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
+            for obj in nodes + queue:
+                self.api.create(obj.deepcopy())
+            path = os.path.join(workdir, f"kubeconfig-{device}.json")
+            with open(path, "w") as f:
+                json.dump({
+                    "current-context": "fake",
+                    "contexts": [{"name": "fake", "context": {"cluster": "fake", "user": "fake"}}],
+                    "clusters": [{"name": "fake", "cluster": {"server": self.fake.host}}],
+                    "users": [{"name": "fake", "user": {}}],
+                }, f)
+            self.backend, _ = api_backend(path, None, False)
+            # the first full LIST of the nodes and pods over REST, and
+            # their decode into objects, alone
+            from k8s_spark_scheduler_tpu_torch.kube.restbackend import _RESOURCES
+
+            self.list_ms, self.decode_ms, self.list_bytes = {}, {}, {}
+            for kind in ("Node", "Pod"):
+                res = _RESOURCES[kind]
+                t = time.perf_counter()
+                data = self.backend.client.request("GET", res.path())
+                self.list_ms[kind] = (time.perf_counter() - t) * 1e3
+                t = time.perf_counter()
+                objs = [res.from_wire(item) for item in data["items"]]
+                self.decode_ms[kind] = (time.perf_counter() - t) * 1e3
+                self.list_bytes[kind] = len(json.dumps(data))
+                if len(objs) != len(self.api.list(kind)):
+                    raise SystemExit(f"the {kind} LIST over REST returned {len(objs)} objects")
+            t = time.perf_counter()
+            self.scheduler = init_server_with_clients(
+                self.backend, Install(binpack_algo=CLUSTER_POLICY, fifo=True), demand_poll_interval=0.5,
+                unschedulable_polling_interval=3600.0, device=device,
+            )
+            # every informer has listed its kind over REST, replayed it,
+            # and its watch stream has started
+            self.watch_start_ms = (time.perf_counter() - t) * 1e3
+            self.http = ExtenderHTTPServer(self.scheduler, port=0, host="127.0.0.1")
+            self.http.start()
+            if not self.scheduler.wait_ready(timeout=600.0):
+                raise SystemExit(f"the {device} cluster server did not become ready")
+            if len(self.scheduler.node_informer.list()) != len(nodes):
+                raise SystemExit(f"the {device} server's informer holds "
+                                 f"{len(self.scheduler.node_informer.list())} nodes")
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self) -> None:
+        if self.http is not None:
+            self.http.stop()
+        if self.scheduler is not None:
+            self.scheduler.stop()
+        if self.backend is not None:
+            self.backend.stop()
+        self.fake.stop()
+
+    def retire(self, pods) -> None:
+        """PortServer.retire, then wait until the watch has taken the
+        pods out of the server's informer too."""
+        super().retire(pods)
+        wait_for(lambda: all(self.scheduler.pod_informer.get(p.namespace, p.name) is None for p in pods),
+                 "the watch to deliver the deletes")
+
+    def get(self, path: str, accept: str = None):
+        import urllib.request
+
+        req = urllib.request.Request(f"http://127.0.0.1:{self.http.port}{path}",
+                                     headers={"Accept": accept} if accept else {})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.headers.get("Content-Type"), resp.read()
+
+    def post_json(self, path: str, payload: dict) -> dict:
+        import urllib.request
+
+        req = urllib.request.Request(f"http://127.0.0.1:{self.http.port}{path}",
+                                     data=json.dumps(payload).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    def sees(self, pod, node: str = "") -> None:
+        """Wait until the server's pod informer holds the pod (bound to
+        `node` when given), delivered by its watch."""
+        def seen():
+            got = self.scheduler.pod_informer.get(pod.namespace, pod.name)
+            return got is not None and got.node_name == node
+        wait_for(seen, f"the watch to deliver {pod.name}")
+
+    def settle(self) -> None:
+        """Wait until the write-backs have landed in the fake over REST:
+        queues drained, caches equal to the cluster's objects."""
+        sched = self.scheduler
+
+        def rr_content(rrs):
+            return {(rr.namespace, rr.name): (sorted((k, v.node) for k, v in rr.spec.reservations.items()),
+                                              sorted(rr.status.pods.items())) for rr in rrs}
+
+        wait_for(lambda: not any(sched.resource_reservation_cache.inflight_queue_lengths())
+                 and not any(sched.demand_cache.inflight_queue_lengths())
+                 and rr_content(sched.resource_reservation_cache.list())
+                 == rr_content(self.api.list("ResourceReservation"))
+                 and {(d.namespace, d.name) for d in sched.demand_cache.list()}
+                 == {(d.namespace, d.name) for d in self.api.list("Demand")},
+                 "the write-back to land in the fake")
+
+    def written(self):
+        """The reservations and demands in the cluster, read over REST."""
+        from k8s_spark_scheduler_tpu_torch.types import serde
+
+        return (sorted(json.dumps(identity_free(serde.rr_to_dict_v1beta2(rr)), sort_keys=True)
+                       for rr in self.backend.list("ResourceReservation")),
+                sorted(json.dumps(identity_free(serde.demand_to_dict_v1alpha2(d)), sort_keys=True)
+                       for d in self.backend.list("Demand")))
+
+
+def cluster_phase(seed: int, smi: str) -> None:
+    """Phase 6 (see the module docstring); raises SystemExit on any failure."""
+    import logging
+    import tempfile
+
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.scheduler import invariants
+    from k8s_spark_scheduler_tpu_torch.scheduler.unschedulable import POD_EXCEEDS_CLUSTER_CAPACITY
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+    from k8s_spark_scheduler_tpu_torch.types import serde
+
+    # the invariant checker after every Filter of the cuda server (the
+    # wiring reads SCHED_DEBUG_INVARIANTS when it builds a server),
+    # counting its checks, their time and their violations
+    checked = {"checks": 0, "violations": [], "ms": []}
+    real_check = invariants.check
+
+    def counting_check(server, raise_on_violation=True):
+        t = time.perf_counter()
+        found = real_check(server, raise_on_violation=False)
+        checked["ms"].append((time.perf_counter() - t) * 1e3)
+        checked["checks"] += 1
+        checked["violations"] += found
+        return found
+
+    invariants.check = counting_check
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    servers = {}
+    try:
+        t0 = time.perf_counter()
+        names, nodes, queue, rng, base = server_objects(seed)
+        with tempfile.TemporaryDirectory() as workdir:
+            for device in ("cuda", "cpu"):
+                if device == "cuda":
+                    os.environ["SCHED_DEBUG_INVARIANTS"] = "1"
+                try:
+                    servers[device] = ClusterServer(device, nodes, queue, workdir)
+                finally:
+                    os.environ.pop("SCHED_DEBUG_INVARIANTS", None)
+        card, host = servers["cuda"], servers["cpu"]
+        log(f"phase cluster: {CLUSTER_POLICY}: cuda and cpu servers, each on its own FakeKubeAPI holding "
+            f"{len(nodes)} nodes in {N_ZONES} zones and {len(queue)} queued drivers, ready in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for device, server in servers.items():
+            log(f"phase cluster: {device} server: first full LIST over REST: nodes {server.list_ms['Node']:.1f} ms "
+                f"({server.list_bytes['Node']} bytes) + decode {server.decode_ms['Node']:.1f} ms, pods "
+                f"{server.list_ms['Pod']:.1f} ms ({server.list_bytes['Pod']} bytes) + decode "
+                f"{server.decode_ms['Pod']:.1f} ms; informers listed, replayed and watching after "
+                f"{server.watch_start_ms:.1f} ms | {smi}")
+        solver = card.scheduler.extender.binpacker.queue_solver
+        lat_ms, net_ms, check_ms, traces, granted, exec_checked, n_written = [], [], [], [], 0, 0, 0
+        n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
+        checks_before = checked["checks"]
+        for i in range(n_probes):
+            timed = i >= SERVER_WARMUP_PROBES
+            if i == SERVER_WARMUP_PROBES:
+                qk.reset_launch_counts()  # the timed probes' run starts here
+            pods = Harness.static_allocation_spark_pods(
+                f"probe-c-{i:03d}", int(rng.randint(1, 32)), executor_cpu=str(int(rng.randint(1, 8))),
+                executor_mem=f"{int(rng.randint(2, 16))}Gi", creation_timestamp=base + N_APPS + i,
+            )
+            created = pods[:1]
+            for server in servers.values():
+                server.api.create(pods[0].deepcopy())
+                server.sees(pods[0])
+                server.settle()
+            fast_before, checks_seen = card.fast_lane_count(), checked["checks"]
+            ms, status, body = card.post(pods[0], names)
+            if checked["checks"] != checks_seen + 1:
+                raise SystemExit(f"cluster probe {i}: the invariant checker did not run once in the Filter")
+            if timed:
+                lat_ms.append(ms)
+                # the request without the checker, which runs inside it
+                check_ms.append(checked["ms"][-1])
+                net_ms.append(ms - check_ms[-1])
+                traces.append(card.scheduler.tracer.traces(limit=1)[0])
+            _, cpu_status, cpu_body = host.post(pods[0], names)
+            if (status, body) != (cpu_status, cpu_body) or status != 200:
+                raise SystemExit(f"cluster probe {i}: cuda answered {status} {body[:300]!r}, "
+                                 f"cpu {cpu_status} {cpu_body[:300]!r}")
+            if card.fast_lane_count() != fast_before + 1 or solver.last_queue_lane != "cuda":
+                raise SystemExit(f"cluster probe {i} did not take the tensor lane with the CUDA kernel "
+                                 f"(queue lane {solver.last_queue_lane!r})")
+            result = json.loads(body)
+            if result["NodeNames"]:
+                granted += 1
+                if timed and exec_checked < SERVER_EXECUTOR_CHECKS:
+                    exec_checked += 1
+                    for server in servers.values():
+                        server.bind(pods[0], result["NodeNames"][0])
+                        server.sees(pods[0], result["NodeNames"][0])
+                    for pod in pods[1:]:
+                        created.append(pod)
+                        for server in servers.values():
+                            server.api.create(pod.deepcopy())
+                            server.sees(pod)
+                            server.settle()
+                        _, e_status, e_body = card.post(pod, names)
+                        _, c_status, c_body = host.post(pod, names)
+                        e_nodes = json.loads(e_body).get("NodeNames") if e_status == 200 else None
+                        if (e_status, e_body) != (c_status, c_body) or not e_nodes:
+                            raise SystemExit(f"cluster executor {pod.name}: cuda {e_status} {e_body[:300]!r}, "
+                                             f"cpu {c_status} {c_body[:300]!r}")
+                        if e_nodes[0] != card.reserved_node(pod):
+                            raise SystemExit(f"cluster executor {pod.name} placed on {e_nodes[0]}, "
+                                             f"reserved {card.reserved_node(pod)}")
+                    log(f"phase cluster: probe {i} bound on {result['NodeNames'][0]}; its {len(pods) - 1} "
+                        f"executors each granted their reserved node, equal on cuda and cpu")
+            # what each server wrote back, read from its fake over REST
+            for server in servers.values():
+                server.settle()
+            rrs, demands = card.written()
+            if (rrs, demands) != host.written():
+                raise SystemExit(f"cluster probe {i}: the reservations / demands written over REST differ")
+            n_written += len(rrs) + len(demands)
+            for server in servers.values():
+                server.retire(created)
+        launches = qk.launch_counts["fifo_queue_tightly"]
+        if launches != SERVER_TIMED_PROBES:
+            raise SystemExit(f"cluster: {launches} fifo_queue launches for {SERVER_TIMED_PROBES} timed probes")
+        if exec_checked < SERVER_EXECUTOR_CHECKS or not n_written:
+            raise SystemExit(f"cluster: only {exec_checked} granted probes checked, {n_written} objects written")
+        log(f"phase cluster: {n_probes} probes equal on cuda and cpu, {granted} granted, all on lane=fast with "
+            f"the cuda queue kernel; fifo_queue launches in the timed run {launches} (one a probe); "
+            f"{n_written} reservations and demands read back over REST equal on both fakes")
+        log(f"phase cluster: /predicates over REST at {N_NODES} nodes x {N_APPS} queued drivers, without "
+            f"the invariant checker's time: p50 {statistics.median(net_ms):.3f} ms, "
+            f"p99 {float(np.percentile(net_ms, 99)):.3f} ms over {len(net_ms)} probes "
+            f"(runs {', '.join(f'{x:.1f}' for x in net_ms)}) | {smi}")
+        log(f"phase cluster: the same requests with the checker (I1-I5 after each Filter, median "
+            f"{statistics.median(checked['ms']):.1f} ms a check): p50 {statistics.median(lat_ms):.3f} ms, "
+            f"p99 {float(np.percentile(lat_ms, 99)):.3f} ms | {smi}")
+        spans = {}
+        for trace in traces:
+            span_durations(trace["root"], spans)
+        missing = [name for name in SERVER_SPANS if name not in spans]
+        if missing:
+            raise SystemExit(f"cluster: the request traces lack spans {missing}")
+        # the checker runs inside `predicate` (so inside `http.request`)
+        for name in ("predicate", "http.request"):
+            spans[name] = [d - c for d, c in zip(spans[name], check_ms)]
+        log("phase cluster: span medians (ms; predicate and http.request without the checker) " + ", ".join(
+            f"{name} {statistics.median(spans[name]):.3f}" for name in SERVER_SPANS) + f" | {smi}")
+
+        # the invariant checker ran after every Filter of the cuda server
+        filters = checked["checks"] - checks_before
+        if filters < n_probes or checked["violations"]:
+            raise SystemExit(f"cluster: {filters} invariant checks, violations {checked['violations'][:5]}")
+        for device, server in servers.items():
+            if not server.scheduler.tensor_snapshot.snapshot().exact:
+                raise SystemExit(f"cluster: the {device} tensor mirror is inexact, so I5 checks nothing")
+            found = real_check(server.scheduler, raise_on_violation=False)
+            if found:
+                raise SystemExit(f"cluster: {device} invariant violations {found[:5]}")
+        log(f"phase cluster: invariants I1-I5 (I5 over {N_NODES} mirror rows) checked after each of the cuda "
+            f"server's {filters} Filters, 0 violations, median {statistics.median(checked['ms']):.1f} ms a "
+            f"check; both servers hold them at the end | {smi}")
+
+        # Prometheus text, with the fast-lane counter equal to the probes
+        ctype, raw = card.get("/metrics", accept="text/plain")
+        if not ctype.startswith("text/plain"):
+            raise SystemExit(f"cluster: /metrics answered {ctype} to Accept: text/plain")
+        samples = parse_prometheus(raw.decode())
+        fast = samples.get('foundry_spark_scheduler_tpu_fastpath{lane="fast",path="driver"}')
+        if fast != n_probes:
+            raise SystemExit(f"cluster: the fast-lane counter reads {fast}, not {n_probes}")
+        log(f"phase cluster: /metrics (Accept: text/plain) parses as Prometheus text: {len(samples)} samples, "
+            f"lane=fast driver counter {fast:.0f} = {n_probes} probes")
+
+        # /convert round-trips a v1beta1 reservation
+        pods = Harness.static_allocation_spark_pods("convert-probe", 2,
+                                                    creation_timestamp=base + N_APPS + n_probes)
+        card.api.create(pods[0].deepcopy())
+        card.sees(pods[0])
+        card.settle()
+        _, status, body = card.post(pods[0], names)
+        if status != 200 or not json.loads(body)["NodeNames"]:
+            raise SystemExit(f"cluster: the convert probe was not granted: {status} {body[:300]!r}")
+        card.settle()
+        v2 = serde.rr_to_dict_v1beta2(card.backend.get("ResourceReservation", "default", "convert-probe"))
+        review = {"apiVersion": "apiextensions.k8s.io/v1", "kind": "ConversionReview",
+                  "request": {"uid": "c1", "desiredAPIVersion": "sparkscheduler.palantir.com/v1beta1",
+                              "objects": [v2]}}
+        v1 = card.post_json("/convert", review)["response"]["convertedObjects"][0]
+        review["request"].update(uid="c2", desiredAPIVersion="sparkscheduler.palantir.com/v1beta2", objects=[v1])
+        back = card.post_json("/convert", review)["response"]["convertedObjects"][0]
+        if not v1["apiVersion"].endswith("v1beta1") or back["spec"] != v2["spec"]:
+            raise SystemExit("cluster: /convert did not round-trip a v1beta1 reservation")
+        card.retire(pods[:1])
+        log(f"phase cluster: /convert round-trips reservation convert-probe v1beta2 -> v1beta1 -> v1beta2 "
+            f"({len(v2['spec']['reservations'])} reservations)")
+
+        # one scan of the unschedulable marker over the 1,000-driver backlog
+        verdicts, scan_ms = {}, {}
+        for device, server in servers.items():
+            server.settle()
+            t = time.perf_counter()
+            server.scheduler.unschedulable_marker.scan_for_unschedulable_pods()
+            scan_ms[device] = (time.perf_counter() - t) * 1e3
+            conds = {}
+            for pod in server.api.list("Pod"):
+                cond = pod.conditions.get(POD_EXCEEDS_CLUSTER_CAPACITY)
+                if pod.name.startswith("queue-"):
+                    conds[pod.name] = None if cond is None else cond.status
+            verdicts[device] = conds
+        if verdicts["cuda"] != verdicts["cpu"] or None in verdicts["cuda"].values() or len(verdicts["cuda"]) != N_APPS:
+            raise SystemExit("cluster: the marker's verdicts differ on cuda and cpu, or a queued driver has none")
+        n_exceed = sum(v == "True" for v in verdicts["cuda"].values())
+        log(f"phase cluster: unschedulable marker, one scan of {N_APPS} queued drivers: {n_exceed} exceed "
+            f"the empty cluster, verdicts equal on cuda and cpu; scan {scan_ms['cuda']:.1f} ms on cuda, "
+            f"{scan_ms['cpu']:.1f} ms on cpu (conditions written over REST included) | {smi}")
+    finally:
+        for server in servers.values():
+            server.stop()
+        invariants.check = real_check
         logging.disable(logging.NOTSET)
 
 
@@ -969,7 +1381,13 @@ def main() -> int:
     log(f"phase server: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 6: results
+    # ---- phase 6: the server against a cluster over REST
+    t = time.perf_counter()
+    cluster_phase(args.seed, smi)
+    log(f"phase cluster: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 7: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

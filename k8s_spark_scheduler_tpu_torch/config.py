@@ -8,16 +8,18 @@ its configs load unchanged.  Subsystems this package does not have yet
 (ROADMAP A) are refused when a config would turn them on: a key that
 enables one raises ``ValueError`` naming the ROADMAP item, a key that
 leaves it off is accepted, and an unknown key raises too — no key is
-dropped without a word.  Two settings are read but configure nothing
-here yet, and the server logs so at start: ``conversion-webhook`` (no
-``/convert`` webhook is served) and ``unschedulable-pod-timeout-seconds``
-(no unschedulable-pod marker runs).
+dropped without a word.  A config that omits a key gets the reference's
+default, and several of those defaults turn a subsystem ON in the
+reference (resilience always runs there, ``delta-solve`` defaults to
+true, provenance, capacity, contention, lifecycle and classes default to
+enabled): ``Install.reference_only`` names each such subsystem, and the
+server logs one warning for each at start.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from . import compat
 from .ops.nodesort import LabelPriorityOrder
@@ -43,8 +45,9 @@ class AsyncClientConfig:
 @dataclass
 class ConversionWebhookConfig:
     """Where the apiserver would reach the CRD conversion webhook
-    (conversionwebhook/resource_reservation.go:44-98).  Read for the
-    reference's config shape; this package serves no webhook yet."""
+    (conversionwebhook/resource_reservation.go:44-98): the
+    ResourceReservation CRD's conversion stanza names this service, and
+    the server answers ``POST /convert``."""
 
     service_namespace: str = "spark"
     service_name: str = "spark-scheduler"
@@ -59,17 +62,25 @@ class ConversionWebhookConfig:
 # is true; "resilience" has no switch in the reference (always on), so
 # any "resilience" section configures a subsystem that is missing here.
 _UNPORTED_SECTIONS = {
-    "provenance": (True, "ROADMAP A.8 (provenance)"),
-    "capacity": (True, "ROADMAP A.8 (capacity observatory)"),
-    "contention": (True, "ROADMAP A.8 (contention observatory)"),
-    "policy": (False, "ROADMAP A.8 (scheduling policy)"),
-    "ha": (False, "ROADMAP A.8 (HA failover)"),
-    "lifecycle": (True, "ROADMAP A.8 (lifecycle ledger and SLO engine)"),
-    "concurrent": (False, "ROADMAP A.5 (concurrent admission)"),
-    "classes": (True, "ROADMAP A.5 (equivalence-class aggregation)"),
+    "provenance": (True, "ROADMAP A.6.2 (provenance)"),
+    "capacity": (True, "ROADMAP A.6.3 (capacity observatory)"),
+    "contention": (True, "ROADMAP A.6.7 (contention observatory)"),
+    "policy": (False, "ROADMAP A.6.5 (scheduling policy)"),
+    "ha": (False, "ROADMAP A.6.6 (HA failover)"),
+    "lifecycle": (True, "ROADMAP A.6.4 (lifecycle ledger and SLO engine)"),
+    "concurrent": (False, "ROADMAP A.4 (concurrent admission)"),
+    "classes": (True, "ROADMAP A.3 (equivalence-class aggregation)"),
 }
-_RESILIENCE_ITEM = "ROADMAP A.8 (resilience kit)"
-_DELTA_SOLVE_ITEM = "ROADMAP A.5 (delta-solve)"
+_RESILIENCE_ITEM = "ROADMAP A.6.1 (resilience kit)"
+_DELTA_SOLVE_ITEM = "ROADMAP A.3 (delta-solve)"
+# what the reference runs on a config that omits every key: resilience
+# (no switch), delta-solve (default true) and each section enabled by
+# default — (subsystem, ROADMAP item) pairs
+REFERENCE_DEFAULT_ONLY: Tuple[Tuple[str, str], ...] = (
+    ("resilience", _RESILIENCE_ITEM),
+    ("delta-solve", _DELTA_SOLVE_ITEM),
+    *((key, item) for key, (default_on, item) in _UNPORTED_SECTIONS.items() if default_on),
+)
 
 _KNOWN_KEYS = {
     "fifo",
@@ -124,6 +135,17 @@ def _refuse_unported(d: dict) -> None:
         raise ValueError(f"install key 'delta-solve' is true, and this package has no {_DELTA_SOLVE_ITEM}")
 
 
+def _reference_only(d: dict) -> Tuple[Tuple[str, str], ...]:
+    """The subsystems the reference package would run on config ``d``
+    that this package does not have (``d`` already passed
+    ``_refuse_unported``, so each comes from an omitted key)."""
+    return tuple(
+        (key, item)
+        for key, item in REFERENCE_DEFAULT_ONLY
+        if key == "resilience" or key not in d
+    )
+
+
 @dataclass
 class Install:
     """config.go:24-47."""
@@ -147,6 +169,10 @@ class Install:
     # the incremental delta-solve engine is not in this package yet
     # (ROADMAP A.5): only False is accepted
     delta_solve: bool = False
+    # subsystems the reference would run on this config and this package
+    # lacks, as (subsystem, ROADMAP item); from_dict derives it from the
+    # keys given, a directly built Install has the reference's defaults
+    reference_only: Tuple[Tuple[str, str], ...] = REFERENCE_DEFAULT_ONLY
 
     def __post_init__(self):
         if self.delta_solve:
@@ -209,4 +235,5 @@ class Install:
             ),
             strict_reference_parity=d.get("strict-reference-parity", compat.DEFAULT_STRICT),
             delta_solve=d.get("delta-solve", False),
+            reference_only=_reference_only(d),
         )

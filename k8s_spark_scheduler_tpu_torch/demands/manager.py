@@ -32,6 +32,10 @@ def demand_name(pod: Pod) -> str:
     return "demand-" + pod.name
 
 
+def pod_name_from_demand(demand: Demand) -> str:
+    return demand.name.removeprefix("demand-")
+
+
 class DemandManager:
     """demands.Manager (demand.go:37-42)."""
 

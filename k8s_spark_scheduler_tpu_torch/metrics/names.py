@@ -41,8 +41,51 @@ KUBE_CONFLICT_RETRIES = (
     "foundry.spark.scheduler.tpu.kube.conflict.retry.count"
 )
 
+# periodic reporters (metrics/reporters.py): reserved usage per node
+# (usage.go), pending-pod ages (queue.go), cache drift and write-back
+# queue depths (cache.go), unbound reservations
+# (resourcereservations.go), soft reservations (softreservations.go),
+# informer delivery lag (informer.go), and the registry's own
+# per-name label-set cardinality
+RESOURCE_USAGE_CPU = "foundry.spark.scheduler.resource.usage.cpu"
+RESOURCE_USAGE_MEMORY = "foundry.spark.scheduler.resource.usage.memory"
+RESOURCE_USAGE_NVIDIA_GPUS = "foundry.spark.scheduler.resource.usage.nvidia.com/gpu"
+LIFECYCLE_AGE_MAX = "foundry.spark.scheduler.pod.lifecycle.max"
+LIFECYCLE_AGE_P95 = "foundry.spark.scheduler.pod.lifecycle.p95"
+LIFECYCLE_AGE_P50 = "foundry.spark.scheduler.pod.lifecycle.p50"
+LIFECYCLE_COUNT = "foundry.spark.scheduler.pod.lifecycle.count"
+CACHED_OBJECT_COUNT = "foundry.spark.scheduler.cache.objects.count"
+CACHED_OBJECT_DRIFT = "foundry.spark.scheduler.cache.objects.count.drift"
+INFLIGHT_REQUEST_COUNT = "foundry.spark.scheduler.cache.inflight.count"
+UNBOUND_CPU_RESERVATIONS = "foundry.spark.scheduler.reservations.unbound.cpu"
+UNBOUND_MEMORY_RESERVATIONS = "foundry.spark.scheduler.reservations.unbound.memory"
+UNBOUND_NVIDIA_GPU_RESERVATIONS = "foundry.spark.scheduler.reservations.unbound.nvidiagpu"
+SOFT_RESERVATION_COUNT = "foundry.spark.scheduler.softreservation.count"
+SOFT_RESERVATION_EXECUTOR_COUNT = "foundry.spark.scheduler.softreservation.executorcount"
+EXECUTORS_WITH_NO_RESERVATION_COUNT = (
+    "foundry.spark.scheduler.softreservation.executorswithnoreservations"
+)
+POD_INFORMER_DELAY = "foundry.spark.scheduler.informer.delay"
+POD_INFORMER_DELAY_MAX = "foundry.spark.scheduler.informer.delay.max"
+METRICS_REGISTRY_SERIES = (
+    "foundry.spark.scheduler.tpu.metrics.registry.series"
+)
+
+# scheduling waste around demand creation / fulfilment (metrics/waste.py)
+SCHEDULING_WASTE = "foundry.spark.scheduler.scheduling.waste"
+SCHEDULING_WASTE_PER_INSTANCE_GROUP = (
+    "foundry.spark.scheduler.scheduling.wasteperinstancegroup"
+)
+
+TAG_INSTANCE_GROUP = "instance-group"
+TAG_HOST = "nodename"
+TAG_LIFECYCLE = "lifecycle"
+TAG_QUEUE_INDEX = "queueIndex"
+TAG_WASTE_TYPE = "wastetype"
 TAG_KERNEL = "kernel"
 TAG_LANE = "lane"
 TAG_SPAN = "span"
 
+TICK_INTERVAL_SECONDS = 30.0
 SLOW_LOG_THRESHOLD_SECONDS = 45.0
+STUCK_POD_LOG_THRESHOLD_SECONDS = 12 * 3600.0

@@ -107,6 +107,7 @@ class SparkSchedulerExtender:
         node_sorter: NodeSorter,
         metrics: MetricsRegistry | None = None,
         event_log: Optional[ev.EventLog] = None,
+        waste_reporter=None,
         tensor_snapshot_cache=None,
         strict_reference_parity: bool = compat.DEFAULT_STRICT,
         tracer: Optional[tracing.Tracer] = None,
@@ -126,6 +127,7 @@ class SparkSchedulerExtender:
         self._node_sorter = node_sorter
         self._metrics = metrics or default_registry
         self._event_log = event_log
+        self._waste_reporter = waste_reporter
         self._tracer = tracer if tracer is not None else tracing.default_tracer
         # event-driven integer snapshot for the driver fast path; the
         # fast lexsort replicates the NodeSorter ordering including any
@@ -269,6 +271,8 @@ class SparkSchedulerExtender:
                 )
 
     def _fail_with_message(self, outcome: str, args: ExtenderArgs, message: str) -> ExtenderFilterResult:
+        if self._waste_reporter is not None:
+            self._waste_reporter.mark_failed_scheduling_attempt(args.pod, outcome)
         # the uniform_failure hint lets the HTTP layer reuse an encoded
         # response buffer for this (candidate tuple, message) pair
         # instead of re-serializing a 10k-entry map per retry

@@ -1,0 +1,113 @@
+"""Debug invariant checker — the sanitizer/race-detection analog of
+SURVEY §5 (the reference leans on Go's race detector + single-writer
+design; here the state invariants are checked directly).
+
+Enabled with SCHED_DEBUG_INVARIANTS=1 (or explicitly in tests): after
+every Predicate the scheduler's state must satisfy:
+
+  I1  every RR status.pods key names an existing reservation;
+  I2  no pod is bound to two reservations of the same app;
+  I3  soft reservations only exist for apps with an RR (or pending
+      creation in the local cache);
+  I4  per-node hard+soft reserved resources never exceed the node's
+      allocatable (capacity safety — gang admission must not overbook);
+  I5  the tensor mirror (state/tensor_snapshot.py, when present)
+      matches the Quantity-path availability exactly, row for row.
+
+Violations raise InvariantViolation (tests) or log CRITICAL (prod).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+logger = logging.getLogger(__name__)
+
+
+class InvariantViolation(AssertionError):
+    pass
+
+
+def enabled() -> bool:
+    return os.environ.get("SCHED_DEBUG_INVARIANTS") == "1"
+
+
+def check(server, raise_on_violation: bool = True) -> list:
+    """Run all invariants against a wired Server; returns violations."""
+    violations = []
+
+    rrs = server.resource_reservation_cache.list()
+    soft = server.soft_reservation_store.get_all_soft_reservations_copy()
+
+    # I1 + I2
+    for rr in rrs:
+        bound = {}
+        for res_name, pod_name in rr.status.pods.items():
+            if res_name not in rr.spec.reservations:
+                violations.append(
+                    f"I1: {rr.name} status.pods[{res_name}] has no reservation"
+                )
+            if pod_name in bound:
+                violations.append(
+                    f"I2: {rr.name} pod {pod_name} bound to {res_name} and {bound[pod_name]}"
+                )
+            bound[pod_name] = res_name
+
+    # I3
+    rr_apps = {rr.name for rr in rrs}
+    for app_id in soft:
+        if app_id not in rr_apps:
+            violations.append(f"I3: soft reservations for {app_id} without an RR")
+
+    # I4
+    from ..types.resources import Resources, usage_for_nodes
+
+    usage = usage_for_nodes(rrs)
+    for node_name, res in server.soft_reservation_store.used_soft_reservation_resources().items():
+        usage[node_name] = usage.get(node_name, Resources.zero()).add(res)
+    nodes = {n.name: n for n in server.node_informer.list()}
+    for node_name, used in usage.items():
+        node = nodes.get(node_name)
+        if node is None:
+            continue  # reservation on a departed node: reconciliation's job
+        if used.greater_than(node.allocatable):
+            violations.append(
+                f"I4: node {node_name} overbooked: reserved {used} > allocatable {node.allocatable}"
+            )
+
+    # I5
+    snapshot_cache = getattr(server, "tensor_snapshot", None)
+    if snapshot_cache is not None:
+        import numpy as np
+
+        from ..ops.tensorize import _resources_to_base
+        from ..types.resources import node_scheduling_metadata_for_nodes
+
+        snap = snapshot_cache.snapshot()
+        if snap.exact:
+            overhead = server.overhead_computer.get_overhead(list(nodes.values()))
+            usage2 = server.resource_reservation_manager.get_reserved_resources()
+            metadata = node_scheduling_metadata_for_nodes(
+                nodes.values(), usage2, overhead
+            )
+            # the avail property subtracts whole planes: take it once,
+            # not once a node
+            avail = snap.avail
+            mirror = {name: avail[i] for i, name in enumerate(snap.names)}
+            for name, md in metadata.items():
+                row, exact = _resources_to_base(md.available)
+                if not exact:
+                    continue
+                got = mirror.get(name)
+                if got is None or not (got == np.array(row, np.int64)).all():
+                    violations.append(
+                        f"I5: tensor mirror drift on {name}: {got} != {row}"
+                    )
+
+    if violations:
+        for v in violations:
+            logger.critical("scheduler invariant violated: %s", v)
+        if raise_on_violation:
+            raise InvariantViolation("; ".join(violations))
+    return violations

@@ -97,3 +97,8 @@ class OverheadComputer:
                 if pod.scheduler_name != L.SPARK_SCHEDULER_NAME:
                     non_schedulable = non_schedulable.add(info.requests)
         return overhead, non_schedulable
+
+    def get_non_schedulable_overhead(self, nodes: Iterable[Node]) -> NodeGroupResources:
+        """Overhead from pods not managed by this scheduler (used by the
+        unschedulable-pod marker, unschedulablepods.go:149-151)."""
+        return {n.name: self._compute_node_overhead(n.name)[1] for n in nodes}

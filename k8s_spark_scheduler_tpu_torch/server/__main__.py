@@ -1,13 +1,19 @@
 """CLI entry point (reference main.go + cmd/root.go + cmd/server.go).
 
     python -m k8s_spark_scheduler_tpu_torch.server [--port P] [--config FILE] [--device {cuda,cpu}]
+        [--kubeconfig FILE [--kube-context NAME] | --in-cluster] [--tls-cert PEM --tls-key PEM]
+    python -m k8s_spark_scheduler_tpu_torch.server --webhook-only [--port P]
     python -m k8s_spark_scheduler_tpu_torch.server --version
 
 ``--config`` takes a JSON file in the reference's install.yml shape
 (config/config.go keys).  The server runs against the embedded API
-server.  ``--device`` is where the tpu-batch* queue solvers run:
-``cuda`` (the default) raises on a host without CUDA, ``cpu`` runs the
-kernels' plain PyTorch versions.
+server unless ``--kubeconfig`` or ``--in-cluster`` points it at a
+Kubernetes API server (kube/restbackend.py).  ``--device`` is where the
+tpu-batch* queue solvers run: ``cuda`` (the default) raises on a host
+without CUDA, ``cpu`` runs the kernels' plain PyTorch versions.
+``--webhook-only`` serves just the CRD conversion webhook, mirroring the
+standalone spark-scheduler-conversion-webhook module: no scheduler, no
+device.
 """
 
 from __future__ import annotations
@@ -20,12 +26,27 @@ import os
 import signal
 import sys
 import threading
+from typing import Optional
 
 from .. import __version__
 from ..config import Install
 from ..kube.apiserver import APIServer
+from ..kube.restbackend import RestAPIServer
+from ..kube.restclient import in_cluster_config, load_kubeconfig
 from .http import ExtenderHTTPServer
 from .wiring import init_server_with_clients
+
+
+def api_backend(kubeconfig: Optional[str], kube_context: Optional[str], in_cluster: bool):
+    """(API server, description) the flags select: the cluster of
+    ``--in-cluster`` or ``--kubeconfig`` over REST, else the embedded
+    store.  install.qps/burst are applied by the wiring's shared
+    write-back token bucket (clients.go:53-54 analog); the REST client's
+    own bucket stays off so the limit isn't double-counted."""
+    if in_cluster or kubeconfig:
+        cluster = in_cluster_config() if in_cluster else load_kubeconfig(kubeconfig, kube_context)
+        return RestAPIServer(cluster), f"kubernetes {cluster.host}"
+    return APIServer(), "embedded"
 
 
 def main(argv=None) -> int:
@@ -40,7 +61,35 @@ def main(argv=None) -> int:
         default="cuda",
         help="where the tpu-batch* queue solvers run (default: cuda)",
     )
+    parser.add_argument(
+        "--webhook-only",
+        action="store_true",
+        help="serve only the CRD conversion webhook (standalone module)",
+    )
+    # backend selection (reference cmd/clients.go:37-44: kubeconfig path
+    # or in-cluster config; default here is the embedded store for
+    # single-process runs and demos)
+    parser.add_argument(
+        "--kubeconfig",
+        type=str,
+        default=None,
+        help="connect to the cluster in this kubeconfig (real-cluster mode)",
+    )
+    parser.add_argument("--kube-context", type=str, default=None, help="kubeconfig context override")
+    parser.add_argument(
+        "--in-cluster",
+        action="store_true",
+        help="use the pod service account to reach the API server",
+    )
+    # HTTPS serving: required for the CRD conversion webhook on a real
+    # cluster (the apiserver only dials webhooks over TLS) and supported
+    # by kube-scheduler's extender tlsConfig
+    parser.add_argument("--tls-cert", type=str, default=None, help="PEM server certificate")
+    parser.add_argument("--tls-key", type=str, default=None, help="PEM server private key")
     args = parser.parse_args(argv)
+    if bool(args.tls_cert) != bool(args.tls_key):
+        print("--tls-cert and --tls-key must be given together", file=sys.stderr)
+        return 2
 
     if args.version:
         print(__version__)
@@ -80,17 +129,41 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, _on_signal)
     signal.signal(signal.SIGTERM, _on_signal)
 
+    if args.webhook_only:
+        http = ExtenderHTTPServer(
+            None,
+            port=args.port,
+            webhook_only=True,
+            host=args.host,
+            tls_cert_file=args.tls_cert,
+            tls_key_file=args.tls_key,
+        )
+        http.start()
+        scheme = "https" if http.tls else "http"
+        print(f"conversion webhook serving on :{http.port} ({scheme})", flush=True)
+        stop_event.wait()
+        http.stop()
+        return 0
+
     install = Install()
     if args.config:
         with open(args.config) as f:
             install = Install.from_dict(json.load(f))
 
-    scheduler = init_server_with_clients(APIServer(), install, device=args.device)
-    http = ExtenderHTTPServer(scheduler, port=args.port, host=args.host)
+    api, backend_desc = api_backend(args.kubeconfig, args.kube_context, args.in_cluster)
+    scheduler = init_server_with_clients(api, install, device=args.device)
+    http = ExtenderHTTPServer(
+        scheduler,
+        port=args.port,
+        host=args.host,
+        tls_cert_file=args.tls_cert,
+        tls_key_file=args.tls_key,
+    )
     http.start()
     print(
         f"extender serving on :{http.port} "
-        f"(binpack={install.binpack_algo}, backend=embedded, device={scheduler.device})",
+        f"(binpack={install.binpack_algo}, backend={backend_desc}, device={scheduler.device}, "
+        f"tls={'on' if http.tls else 'off'})",
         flush=True,
     )
     try:
@@ -98,6 +171,8 @@ def main(argv=None) -> int:
     finally:
         http.stop()
         scheduler.stop()
+        if isinstance(api, RestAPIServer):
+            api.close()
     return 0
 
 

@@ -4,11 +4,18 @@
   (reference cmd/endpoints.go:28-42).  A bad payload answers 400; an
   error inside the Filter (a kernel build, launch or solve failure
   among them) answers 500 — it is never turned into a decision.
+- ``POST /convert`` — CRD ConversionReview webhook
+  (internal/conversionwebhook/resource_reservation.go:33-98; also served
+  standalone with ``webhook_only``, mirroring the
+  spark-scheduler-conversion-webhook module)
 - ``GET /status/liveness`` / ``GET /status/readiness`` — management
   probes (witchcraft server equivalents, examples/extender.yml:142-151);
   readiness answers 503 until the caches are synced and the kernel
-  warmup has finished without error
-- ``GET /metrics`` — metrics registry snapshot as JSON
+  warmup has finished without error (always ready in webhook-only mode)
+- ``GET /metrics`` — metrics registry snapshot: JSON by default,
+  Prometheus text exposition when the Accept header asks for
+  ``text/plain``/openmetrics or ``?format=prometheus`` is passed, the
+  exemplar-carrying OpenMetrics flavour only on ``?format=openmetrics``
 - ``GET /traces`` — recent completed span trees (tracing/spans.py ring)
 """
 
@@ -23,6 +30,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlsplit
 
+from ..metrics import prometheus as prom
 from ..tracing import spans as tracing
 from ..types import serde
 from .wiring import Server
@@ -52,13 +60,37 @@ class _ExtenderHTTPD(ThreadingHTTPServer):
     daemon_threads = False
 
 
+def convert_review(body: dict) -> dict:
+    """Handle a ConversionReview: convert every object to the desired
+    apiVersion (conversion webhook contract)."""
+    request = body.get("request") or {}
+    uid = request.get("uid", "")
+    desired = request.get("desiredAPIVersion", "")
+    converted = []
+    try:
+        for obj in request.get("objects") or []:
+            converted.append(serde.convert_rr(obj, desired))
+        result = {"status": "Success"}
+    except Exception as err:  # conversion failures are reported, not raised
+        logger.exception("conversion failed")
+        converted = []
+        result = {"status": "Failed", "message": str(err)}
+    return {
+        "apiVersion": body.get("apiVersion", "apiextensions.k8s.io/v1"),
+        "kind": "ConversionReview",
+        "response": {"uid": uid, "convertedObjects": converted, "result": result},
+    }
+
+
 class _Handler(BaseHTTPRequestHandler):
     server_version = "tpu-gang-scheduler"
     scheduler: Optional[Server] = None
+    webhook_only: bool = False
     # per-connection socket timeout (applied by BaseHTTPRequestHandler.
-    # setup): bounds slow reads so a stalled peer only ties up its own
-    # worker thread.  The kube-scheduler extender client gives up after
-    # 30s (examples/extender.yml httpTimeout), so 65s is a safe bound.
+    # setup): bounds slow reads AND the deferred TLS handshake so a
+    # stalled peer only ties up its own worker thread, and only briefly.
+    # The kube-scheduler extender client gives up after 30s
+    # (examples/extender.yml httpTimeout), so 65s is a safe bound.
     timeout = 65
 
     def log_message(self, fmt, *args):  # route through logging, not stderr
@@ -93,6 +125,9 @@ class _Handler(BaseHTTPRequestHandler):
     def _send_json(self, code: int, payload: dict) -> None:
         self._send_bytes(code, json.dumps(payload).encode(), "application/json")
 
+    def _send_text(self, code: int, text: str, content_type: str) -> None:
+        self._send_bytes(code, text.encode(), content_type)
+
     def _read_json(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)
         raw = self.rfile.read(length) if length else b"{}"
@@ -115,7 +150,7 @@ class _Handler(BaseHTTPRequestHandler):
         if path == "/status/liveness":
             self._send_json(200, {"status": "up"})
         elif path == "/status/readiness":
-            serving = (
+            serving = self.webhook_only or (
                 self.scheduler is not None
                 and self.scheduler.informer_factory.wait_for_cache_sync()
                 # kernel warmup still building (or failed): admitting
@@ -125,7 +160,17 @@ class _Handler(BaseHTTPRequestHandler):
             )
             self._send_json(200 if serving else 503, {"ready": serving})
         elif path == "/metrics" and self.scheduler is not None:
-            self._send_json(200, self.scheduler.metrics.snapshot())
+            fmt = self._metrics_format(query)
+            if fmt == "openmetrics":
+                self._send_text(
+                    200,
+                    prom.render(self.scheduler.metrics, openmetrics=True),
+                    prom.CONTENT_TYPE_OPENMETRICS,
+                )
+            elif fmt == "prometheus":
+                self._send_text(200, prom.render(self.scheduler.metrics), prom.CONTENT_TYPE)
+            else:
+                self._send_json(200, self.scheduler.metrics.snapshot())
         elif path == "/traces" and self.scheduler is not None:
             limit = None
             try:
@@ -135,6 +180,27 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(200, {"traces": self.scheduler.tracer.traces(limit=limit)})
         else:
             self._send_json(404, {"error": "not found"})
+
+    def _metrics_format(self, query) -> str:
+        """"openmetrics" (exemplar-carrying text), "prometheus" (plain
+        0.0.4 text), or "json" (the default snapshot).
+
+        The exemplar flavour is EXPLICIT opt-in (?format=openmetrics),
+        never Accept-negotiated: it is pragmatic rather than strictly
+        OpenMetrics-valid (exemplars ride on summary ``_count`` lines;
+        counter samples keep their plain-text names), so routing it to
+        a client whose Accept demands strict OpenMetrics would fail its
+        whole scrape.  Any Accept mentioning openmetrics or text/plain
+        gets the plain 0.0.4 text every Prometheus parses."""
+        fmt = query.get("format", [""])[0] if query.get("format") else ""
+        if fmt:
+            if fmt == "openmetrics":
+                return "openmetrics"
+            return "prometheus" if fmt in ("prometheus", "text") else "json"
+        accept = self.headers.get("Accept") or ""
+        if "text/plain" in accept or "openmetrics" in accept:
+            return "prometheus"
+        return "json"
 
     def _begin_trace(self, open_span: bool = True):
         # request tracing (the reference's witchcraft request log / trc1
@@ -164,7 +230,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._finish_trace()
 
     def _handle_post(self):
-        if self.path != "/predicates":
+        if self.path not in ("/predicates", "/convert") or (
+            self.webhook_only and self.path != "/convert"
+        ):
             self._send_json(404, {"error": "not found"})
             return
         try:
@@ -175,6 +243,9 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if not isinstance(body, dict):
             self._send_json(400, {"error": "body must be a JSON object"})
+            return
+        if self.path == "/convert":
+            self._send_json(200, convert_review(body))
             return
         if self.scheduler is None:
             self._send_json(503, {"error": "scheduler not ready"})
@@ -202,13 +273,45 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class ExtenderHTTPServer:
-    """The serving process: extender endpoints on the main port."""
+    """The serving process: extender endpoints on the main port, or only
+    the conversion webhook (``webhook_only``, no scheduler)."""
 
-    def __init__(self, scheduler: Optional[Server], port: int = 0, host: str = ""):
-        # host="" binds all interfaces: kube-scheduler dials the pod IP,
-        # not loopback
-        handler = type("BoundHandler", (_Handler,), {"scheduler": scheduler})
+    def __init__(
+        self,
+        scheduler: Optional[Server],
+        port: int = 0,
+        webhook_only: bool = False,
+        host: str = "",
+        tls_cert_file: Optional[str] = None,
+        tls_key_file: Optional[str] = None,
+    ):
+        # host="" binds all interfaces: kube-scheduler and the apiserver
+        # webhook dial the pod IP, not loopback
+        handler = type(
+            "BoundHandler",
+            (_Handler,),
+            {"scheduler": scheduler, "webhook_only": webhook_only},
+        )
         self._httpd = _ExtenderHTTPD((host, port), handler)
+        if tls_cert_file:
+            # the apiserver only calls conversion webhooks over HTTPS
+            # with a CA it trusts (ref conversionwebhook/resource_
+            # reservation.go:44-98); kube-scheduler extenders support
+            # enableHTTPS + tlsConfig the same way
+            import ssl
+
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(tls_cert_file, tls_key_file)
+            # do_handshake_on_connect=False: the handshake must NOT run
+            # inside accept() in the single serve_forever thread — a peer
+            # that connects and never sends a ClientHello would wedge the
+            # whole server.  Deferred, the handshake happens on first read
+            # inside the per-connection worker thread, bounded by the
+            # handler's socket timeout.
+            self._httpd.socket = ctx.wrap_socket(
+                self._httpd.socket, server_side=True, do_handshake_on_connect=False
+            )
+        self.tls = bool(tls_cert_file)
         self._thread: Optional[threading.Thread] = None
 
     @property

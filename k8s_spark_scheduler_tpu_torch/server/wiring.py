@@ -1,13 +1,17 @@
 """Server wiring (reference ``cmd/server.go`` InitServerWithClients).
 
-Builds the whole scheduler bottom-up on an API server: informers, the
-write-back reservation and demand caches, soft reservations, the
-reservation manager, the tensor mirror of the cluster, and the extender
-around the configured binpacker.  The ``tpu-batch*`` binpackers run their
-queue solvers on ``device`` (None = CUDA, which raises on a host
-without CUDA); ``start_background`` also starts the kernel warmup, which
-builds the binpacker's CUDA library and launches its kernel once at the
-common shape buckets, and readiness waits for it.
+Builds the whole scheduler bottom-up on an API server (the embedded
+``kube/apiserver.py`` or ``kube/restbackend.RestAPIServer`` over a real
+cluster): informers, the write-back reservation and demand caches, soft
+reservations, the reservation manager, the tensor mirror of the
+cluster, the extender around the configured binpacker, the waste and
+periodic metric reporters and the unschedulable-pod marker.  The
+``tpu-batch*`` binpackers run their queue solvers on ``device`` (None =
+CUDA, which raises on a host without CUDA); ``start_background`` also
+starts the kernel warmup, which builds the binpacker's CUDA library and
+launches its kernel once at the common shape buckets, and readiness
+waits for it.  With ``SCHED_DEBUG_INVARIANTS=1`` every Filter ends with
+the invariant check (scheduler/invariants.py) inside the predicate lock.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from ..kube.apiserver import APIServer
 from ..kube.informer import Informer, InformerFactory
 from ..kube.ratelimit import TokenBucket
 from ..metrics.registry import MetricsRegistry
+from ..metrics.reporters import ReporterSet
+from ..metrics.waste import WasteMetricsReporter
 from ..ops.nodesort import NodeSorter
 from ..ops.registry import Binpacker, select_binpacker
 from ..scheduler.demand_gc import start_demand_gc
@@ -36,6 +42,7 @@ from ..scheduler.extender import SparkSchedulerExtender
 from ..scheduler.overhead import OverheadComputer
 from ..scheduler.reservations_manager import ResourceReservationManager
 from ..scheduler.sparkpods import SparkPodLister
+from ..scheduler.unschedulable import UnschedulablePodMarker
 from ..state.softreservations import SoftReservationStore
 from ..state.tensor_snapshot import TensorSnapshotCache
 from ..state.typed_caches import (
@@ -128,18 +135,25 @@ class Server:
     overhead_computer: OverheadComputer
     extender: SparkSchedulerExtender
     tensor_snapshot: TensorSnapshotCache
+    unschedulable_marker: UnschedulablePodMarker
     metrics: MetricsRegistry
     event_log: EventLog
     tracer: Tracer
+    waste_reporter: WasteMetricsReporter
+    reporters: Optional[ReporterSet] = None
     _warm_done: threading.Event = field(default_factory=threading.Event)
     _warm_stop: threading.Event = field(default_factory=threading.Event)
     _warm_error: Optional[BaseException] = None
     _threads: List[threading.Thread] = field(default_factory=list)
 
     def start_background(self) -> None:
-        """Start async writers and the kernel warmup (cmd/server.go:221-230)."""
+        """Start async writers, periodic loops and the kernel warmup
+        (cmd/server.go:221-230)."""
         self.resource_reservation_cache.run()
         self.lazy_demand_informer.start()
+        self.unschedulable_marker.start()
+        if self.reporters is not None:
+            self.reporters.start()
         self._start_warmup()
 
     def warmup_complete(self) -> bool:
@@ -178,6 +192,9 @@ class Server:
 
     def stop(self) -> None:
         self._warm_stop.set()
+        if self.reporters is not None:
+            self.reporters.stop()
+        self.unschedulable_marker.stop()
         self.resource_reservation_cache.stop()
         self.demand_cache.stop()
         self.lazy_demand_informer.stop()
@@ -192,19 +209,20 @@ def init_server_with_clients(
     install: Install,
     start_background: bool = True,
     demand_poll_interval: float = 1.0,
+    unschedulable_polling_interval: float = 60.0,
     device: DeviceLike = None,
 ) -> Server:
     """cmd/server.go:65-237, bottom-up.  `device` is where the tpu-batch*
     queue solvers run: None means CUDA and raises without it."""
     device = resolve_device(device)
-    # read for the reference's config shape, configuring nothing here yet
-    # (ROADMAP A.7): say so rather than drop them without a word
-    if install.conversion_webhook is not None:
-        logger.warning("conversion-webhook is set, but this server serves no /convert webhook")
-    logger.info(
-        "unschedulable-pod-timeout-seconds=%s: no unschedulable-pod marker runs in this server",
-        install.unschedulable_pod_timeout_seconds,
-    )
+    # the reference would run these on this config; say so rather than
+    # run fewer subsystems without a word
+    for subsystem, item in install.reference_only:
+        logger.warning(
+            "the reference package runs %s on this config; this server does not (%s)",
+            subsystem,
+            item,
+        )
     metrics = MetricsRegistry()
     event_log = EventLog()
     # request tracing + kernel profiling sinks.  The profiler is a
@@ -218,7 +236,11 @@ def init_server_with_clients(
     serde.names_interner.metrics = metrics
 
     # CRD ensure (cmd/server.go:83-85)
-    crd.ensure_resource_reservations_crd(api, install.resource_reservation_crd_annotations)
+    crd.ensure_resource_reservations_crd(
+        api,
+        install.resource_reservation_crd_annotations,
+        conversion_webhook=install.conversion_webhook,
+    )
 
     # informer factories + sync (cmd/server.go:91-127)
     factory = InformerFactory(api)
@@ -264,6 +286,10 @@ def init_server_with_clients(
     # event-driven integer snapshot for the tpu-batch fast path
     tensor_snapshot = TensorSnapshotCache(node_informer, pod_informer, rr_cache, soft_store)
 
+    # waste reporter (cmd/server.go:171-191 NewWasteMetricsReporter)
+    waste_reporter = WasteMetricsReporter(metrics, install.instance_group_label)
+    waste_reporter.start(pod_informer, lazy_demand_informer)
+
     # extender (cmd/server.go:171-191)
     node_sorter = NodeSorter(
         install.driver_prioritized_node_label, install.executor_prioritized_node_label
@@ -286,9 +312,20 @@ def init_server_with_clients(
         node_sorter=node_sorter,
         metrics=metrics,
         event_log=event_log,
+        waste_reporter=waste_reporter,
         tensor_snapshot_cache=tensor_snapshot,
         strict_reference_parity=install.strict_reference_parity,
         tracer=tracer,
+    )
+
+    marker = UnschedulablePodMarker(
+        api,
+        node_informer,
+        pod_informer,
+        overhead,
+        binpacker,
+        timeout_seconds=install.unschedulable_pod_timeout_seconds,
+        polling_interval_seconds=unschedulable_polling_interval,
     )
 
     server = Server(
@@ -309,10 +346,28 @@ def init_server_with_clients(
         overhead_computer=overhead,
         extender=extender,
         tensor_snapshot=tensor_snapshot,
+        unschedulable_marker=marker,
         metrics=metrics,
         event_log=event_log,
         tracer=tracer,
+        waste_reporter=waste_reporter,
     )
+    server.reporters = ReporterSet(server)
+
+    from ..scheduler import invariants
+
+    if invariants.enabled():
+        # wrap INSIDE the predicate lock so the check always sees
+        # quiesced post-predicate state (no races with a concurrent
+        # Filter call mid-mutation)
+        original = extender._predicate_locked
+
+        def checked_predicate_locked(args):
+            result = original(args)
+            invariants.check(server, raise_on_violation=False)
+            return result
+
+        extender._predicate_locked = checked_predicate_locked
     if start_background:
         server.start_background()
     return server

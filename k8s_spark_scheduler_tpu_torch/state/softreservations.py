@@ -144,3 +144,11 @@ class SoftReservationStore:
                 logging.getLogger(__name__).exception("soft reservation observer failed")
 
     # -- metrics helpers -----------------------------------------------------
+
+    def get_application_count(self) -> int:
+        with self._lock:
+            return len(self._store)
+
+    def get_active_extra_executor_count(self) -> int:
+        with self._lock:
+            return sum(len(sr.reservations) for sr in self._store.values())

@@ -62,6 +62,7 @@ class Harness:
             device=device,
         )
         self.extender = self.server.extender
+        self.unschedulable_marker = self.server.unschedulable_marker
         if with_demand_crd:
             self.server.lazy_demand_informer.wait_ready(5)
 

@@ -1,8 +1,12 @@
-"""Wire (de)serialization.
+"""Wire (de)serialization + CRD version conversion.
 
-Covers the reference's k8s JSON shapes for the extender protocol, Pod,
-Node, ResourceReservation v1beta2 and Demand v1alpha2.  The CRD
-conversion-webhook codecs (v1beta1, v1alpha1) are not in this package.
+Covers the reference's k8s JSON shapes for the extender protocol and the
+ResourceReservation v1beta1 ↔ v1beta2 conversion
+(lib/pkg/apis/sparkscheduler/v1beta1/conversion_resource_reservation.go:
+the v1beta1 schema is flat {Node, CPU, Memory}; lossless round-trips
+keep a JSON copy of the full v1beta2 spec in the
+``sparkscheduler.palantir.com/reservation-spec`` annotation), plus
+Demand v1alpha1 ↔ v1alpha2 (flat resources vs resource list).
 """
 
 from __future__ import annotations
@@ -30,14 +34,25 @@ from .objects import (
     ResourceReservationSpec,
     ResourceReservationStatus,
 )
-from .resources import Resources
+from .resources import RESOURCE_CPU, RESOURCE_MEMORY, Resources
 
 GROUP_NAME = "sparkscheduler.palantir.com"
+RESERVATION_SPEC_ANNOTATION_KEY = GROUP_NAME + "/reservation-spec"
 
 
 # ---------------------------------------------------------------------------
 # ObjectMeta
 # ---------------------------------------------------------------------------
+
+
+def ts_to_rfc3339(ts: float) -> str:
+    """k8s metav1.Time wire form (UTC, second precision)."""
+    import datetime
+
+    return (
+        datetime.datetime.fromtimestamp(ts, datetime.timezone.utc)
+        .strftime("%Y-%m-%dT%H:%M:%SZ")
+    )
 
 
 def _ts_from_wire(value) -> float:
@@ -460,7 +475,7 @@ def encode_extender_filter_result(result: ExtenderFilterResult) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# ResourceReservation v1beta2
+# ResourceReservation v1beta2 (storage) + v1beta1 (served)
 # ---------------------------------------------------------------------------
 
 
@@ -504,8 +519,93 @@ def rr_from_dict_v1beta2(d: dict) -> ResourceReservation:
     )
 
 
+def rr_to_dict_v1beta1(rr: ResourceReservation) -> dict:
+    """ConvertFrom (v1beta2 → v1beta1), conversion_resource_reservation.go:
+    86-121: flat {node,cpu,memory} reservations + full v1beta2 spec JSON
+    kept in the reservation-spec annotation for lossless round trips."""
+    meta = meta_to_dict(rr.meta)
+    annotations = dict(meta.get("annotations") or {})
+    annotations[RESERVATION_SPEC_ANNOTATION_KEY] = json.dumps(
+        rr_spec_to_dict_v1beta2(rr.spec), sort_keys=True
+    )
+    meta["annotations"] = annotations
+    return {
+        "apiVersion": f"{GROUP_NAME}/v1beta1",
+        "kind": "ResourceReservation",
+        "metadata": meta,
+        "spec": {
+            "reservations": {
+                name: {
+                    "node": res.node,
+                    "cpu": res.resources.get(RESOURCE_CPU, Quantity(0)).serialize(),
+                    "memory": res.resources.get(RESOURCE_MEMORY, Quantity(0)).serialize(),
+                }
+                for name, res in rr.spec.reservations.items()
+            }
+        },
+        "status": {"pods": dict(rr.status.pods)},
+    }
+
+
+def rr_from_dict_v1beta1(d: dict) -> ResourceReservation:
+    """ConvertTo (v1beta1 → v1beta2), conversion_resource_reservation.go:
+    28-83: base values from the flat struct; any extra resource
+    dimensions (e.g. GPU) recovered from the reservation-spec annotation;
+    the annotation itself is dropped from the converted object."""
+    meta = meta_from_dict(d.get("metadata") or {})
+    annotation_json = meta.annotations.pop(RESERVATION_SPEC_ANNOTATION_KEY, None)
+
+    reservations: Dict[str, Reservation] = {}
+    for name, r in ((d.get("spec") or {}).get("reservations") or {}).items():
+        reservations[name] = Reservation(
+            node=r.get("node", ""),
+            resources={
+                RESOURCE_CPU: Quantity(r.get("cpu", "0")),
+                RESOURCE_MEMORY: Quantity(r.get("memory", "0")),
+            },
+        )
+
+    if annotation_json:
+        try:
+            annotation_spec = rr_spec_from_dict_v1beta2(json.loads(annotation_json))
+        except (ValueError, TypeError):
+            annotation_spec = None
+        if annotation_spec is not None:
+            for name, annotation_res in annotation_spec.reservations.items():
+                existing = reservations.get(name)
+                if existing is None:
+                    continue
+                for resource_name, quantity in annotation_res.resources.items():
+                    if resource_name not in existing.resources:
+                        existing.resources[resource_name] = quantity
+
+    return ResourceReservation(
+        meta=meta,
+        spec=ResourceReservationSpec(reservations=reservations),
+        status=ResourceReservationStatus(pods=dict((d.get("status") or {}).get("pods") or {})),
+    )
+
+
+def convert_rr(obj: dict, desired_api_version: str) -> dict:
+    """Webhook conversion entry: any served version → desired version."""
+    api_version = obj.get("apiVersion", "")
+    if api_version == desired_api_version:
+        return obj
+    if api_version.endswith("v1beta1"):
+        hub = rr_from_dict_v1beta1(obj)
+    elif api_version.endswith("v1beta2"):
+        hub = rr_from_dict_v1beta2(obj)
+    else:
+        raise ValueError(f"unknown apiVersion {api_version}")
+    if desired_api_version.endswith("v1beta2"):
+        return rr_to_dict_v1beta2(hub)
+    if desired_api_version.endswith("v1beta1"):
+        return rr_to_dict_v1beta1(hub)
+    raise ValueError(f"unknown desired apiVersion {desired_api_version}")
+
+
 # ---------------------------------------------------------------------------
-# Demand v1alpha2 (storage)
+# Demand v1alpha2 (storage) + v1alpha1
 # ---------------------------------------------------------------------------
 
 SCALER_GROUP = "scaler.palantir.com"
@@ -566,3 +666,24 @@ def demand_from_dict_v1alpha2(d: dict) -> Demand:
             fulfilled_zone=status.get("fulfilledZone"),
         ),
     )
+
+
+def demand_to_dict_v1alpha1(demand: Demand) -> dict:
+    """v1alpha1 units use flat cpu/memory fields (types_demand.go v1alpha1)."""
+    d = demand_to_dict_v1alpha2(demand)
+    d["apiVersion"] = f"{SCALER_GROUP}/v1alpha1"
+    for u, unit in zip(d["spec"]["units"], demand.spec.units):
+        resources = u.pop("resources")
+        u["cpu"] = resources[RESOURCE_CPU]
+        u["memory"] = resources[RESOURCE_MEMORY]
+    return d
+
+
+def demand_from_dict_v1alpha1(d: dict) -> Demand:
+    converted = json.loads(json.dumps(d))
+    for u in (converted.get("spec") or {}).get("units") or []:
+        u["resources"] = {
+            RESOURCE_CPU: u.pop("cpu", "0"),
+            RESOURCE_MEMORY: u.pop("memory", "0"),
+        }
+    return demand_from_dict_v1alpha2(converted)

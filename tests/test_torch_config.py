@@ -1,0 +1,105 @@
+"""The port's config against the reference's on the subsystems a config
+turns on: ``Install.reference_only`` names exactly the subsystems the
+JAX package runs on the same config and the port does not have, and the
+server logs one warning for each at start (on examples/install.json
+among others).  Also the two settings that now configure something:
+``conversion-webhook`` (the CRD's conversion stanza) and
+``unschedulable-pod-timeout-seconds`` (the marker)."""
+
+import json
+import logging
+import os
+
+import pytest
+
+from k8s_spark_scheduler_tpu.config import Install as JaxInstall
+from k8s_spark_scheduler_tpu.kube import crd as jax_crd
+from k8s_spark_scheduler_tpu_torch.config import Install
+from k8s_spark_scheduler_tpu_torch.kube import crd
+from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
+from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SECTIONS = ("provenance", "capacity", "contention", "policy", "ha", "lifecycle", "concurrent", "classes")
+
+
+def _example() -> dict:
+    with open(os.path.join(REPO, "examples", "install.json")) as f:
+        return json.load(f)
+
+
+def _reference_runs(d: dict) -> set:
+    """The subsystems the JAX package runs on config ``d``."""
+    jax = JaxInstall.from_dict(d)
+    running = {"resilience"}  # no switch in the reference (config.py:403)
+    if jax.delta_solve:
+        running.add("delta-solve")
+    running.update(key for key in SECTIONS if getattr(jax, key).enabled)
+    return running
+
+
+CONFIGS = {
+    "example": _example(),
+    "empty": {},
+    "some-off": {"delta-solve": False, "provenance": {"enabled": False}, "classes": {"enabled": False}},
+    "all-off": dict({k: {"enabled": False} for k in SECTIONS}, **{"delta-solve": False}),
+}
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_reference_only_names_what_the_reference_runs(config):
+    d = CONFIGS[config]
+    ours = Install.from_dict(d)
+    assert {name for name, _ in ours.reference_only} == _reference_runs(d)
+    for name, item in ours.reference_only:
+        assert item.startswith("ROADMAP A."), (name, item)
+
+
+def test_example_config_warns_once_per_missing_subsystem(tmp_path, caplog):
+    d = _example()
+    ca = tmp_path / "ca.crt"
+    ca.write_bytes(b"-----BEGIN CERTIFICATE-----\nMIIB\n-----END CERTIFICATE-----\n")
+    d["conversion-webhook"]["ca-bundle-file"] = str(ca)
+    install = Install.from_dict(d)
+    with caplog.at_level(logging.WARNING, logger="k8s_spark_scheduler_tpu_torch.server.wiring"):
+        server = init_server_with_clients(APIServer(), install, start_background=False, device="cpu")
+    warned = [r.getMessage() for r in caplog.records if "the reference package runs" in r.getMessage()]
+    expected = _reference_runs(_example())
+    assert len(warned) == len(expected) == 7
+    for name in expected:
+        assert sum(f" runs {name} on this config" in w for w in warned) == 1, name
+    # the two settings configure something now: the marker's timeout,
+    # and the CRD's conversion webhook, equal to the reference's stanza
+    assert server.unschedulable_marker._timeout == 600
+    ours = server.api.get_crd(crd.RESOURCE_RESERVATION_CRD_NAME)
+    theirs = jax_crd.resource_reservation_crd_spec(
+        JaxInstall.from_dict(d).resource_reservation_crd_annotations, JaxInstall.from_dict(d).conversion_webhook
+    )
+    assert ours["conversion"] == theirs["conversion"]
+    assert ours["versions"] == [dict(v) for v in theirs["versions"]]
+    server.stop()
+
+
+def test_example_config_without_its_ca_file_fails_like_the_reference():
+    """examples/install.json names /etc/scheduler/ca.crt, a path of the
+    deployment: both packages refuse to build the CRD without it."""
+    d = _example()
+    if os.path.exists(d["conversion-webhook"]["ca-bundle-file"]):
+        pytest.skip("this host has the deployment's CA bundle")
+    with pytest.raises(FileNotFoundError):
+        jax_crd.resource_reservation_crd_spec({}, JaxInstall.from_dict(d).conversion_webhook)
+    with pytest.raises(FileNotFoundError):
+        crd.resource_reservation_crd_spec({}, Install.from_dict(d).conversion_webhook)
+
+
+def test_background_loops_start_and_stop():
+    server = init_server_with_clients(
+        APIServer(), Install(binpack_algo="tpu-batch"), unschedulable_polling_interval=0.01, device="cpu"
+    )
+    try:
+        assert server.unschedulable_marker._thread.is_alive()
+        assert server.reporters._thread.is_alive()
+    finally:
+        server.stop()
+    assert not server.unschedulable_marker._thread.is_alive()
+    assert not server.reporters._thread.is_alive()

@@ -259,14 +259,29 @@ def test_entry_points_raise_without_cuda():
     assert "CUDA is not available" in proc.stderr
 
 
-def test_cli_serves_the_example_config_on_cpu():
-    """`--device cpu` serves examples/install.json unchanged: readiness
-    answers 200, then SIGTERM stops the process cleanly."""
+def _example_config_with_ca(tmp_path) -> str:
+    """examples/install.json with its conversion webhook's CA bundle (a
+    path of the deployment, /etc/scheduler/ca.crt) at a file that
+    exists here; every other key unchanged."""
+    with open(os.path.join(REPO, "examples", "install.json")) as f:
+        raw = json.load(f)
+    ca = tmp_path / "ca.crt"
+    ca.write_bytes(b"-----BEGIN CERTIFICATE-----\nMIIB\n-----END CERTIFICATE-----\n")
+    raw["conversion-webhook"]["ca-bundle-file"] = str(ca)
+    path = tmp_path / "install.json"
+    path.write_text(json.dumps(raw))
+    return str(path)
+
+
+def test_cli_serves_the_example_config_on_cpu(tmp_path):
+    """`--device cpu` serves examples/install.json (its CA bundle at a
+    file that exists here): readiness answers 200, then SIGTERM stops
+    the process cleanly."""
     import signal
 
     proc = subprocess.Popen(
         [sys.executable, "-m", "k8s_spark_scheduler_tpu_torch.server", "--port", "0",
-         "--config", os.path.join(REPO, "examples", "install.json"), "--device", "cpu"],
+         "--config", _example_config_with_ca(tmp_path), "--device", "cpu"],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     try:
@@ -285,21 +300,27 @@ def test_cli_serves_the_example_config_on_cpu():
     assert proc.returncode == 0
 
 
+_REFUSED = [
+    ({"delta-solve": True}, r"A\.3 \(delta-solve\)"),
+    ({"provenance": {}}, r"A\.6\.2 \(provenance\)"),
+    ({"provenance": {"enabled": True}}, r"A\.6\.2 \(provenance\)"),
+    ({"policy": {"enabled": True}}, r"A\.6\.5 \(scheduling policy\)"),
+    ({"lifecycle": {"enabled": True}}, r"A\.6\.4 \(lifecycle"),
+    ({"ha": {"enabled": True}}, r"A\.6\.6 \(HA failover\)"),
+    ({"concurrent": {"enabled": True}}, r"A\.4 \(concurrent admission\)"),
+    ({"capacity": {}}, r"A\.6\.3 \(capacity observatory\)"),
+    ({"contention": {"enabled": True}}, r"A\.6\.7 \(contention observatory\)"),
+    ({"classes": {}}, r"A\.3 \(equivalence-class aggregation\)"),
+    ({"resilience": {"request-deadline-seconds": 5}}, r"A\.6\.1 \(resilience kit\)"),
+]
+
+
+# the ids are those the cases had when ROADMAP numbered these items A.5
+# and A.8; the items are ROADMAP's current numbers
 @pytest.mark.parametrize(
     "config, item",
-    [
-        ({"delta-solve": True}, "A.5"),
-        ({"provenance": {}}, "A.8"),
-        ({"provenance": {"enabled": True}}, "A.8"),
-        ({"policy": {"enabled": True}}, "A.8"),
-        ({"lifecycle": {"enabled": True}}, "A.8"),
-        ({"ha": {"enabled": True}}, "A.8"),
-        ({"concurrent": {"enabled": True}}, "A.5"),
-        ({"capacity": {}}, "A.8"),
-        ({"contention": {"enabled": True}}, "A.8"),
-        ({"classes": {}}, "A.5"),
-        ({"resilience": {"request-deadline-seconds": 5}}, "A.8"),
-    ],
+    _REFUSED,
+    ids=[f"config{i}-{old}" for i, old in enumerate("A.5 A.8 A.8 A.8 A.8 A.8 A.5 A.8 A.8 A.5 A.8".split())],
 )
 def test_install_refuses_keys_that_enable_unported_subsystems(config, item):
     with pytest.raises(ValueError, match=item):

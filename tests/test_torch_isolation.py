@@ -164,6 +164,130 @@ def test_server_imports_and_serves_with_jax_and_reference_package_blocked():
     assert "SERVED-OK" in proc.stdout
 
 
+_BLOCKED_CLUSTER = textwrap.dedent(
+    """
+    import json, sys, time, urllib.request
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    # the modules of the REST / operator slice, each by name
+    from k8s_spark_scheduler_tpu_torch.kube.restclient import ClusterConfig, GoneError, RestClient, load_kubeconfig
+    from k8s_spark_scheduler_tpu_torch.kube.restbackend import RestAPIServer
+    from k8s_spark_scheduler_tpu_torch.testing.fake_kube_api import FakeKubeAPI
+    from k8s_spark_scheduler_tpu_torch.testing.fake_autoscaler import FakeAutoscaler
+    from k8s_spark_scheduler_tpu_torch.metrics import prometheus
+    from k8s_spark_scheduler_tpu_torch.metrics.reporters import ReporterSet
+    from k8s_spark_scheduler_tpu_torch.metrics.waste import WasteMetricsReporter
+    from k8s_spark_scheduler_tpu_torch.scheduler import invariants
+    from k8s_spark_scheduler_tpu_torch.scheduler.unschedulable import UnschedulablePodMarker
+    from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer, convert_review
+    from k8s_spark_scheduler_tpu_torch.server.__main__ import main
+    from k8s_spark_scheduler_tpu_torch.types.serde import convert_rr, demand_to_dict_v1alpha1
+
+    from k8s_spark_scheduler_tpu_torch.config import Install
+    from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
+    from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+    from k8s_spark_scheduler_tpu_torch.types import serde
+    from k8s_spark_scheduler_tpu_torch.types.objects import Node, ObjectMeta
+    from k8s_spark_scheduler_tpu_torch.types.resources import ZONE_LABEL, Resources
+
+    fake = FakeKubeAPI().start()
+    fake.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
+    for i in range(3):
+        fake.api.create(Node(meta=ObjectMeta(name=f"n{i}", labels={ZONE_LABEL: "z1",
+                             "resource_channel": "batch-medium-priority"}),
+                             allocatable=Resources.of("8", "8Gi", "1")))
+    backend = fake.client_backend()
+    scheduler = init_server_with_clients(backend, Install(fifo=True, binpack_algo="tpu-batch"),
+                                         demand_poll_interval=0.02, device="cpu")
+    autoscaler = None
+    http = ExtenderHTTPServer(scheduler, port=0, host="127.0.0.1")
+    http.start()
+    try:
+        assert scheduler.wait_ready(60) and scheduler.lazy_demand_informer.wait_ready(10)
+        autoscaler = FakeAutoscaler(fake.api, scheduler.lazy_demand_informer.informer())
+
+        def post(path, payload):
+            req = urllib.request.Request(f"http://127.0.0.1:{http.port}{path}",
+                                         data=json.dumps(payload).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return json.loads(resp.read())
+
+        def seen(name):
+            deadline = time.monotonic() + 10
+            while scheduler.pod_informer.get("default", name) is None:
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+
+        pods = Harness.static_allocation_spark_pods("app-rest", 2)
+        fake.api.create(pods[0])
+        seen(pods[0].name)
+        result = post("/predicates", {"Pod": serde.pod_to_dict(pods[0]), "NodeNames": ["n0", "n1", "n2"]})
+        assert result["NodeNames"], result
+        deadline = time.monotonic() + 10
+        while not fake.api.list("ResourceReservation"):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        # a gang too large: its demand reaches the fake cluster over REST,
+        # the fake autoscaler fulfils it with nodes
+        big = Harness.static_allocation_spark_pods("app-big", 12, executor_cpu="4")
+        fake.api.create(big[0])
+        seen(big[0].name)
+        result = post("/predicates", {"Pod": serde.pod_to_dict(big[0]), "NodeNames": ["n0", "n1", "n2"]})
+        assert not result.get("NodeNames")
+        deadline = time.monotonic() + 10
+        while not autoscaler.fulfilled:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert invariants.check(scheduler) == []
+        scheduler.reporters.report_once()
+        scheduler.unschedulable_marker.scan_for_unschedulable_pods()
+        req = urllib.request.Request(f"http://127.0.0.1:{http.port}/metrics", headers={"Accept": "text/plain"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            text = resp.read().decode()
+        assert "# TYPE foundry_spark_scheduler_requests counter" in text
+        assert "foundry_spark_scheduler_cache_objects_count" in text
+        review = post("/convert", {"request": {"uid": "u", "desiredAPIVersion": "sparkscheduler.palantir.com/v1beta1",
+                                               "objects": [serde.rr_to_dict_v1beta2(fake.api.list("ResourceReservation")[0])]}})
+        assert review["response"]["result"]["status"] == "Success", review
+    finally:
+        http.stop()
+        scheduler.stop()
+        backend.stop()
+        fake.stop()
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("CLUSTER-OK")
+    """
+)
+
+
+def test_rest_cluster_slice_runs_with_jax_and_reference_package_blocked():
+    """The server over REST against the port's fake API, with the
+    operator surface (Prometheus /metrics, /convert, the marker, the
+    reporters, the invariant checker, the fake autoscaler), each new
+    module imported by name."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CLUSTER],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "CLUSTER-OK" in proc.stdout
+
+
 def test_package_sources_import_neither_jax_nor_reference_package():
     import re
 

@@ -11,6 +11,14 @@ agree.  The JAX server runs without the two subsystems the port does not
 have and would refuse in its config: delta-solve and provenance.  ``Twin.schedule`` holds every ``ExtenderFilterResult`` equal
 and ``Twin.assert_state_equal`` the reservations and demands in both
 API servers.
+
+Both servers write reservations and demands back on worker threads, and
+a Filter or a delete that overtakes a pending write can decide
+differently: two harnesses of the SAME package, driven in lockstep under
+load, choose different nodes for one Filter.  So ``Twin`` settles both
+sides (write-back queues drained, caches equal to their API server)
+before every Filter and every delete, and compares only decisions made
+on settled state.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from k8s_spark_scheduler_tpu import timesource as jax_timesource
 from k8s_spark_scheduler_tpu.config import FifoConfig as JaxFifoConfig
 from k8s_spark_scheduler_tpu.config import Install as JaxInstall
 from k8s_spark_scheduler_tpu.config import ProvenanceConfig as JaxProvenanceConfig
+from k8s_spark_scheduler_tpu.scheduler import invariants as jax_invariants
 from k8s_spark_scheduler_tpu.testing.harness import Harness as JaxHarness
 from k8s_spark_scheduler_tpu.types import serde as jax_serde
 from k8s_spark_scheduler_tpu.types.extenderapi import ExtenderArgs as JaxArgs
@@ -30,6 +39,7 @@ from k8s_spark_scheduler_tpu_torch import timesource as port_timesource
 from k8s_spark_scheduler_tpu_torch.config import FifoConfig as PortFifoConfig
 from k8s_spark_scheduler_tpu_torch.convert import object_from_wire
 from k8s_spark_scheduler_tpu_torch.metrics import names as port_names
+from k8s_spark_scheduler_tpu_torch.scheduler import invariants as port_invariants
 from k8s_spark_scheduler_tpu_torch.testing.harness import Harness as PortHarness
 from k8s_spark_scheduler_tpu_torch.types import serde as port_serde
 from k8s_spark_scheduler_tpu_torch.types.extenderapi import ExtenderArgs as PortArgs
@@ -68,6 +78,7 @@ class Twin:
         binpack_algo: str,
         enforce_after_age: float = 0.0,
         dynamic_allocation_single_az: bool = False,
+        check_invariants: bool = False,
     ):
         self.now = T0
         jax_timesource.set_source(lambda: self.now)
@@ -103,6 +114,24 @@ class Twin:
             self.close()
             raise
         self.results: List[dict] = []
+        self.invariant_checks = 0
+        if check_invariants:
+            self._check_invariants_after_each_filter()
+
+    def _check_invariants_after_each_filter(self) -> None:
+        """Each side checks I1-I5 (its own scheduler/invariants.py) at
+        the end of every Filter, inside its predicate lock, raising on a
+        violation (the wiring's SCHED_DEBUG_INVARIANTS hook only logs)."""
+        for h, check in ((self.jax, jax_invariants.check), (self.port, port_invariants.check)):
+            original = h.extender._predicate_locked
+
+            def checked(args, original=original, server=h.server, check=check):
+                result = original(args)
+                assert check(server, raise_on_violation=True) == []
+                self.invariant_checks += 1
+                return result
+
+            h.extender._predicate_locked = checked
 
     def close(self) -> None:
         try:
@@ -146,6 +175,7 @@ class Twin:
         self._create(jax_serde.node_to_dict(node))
 
     def delete_node(self, name: str) -> None:
+        self.settle()
         self.jax.api.delete("Node", "default", name)
         self.port.api.delete("Node", "default", name)
 
@@ -178,10 +208,12 @@ class Twin:
 
     def delete_pod(self, wire: dict) -> None:
         meta = wire["metadata"]
+        self.settle()
         for h in (self.jax, self.port):
             h.api.delete("Pod", meta.get("namespace", "default"), meta["name"])
 
     def terminate_pod(self, wire: dict) -> None:
+        self.settle()
         self.jax.terminate_pod(jax_serde_decode(wire))
         self.port.terminate_pod(object_from_wire(wire))
 
@@ -190,6 +222,7 @@ class Twin:
     def schedule(self, wire: dict, node_names: Sequence[str]) -> Optional[str]:
         """Filter + bind on both sides; the results must be equal.
         Returns the chosen node (None on a failure)."""
+        self.settle()
         jr = self.jax.schedule(jax_serde_decode(wire), node_names)
         pr = self.port.schedule(object_from_wire(wire), node_names)
         self._check(jr, pr)
@@ -198,6 +231,7 @@ class Twin:
     def replay(self, wire: dict, node_names: Sequence[str]) -> Optional[str]:
         """A Filter without the bind (kube-scheduler retrying a pod the
         cluster already knows)."""
+        self.settle()
         jpod = self.jax.server.pod_informer.get(wire["metadata"].get("namespace", "default"), wire["metadata"]["name"])
         ppod = self.port.server.pod_informer.get(wire["metadata"].get("namespace", "default"), wire["metadata"]["name"])
         jr = self.jax.extender.predicate(JaxArgs(pod=jpod.deepcopy(), node_names=list(node_names)))
@@ -224,10 +258,9 @@ class Twin:
             for d in h.api.list("Demand")
         }
 
-    def assert_state_equal(self) -> None:
-        """Reservations and demands in both API servers are equal once
-        the write-back queues have drained (and soft reservations in
-        both in-memory stores)."""
+    def settle(self) -> None:
+        """Wait until both servers' reservation and demand write-backs
+        have drained and each cache agrees with its API server."""
         for h in (self.jax, self.port):
             assert h.wait_quiesced(10)
             assert h.wait_for_api(
@@ -236,6 +269,12 @@ class Twin:
                 == {(d.namespace, d.name) for d in h.server.demand_cache.list()},
                 timeout=10,
             )
+
+    def assert_state_equal(self) -> None:
+        """Reservations and demands in both API servers are equal once
+        the write-back queues have drained (and soft reservations in
+        both in-memory stores)."""
+        self.settle()
         assert self._reservations(self.port, port_serde.rr_to_dict_v1beta2) == self._reservations(
             self.jax, jax_serde.rr_to_dict_v1beta2
         )
