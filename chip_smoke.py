@@ -20,8 +20,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cluster's blocks), on 100,000 (its node planes in global scratch) and
    on values near the int32 range (availabilities near 2^31 - 1, large,
    odd and power-of-two requests, gangs whose capacity sums wrap), with
-   its cluster size, threads and shared bytes a block; outputs are
-   integers and must be exactly equal;
+   its cluster size, threads and shared bytes a block; the queue and
+   min-frag kernels also with the refusal explainer's probe flags and
+   usage output; outputs are integers and must be exactly equal;
 4. main path: Filter decisions on a 10,000-node cluster in 3 zones with a
    1,000-deep pending queue, on the card and equal to the same calls on
    the CPU: ``TpuFifoSolver`` tightly-pack, distribute-evenly and
@@ -32,21 +33,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel launch counts, zeroed just before its decisions and read just
    after; each kernel's time, bound and serial floor at the main path's inputs, the apps that take
    the az-aware cross-zone solve, each variant's cluster size and threads,
-   and ptxas's registers and spills for each kernel instantiation; decision breakdowns and the device's busy
-   time in profiler traces of single decisions;
+   and ptxas's registers and spills for each kernel instantiation; the
+   explainer's launch at the main path's inputs (1,000 probes interleaved
+   with the 1,000 earlier apps) against its plain version, with its time;
+   decision breakdowns and the device's busy time in profiler traces of
+   single decisions;
 5. server: the port's Filter server on the card — ``init_server_with_clients``
-   (binpack ``tpu-batch``, then ``tpu-batch-distribute-evenly``, fifo) with
+   (binpack ``tpu-batch``, then ``tpu-batch-distribute-evenly``, then
+   ``tpu-batch-minimal-fragmentation``, fifo, the reference's default
+   resilience and provenance) with
    ``ExtenderHTTPServer`` on port 0, bench.py's headline HTTP snapshot
    (10,000 nodes in 3 zones, allocatable 4–96 CPU / 8–256 Gi, 1,000 queued
    drivers of 1–32 executors of 1–8 CPU / 2–16 Gi) rebuilt from ``--seed``;
    2 warmup and 24 timed ``POST /predicates`` probes with all 10,000 node
    names, each retired and settled before the next; every response body
    equal to the same probe on a ``device="cpu"`` server fed the same
-   objects, every timed probe on the tensor lane (``lane=fast``) with the
-   CUDA queue kernel (one launch a probe); for 3 granted probes the driver
-   is bound and every executor POSTed, each granted its reserved node;
-   request latency p50 / p99, span medians and the device's idle share in
-   a profiler trace of one request;
+   objects (every 8th probe under min-frag, whose plain version takes
+   seconds a Filter on the host), every timed probe on the tensor lane
+   (``lane=fast``) with the CUDA queue kernel (one launch a probe); for 3
+   granted probes the driver is bound and every executor POSTed, each
+   granted its reserved node; request latency p50 / p99, the provenance
+   work a request does, span medians and the device's idle share in a
+   profiler trace of one request; then one probe refused behind the
+   queue, explained on the card, its message equal to the cpu server's;
 6. cluster: the same server against a Kubernetes API over REST — a cuda
    and a cpu server, each on its own ``FakeKubeAPI`` (a local HTTP
    Kubernetes API) holding phase 5's objects, reached through a
@@ -57,13 +66,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    probes' executors), with every pod created, bound and deleted in the
    fake and seen through the watches, and the reservations and demands
    each server wrote back read over REST and equal; the invariant checker
-   (I1-I5, I5 at 10,000 nodes) after every Filter of the cuda server,
+   (I1-I5, I5 at 10,000 nodes) after every driver Filter of the cuda
+   server (the executors' Filters skip it: ~1.5 s a check),
    no violation, and the request latency given without and with its time;
    ``/metrics`` with ``Accept: text/plain`` parsed as Prometheus text,
    its fast-lane counter equal to the probes; ``/convert`` round-tripping
    a v1beta1 reservation; one unschedulable-marker scan of the 1,000
    queued drivers on each server, verdicts equal, with its time;
-7. the kernels line (times, bounds, launches) and the device result line.
+7. resilience: a cuda and a cpu server under ``tpu-batch`` on phase 5's
+   snapshot with the flight recorder keeping 10,240-node bundles; 8
+   probes whose gangs fit the cluster but not behind the queue, their
+   explanations walking all 1,000 earlier apps, failure messages and
+   ``/explain`` bodies equal on cuda and cpu, the refused requests' and
+   the explanations' times; a write-back outage (``set_write_fault``):
+   the breaker opens, readiness reads ``degraded``, every admitted gang's
+   reservation is journaled and none lands, then the journal replays
+   and the reservations equal the cpu server's; the bundles the
+   ``breaker-open`` trigger persisted replayed through the kernel and
+   the plain version, equal to the recorded verdicts, with their times;
+   a burst of 32 concurrent ``/predicates`` on the cuda server: each
+   answer a grant, a refusal or the shed message, at least one shed,
+   the shed requests' wait, and I1-I5 after it;
+8. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -238,8 +262,18 @@ def time_cuda(fn, reps: int) -> float:
 
 # -- phase 5: the Filter server -------------------------------------------------
 
-SERVER_POLICIES = ("tpu-batch", "tpu-batch-distribute-evenly")
+SERVER_POLICIES = ("tpu-batch", "tpu-batch-distribute-evenly", "tpu-batch-minimal-fragmentation")
 SERVER_WARMUP_PROBES, SERVER_TIMED_PROBES, SERVER_EXECUTOR_CHECKS = 2, 24, 3
+# the probes each policy's cpu server answers too (every probe is retired
+# before the next, so the servers stay equal whichever it skips): the
+# min-frag queue's plain version takes seconds a Filter on the host
+SERVER_CPU_EVERY = {"tpu-batch-minimal-fragmentation": 8}
+# the policy whose probes also go to a cuda server with provenance off,
+# in alternating order: provenance's cost within one run
+SERVER_PROVENANCE_OFF = "tpu-batch"
+# the kernel (variant) each server policy's Filter launches
+SERVER_KERNEL = {"tpu-batch": "fifo_queue_tightly", "tpu-batch-distribute-evenly": "fifo_queue_evenly",
+                 "tpu-batch-minimal-fragmentation": "fifo_queue_min_frag"}
 SERVER_SPANS = ("http.read", "serde.decode", "predicate", "fast_path.build_tensor", "fifo_gate",
                 "kernel:fifo_queue", "binpack", "serde.encode", "http.request")
 
@@ -275,12 +309,22 @@ def server_objects(seed: int):
     return names, nodes, queue, rng, base
 
 
+def server_resilience(device: str):
+    """The reference's default resilience, but on a cpu server no request
+    deadline short of an hour: the cpu servers are the plain versions'
+    oracle for the card's answers, and a host that runs them slowly must
+    not turn a decision into a deadline failure."""
+    from k8s_spark_scheduler_tpu_torch.config import ResilienceConfig
+
+    return ResilienceConfig(request_deadline_seconds=3600.0) if device == "cpu" else ResilienceConfig()
+
+
 class PortServer:
     """The port's server on its own embedded API server, serving HTTP on
     an ephemeral port."""
 
-    def __init__(self, policy: str, device: str, nodes, queue):
-        from k8s_spark_scheduler_tpu_torch.config import Install
+    def __init__(self, policy: str, device: str, nodes, queue, provenance=None):
+        from k8s_spark_scheduler_tpu_torch.config import Install, ProvenanceConfig
         from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
         from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
         from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
@@ -288,8 +332,13 @@ class PortServer:
 
         self.api = APIServer()
         self.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
+        # the reference's defaults, resilience and provenance included;
+        # the marker's scan is phase 6's, not a load on the timed probes
+        install = Install(binpack_algo=policy, fifo=True, provenance=provenance or ProvenanceConfig(),
+                          resilience=server_resilience(device))
         self.scheduler = init_server_with_clients(
-            self.api, Install(binpack_algo=policy, fifo=True), demand_poll_interval=0.5, device=device
+            self.api, install, demand_poll_interval=0.5, unschedulable_polling_interval=3600.0,
+            device=device,
         )
         self.http = None
         try:
@@ -311,13 +360,22 @@ class PortServer:
     def post(self, pod, names):
         """(ms on the host clock, status, body bytes) of one Filter of the
         pod as this server's API stores it."""
-        import urllib.error
-        import urllib.request
+        return self.post_body(self.request_body(pod, names))
 
+    def request_body(self, pod, names) -> bytes:
+        """The ExtenderArgs of a Filter of the pod as this server's API
+        stores it."""
         from k8s_spark_scheduler_tpu_torch.types import serde
 
         stored = self.api.get("Pod", pod.namespace, pod.name)
-        data = json.dumps({"Pod": serde.pod_to_dict(stored), "NodeNames": names}).encode()
+        return json.dumps({"Pod": serde.pod_to_dict(stored), "NodeNames": names}).encode()
+
+    def post_body(self, data: bytes):
+        """(ms on the host clock, status, body bytes) of one POST of
+        `data` to /predicates."""
+        import urllib.error
+        import urllib.request
+
         req = urllib.request.Request(f"http://127.0.0.1:{self.http.port}/predicates", data=data,
                                      headers={"Content-Type": "application/json"}, method="POST")
         t = time.perf_counter()
@@ -357,6 +415,126 @@ class PortServer:
 
         return self.scheduler.metrics.get_counter(mnames.TPU_FASTPATH, {"path": "driver", "lane": "fast"})
 
+    def get(self, path: str, accept: str = None):
+        import urllib.request
+
+        req = urllib.request.Request(f"http://127.0.0.1:{self.http.port}{path}",
+                                     headers={"Accept": accept} if accept else {})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.headers.get("Content-Type"), resp.read()
+
+    def settle_embedded(self) -> None:
+        """Wait until the write-back queues have drained and the caches
+        equal the embedded API server's objects."""
+        sched = self.scheduler
+        wait_for(lambda: not any(sched.resource_reservation_cache.inflight_queue_lengths())
+                 and not any(sched.demand_cache.inflight_queue_lengths())
+                 and reservations_of(sched.resource_reservation_cache.list())
+                 == reservations_of(self.api.list("ResourceReservation")),
+                 "the write-back to land in the API server")
+
+    def watch_provenance(self):
+        """Wrap this server's provenance hot path to time it and keep the
+        last captured solve: returns a dict the wrappers fill
+        ({"art": last SolveArtifacts, "ms": [per-decision capture ms],
+        "explain_ms": [per-refusal explanation ms]})."""
+        tracker = self.scheduler.provenance
+        solver = self.scheduler.extender.binpacker.queue_solver
+        acc = {"art": None, "ms": [], "explain_ms": [], "open": 0.0}
+
+        def timed(fn, key=None):
+            def wrapper(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    dt = (time.perf_counter() - t) * 1e3
+                    if key is None:
+                        acc["open"] += dt
+                    else:
+                        acc[key].append(dt)
+            return wrapper
+
+        sink = solver.capture_sink
+
+        def keep(art):
+            acc["art"] = art
+            sink(art)
+
+        solver.capture_sink = keep
+        solver._capture_solve = timed(solver._capture_solve)
+        tracker.begin_decision = timed(tracker.begin_decision)
+        tracker.note_context = timed(tracker.note_context)
+        finish = tracker.finish_decision
+
+        def finish_and_close(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return finish(*a, **kw)
+            finally:
+                acc["ms"].append(acc["open"] + (time.perf_counter() - t) * 1e3)
+                acc["open"] = 0.0
+
+        tracker.finish_decision = finish_and_close
+        tracker.refusal_detail = timed(tracker.refusal_detail, "explain_ms")
+        return acc
+
+
+def reservations_of(rrs) -> dict:
+    return {(rr.namespace, rr.name): (sorted((k, v.node) for k, v in rr.spec.reservations.items()),
+                                      sorted(rr.status.pods.items())) for rr in rrs}
+
+
+# executors of the refused probes: 8 CPU / 16 Gi each
+REFUSED_EXECUTOR = (8, 16)
+
+
+def refused_gang_sizes(art, n: int):
+    """n executor counts of 8 CPU / 16 Gi gangs that fit the cluster as it
+    stands but not behind the queue (the captured solve `art` of a granted
+    probe holds both availabilities): each such refusal's explanation
+    walks the whole queue and names the drivers that took the room."""
+    scale = np.asarray(art.scale, dtype=np.int64)
+    exec_base = np.array([REFUSED_EXECUTOR[0] * 1000, REFUSED_EXECUTOR[1] * 2**30], np.int64)
+
+    def capacity(avail) -> int:
+        a = np.asarray(avail, dtype=np.int64)[:, :2] * scale[None, :2]
+        cap = np.minimum(a[:, 0] // exec_base[0], a[:, 1] // exec_base[1])
+        return int(np.where(art.exec_ok & (a >= 0).all(axis=1), np.maximum(cap, 0), 0).sum())
+
+    before = capacity(art.basis)
+    after = capacity(art.avail_after.cpu().numpy() if hasattr(art.avail_after, "cpu") else art.avail_after)
+    if before - after < n + 2:
+        raise SystemExit(f"the queue takes too little room to refuse behind it ({before} -> {after})")
+    return [after + 1 + (before - after) * (j + 1) // (n + 2) for j in range(n)], before, after
+
+
+def refused_driver(app_id: str, k: int, created: float):
+    """A driver whose gang is k executors of REFUSED_EXECUTOR."""
+    from k8s_spark_scheduler_tpu_torch.scheduler import labels as L
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    driver = Harness.static_allocation_spark_pods(
+        app_id, 0, executor_cpu=str(REFUSED_EXECUTOR[0]), executor_mem=f"{REFUSED_EXECUTOR[1]}Gi",
+        creation_timestamp=created,
+    )[0]
+    driver.meta.annotations[L.EXECUTOR_COUNT] = str(k)
+    return driver
+
+
+# the fields of an /explain body that name the serving server rather than
+# the decision: the queue pass's lane, the trace id, the server's clock,
+# and the mirror instance in the snapshot's content key
+EXPLAIN_SERVER_FIELDS = ("lane", "traceId", "t")
+
+
+def decision_fields(body: bytes) -> dict:
+    record = json.loads(body)
+    out = {k: v for k, v in record.items() if k not in EXPLAIN_SERVER_FIELDS}
+    if out.get("contentKey"):
+        out["contentKey"] = out["contentKey"][1:]
+    return out
+
 
 def span_durations(span: dict, out: dict) -> dict:
     out.setdefault(span["name"], []).append(span["durationMs"])
@@ -369,6 +547,8 @@ def server_phase(seed: int, smi: str) -> None:
     """Phase 5 (see the module docstring); raises SystemExit on any failure."""
     import logging
 
+    from k8s_spark_scheduler_tpu_torch.config import ProvenanceConfig
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
     from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
     from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
 
@@ -384,16 +564,25 @@ def server_phase(seed: int, smi: str) -> None:
             try:
                 for device in ("cuda", "cpu"):
                     servers[device] = PortServer(policy, device, nodes, queue)
-                log(f"phase server: {policy}: cuda and cpu servers ready in {time.perf_counter() - t0:.2f} s")
+                off = None
+                if policy == SERVER_PROVENANCE_OFF:
+                    off = servers["cuda-provenance-off"] = PortServer(
+                        policy, "cuda", nodes, queue, provenance=ProvenanceConfig(enabled=False))
+                log(f"phase server: {policy}: {', '.join(servers)} servers ready in "
+                    f"{time.perf_counter() - t0:.2f} s")
                 card = servers["cuda"]
                 solver = card.scheduler.extender.binpacker.queue_solver
-                kname = "fifo_queue_evenly" if policy.endswith("distribute-evenly") else "fifo_queue_tightly"
-                lat_ms, traces, granted, exec_checked = [], [], 0, 0
+                prov = card.watch_provenance()
+                kname = SERVER_KERNEL[policy]
+                cpu_every = SERVER_CPU_EVERY.get(policy, 1)
+                lat_ms, off_ms, traces, granted, exec_checked, compared = [], [], [], 0, 0, 0
                 n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
                 for i in range(n_probes):
                     timed = i >= SERVER_WARMUP_PROBES
                     if i == SERVER_WARMUP_PROBES:
                         qk.reset_launch_counts()  # the timed probes' run starts here
+                        mk.reset_launch_counts()
+                        prov["ms"].clear()
                     pods = Harness.static_allocation_spark_pods(
                         f"probe-{pi}-{i:03d}", int(rng.randint(1, 32)),
                         executor_cpu=str(int(rng.randint(1, 8))),
@@ -404,21 +593,37 @@ def server_phase(seed: int, smi: str) -> None:
                     for server in servers.values():
                         server.api.create(pods[0].deepcopy())
                     fast_before = card.fast_lane_count()
+                    if off is not None and i % 2:  # the two cuda servers in turns
+                        o_ms, o_status, o_body = off.post(pods[0], names)
                     ms, status, body = card.post(pods[0], names)
                     if timed:
                         lat_ms.append(ms)
                         traces.append(card.scheduler.tracer.traces(limit=1)[0])
-                    _, cpu_status, cpu_body = servers["cpu"].post(pods[0], names)
-                    if (status, body) != (cpu_status, cpu_body) or status != 200:
-                        raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}, "
-                                         f"cpu {cpu_status} {cpu_body[:300]!r}")
+                    if off is not None:
+                        if not i % 2:
+                            o_ms, o_status, o_body = off.post(pods[0], names)
+                        if (o_status, o_body) != (status, body):
+                            raise SystemExit(f"{policy} probe {i}: provenance off answered {o_status} "
+                                             f"{o_body[:300]!r}, on {status} {body[:300]!r}")
+                        if timed:
+                            off_ms.append(o_ms)
+                    if status != 200:
+                        raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}")
+                    if i % cpu_every == 0 or i == n_probes - 1:
+                        compared += 1
+                        _, cpu_status, cpu_body = servers["cpu"].post(pods[0], names)
+                        if (status, body) != (cpu_status, cpu_body):
+                            raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}, "
+                                             f"cpu {cpu_status} {cpu_body[:300]!r}")
                     if card.fast_lane_count() != fast_before + 1 or solver.last_queue_lane != "cuda":
                         raise SystemExit(f"{policy} probe {i} did not take the tensor lane with the CUDA "
                                          f"kernel (queue lane {solver.last_queue_lane!r})")
                     result = json.loads(body)
                     if result["NodeNames"]:
                         granted += 1
-                        if timed and exec_checked < SERVER_EXECUTOR_CHECKS:
+                        if timed and exec_checked < SERVER_EXECUTOR_CHECKS and (
+                            i % cpu_every == 0 or i == n_probes - 1
+                        ):
                             exec_checked += 1
                             for server in servers.values():
                                 server.bind(pods[0], result["NodeNames"][0])
@@ -440,24 +645,38 @@ def server_phase(seed: int, smi: str) -> None:
                                 f"equal on cuda and cpu")
                     for server in servers.values():
                         server.retire(created)
-                launches = qk.launch_counts[kname]
-                if launches != SERVER_TIMED_PROBES:
-                    raise SystemExit(f"{policy}: {launches} {kname} launches for {SERVER_TIMED_PROBES} timed probes")
+                launches = {**qk.launch_counts, **mk.launch_counts}[kname]
+                cuda_servers = 2 if off is not None else 1
+                if launches != SERVER_TIMED_PROBES * cuda_servers:
+                    raise SystemExit(f"{policy}: {launches} {kname} launches for {SERVER_TIMED_PROBES} timed "
+                                     f"probes on {cuda_servers} cuda servers")
                 if exec_checked < SERVER_EXECUTOR_CHECKS:
                     raise SystemExit(f"{policy}: only {exec_checked} granted probes to check executors on")
-                log(f"phase server: {policy}: {n_probes} probes equal on cuda and cpu, {granted} granted, "
-                    f"all on lane=fast with the cuda queue kernel; {kname} launches in the timed run "
-                    f"{launches} (one a probe)")
+                log(f"phase server: {policy}: {n_probes} probes, {compared} of them equal on cuda and cpu, "
+                    f"{granted} granted, all on lane=fast with the cuda queue kernel; {kname} launches in "
+                    f"the timed run {launches} (one a probe a cuda server)")
+                log(f"phase server: {policy}: provenance on the request path (begin, context, capture, "
+                    f"record) median {statistics.median(prov['ms']):.3f} ms, max {max(prov['ms']):.3f} ms "
+                    f"a Filter over the timed run's {len(prov['ms'])} driver and executor Filters")
                 log(f"phase server: {policy}: /predicates at {N_NODES} nodes x {N_APPS} queued drivers: "
                     f"p50 {statistics.median(lat_ms):.3f} ms, p99 {float(np.percentile(lat_ms, 99)):.3f} ms "
                     f"over {len(lat_ms)} probes (runs {', '.join(f'{x:.1f}' for x in lat_ms)}) | {smi}")
+                if off is not None:
+                    log(f"phase server: {policy}: the same probes on a cuda server with provenance off, in "
+                        f"turns with it on: p50 {statistics.median(off_ms):.3f} ms, p99 "
+                        f"{float(np.percentile(off_ms, 99)):.3f} ms (runs {', '.join(f'{x:.1f}' for x in off_ms)}) "
+                        f"against p50 {statistics.median(lat_ms):.3f}, p99 {float(np.percentile(lat_ms, 99)):.3f} "
+                        f"ms on, bodies equal | {smi}")
                 spans = {}
                 for trace in traces:
                     span_durations(trace["root"], spans)
+                # the kernel's span is named after the queue solve it profiles
+                kernel_span = "kernel:fifo_queue_min_frag" if kname == "fifo_queue_min_frag" else "kernel:fifo_queue"
+                wanted = [kernel_span if name == "kernel:fifo_queue" else name for name in SERVER_SPANS]
                 log(f"phase server: {policy}: span medians (ms) " + ", ".join(
-                    f"{name} {statistics.median(spans[name]):.3f}" for name in SERVER_SPANS if name in spans
+                    f"{name} {statistics.median(spans[name]):.3f}" for name in wanted if name in spans
                 ) + f" | {smi}")
-                missing = [name for name in SERVER_SPANS if name not in spans]
+                missing = [name for name in wanted if name not in spans]
                 if missing:
                     raise SystemExit(f"{policy}: the request traces lack spans {missing}")
                 pods = Harness.static_allocation_spark_pods(
@@ -466,6 +685,31 @@ def server_phase(seed: int, smi: str) -> None:
                 share = busy_share(lambda: card.post(pods[0], names))
                 card.retire(pods[:1])
                 log(f"phase server: {policy}: profiler trace of one /predicates request: {share} | {smi}")
+                # one refused probe behind the queue: its explanation
+                # (this policy's queue kernel with probes) on the card,
+                # its failure message equal to the cpu server's
+                ks, before, after = refused_gang_sizes(prov["art"], 1)
+                pod = refused_driver(f"probe-{pi}-refused", ks[0], base + N_APPS + n_probes + 1)
+                for server in (card, servers["cpu"]):
+                    server.api.create(pod.deepcopy())
+                qk.reset_launch_counts()
+                mk.reset_launch_counts()
+                ms, status, body = card.post(pod, names)
+                _, cpu_status, cpu_body = servers["cpu"].post(pod, names)
+                explain_launches = {**qk.launch_counts, **mk.launch_counts}[kname]
+                message = next(iter(json.loads(body).get("FailedNodes", {}).values()), "")
+                if (status, body) != (cpu_status, cpu_body) or "blocked by" not in message:
+                    raise SystemExit(f"{policy} refused probe: cuda {status} {body[:300]!r}, "
+                                     f"cpu {cpu_status} {cpu_body[:300]!r}")
+                if explain_launches != 2:
+                    raise SystemExit(f"{policy} refused probe: {explain_launches} {kname} launches, "
+                                     f"want the Filter's and the explanation's")
+                log(f"phase server: {policy}: refused probe of {ks[0]} executors (room {before} before the "
+                    f"queue, {after} behind it): {ms:.3f} ms, explanation {prov['explain_ms'][-1]:.3f} ms "
+                    f"({kname} launches {explain_launches}: the Filter's and the explanation's), equal on "
+                    f"cuda and cpu: {message[:160]!r} | {smi}")
+                for server in (card, servers["cpu"]):
+                    server.api.delete("Pod", pod.namespace, pod.name)  # refused: nothing reserved
             finally:
                 for server in servers.values():
                     server.stop()
@@ -567,7 +811,8 @@ class ClusterServer(PortServer):
                     raise SystemExit(f"the {kind} LIST over REST returned {len(objs)} objects")
             t = time.perf_counter()
             self.scheduler = init_server_with_clients(
-                self.backend, Install(binpack_algo=CLUSTER_POLICY, fifo=True), demand_poll_interval=0.5,
+                self.backend, Install(binpack_algo=CLUSTER_POLICY, fifo=True, resilience=server_resilience(device)),
+                demand_poll_interval=0.5,
                 unschedulable_polling_interval=3600.0, device=device,
             )
             # every informer has listed its kind over REST, replayed it,
@@ -599,14 +844,6 @@ class ClusterServer(PortServer):
         super().retire(pods)
         wait_for(lambda: all(self.scheduler.pod_informer.get(p.namespace, p.name) is None for p in pods),
                  "the watch to deliver the deletes")
-
-    def get(self, path: str, accept: str = None):
-        import urllib.request
-
-        req = urllib.request.Request(f"http://127.0.0.1:{self.http.port}{path}",
-                                     headers={"Accept": accept} if accept else {})
-        with urllib.request.urlopen(req, timeout=60) as resp:
-            return resp.headers.get("Content-Type"), resp.read()
 
     def post_json(self, path: str, payload: dict) -> dict:
         import urllib.request
@@ -662,13 +899,16 @@ def cluster_phase(seed: int, smi: str) -> None:
     from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
     from k8s_spark_scheduler_tpu_torch.types import serde
 
-    # the invariant checker after every Filter of the cuda server (the
-    # wiring reads SCHED_DEBUG_INVARIANTS when it builds a server),
-    # counting its checks, their time and their violations
-    checked = {"checks": 0, "violations": [], "ms": []}
+    # the invariant checker after every driver Filter of the cuda server
+    # (the wiring reads SCHED_DEBUG_INVARIANTS when it builds a server),
+    # counting its checks, their time and their violations; "on" is
+    # cleared around the executors' Filters
+    checked = {"checks": 0, "violations": [], "ms": [], "on": True}
     real_check = invariants.check
 
     def counting_check(server, raise_on_violation=True):
+        if not checked["on"]:
+            return []
         t = time.perf_counter()
         found = real_check(server, raise_on_violation=False)
         checked["ms"].append((time.perf_counter() - t) * 1e3)
@@ -748,7 +988,11 @@ def cluster_phase(seed: int, smi: str) -> None:
                             server.api.create(pod.deepcopy())
                             server.sees(pod)
                             server.settle()
-                        _, e_status, e_body = card.post(pod, names)
+                        checked["on"] = False
+                        try:
+                            _, e_status, e_body = card.post(pod, names)
+                        finally:
+                            checked["on"] = True
                         _, c_status, c_body = host.post(pod, names)
                         e_nodes = json.loads(e_body).get("NodeNames") if e_status == 200 else None
                         if (e_status, e_body) != (c_status, c_body) or not e_nodes:
@@ -795,7 +1039,7 @@ def cluster_phase(seed: int, smi: str) -> None:
         log("phase cluster: span medians (ms; predicate and http.request without the checker) " + ", ".join(
             f"{name} {statistics.median(spans[name]):.3f}" for name in SERVER_SPANS) + f" | {smi}")
 
-        # the invariant checker ran after every Filter of the cuda server
+        # the invariant checker ran after every driver Filter of the cuda server
         filters = checked["checks"] - checks_before
         if filters < n_probes or checked["violations"]:
             raise SystemExit(f"cluster: {filters} invariant checks, violations {checked['violations'][:5]}")
@@ -806,7 +1050,7 @@ def cluster_phase(seed: int, smi: str) -> None:
             if found:
                 raise SystemExit(f"cluster: {device} invariant violations {found[:5]}")
         log(f"phase cluster: invariants I1-I5 (I5 over {N_NODES} mirror rows) checked after each of the cuda "
-            f"server's {filters} Filters, 0 violations, median {statistics.median(checked['ms']):.1f} ms a "
+            f"server's {filters} driver Filters, 0 violations, median {statistics.median(checked['ms']):.1f} ms a "
             f"check; both servers hold them at the end | {smi}")
 
         # Prometheus text, with the fast-lane counter equal to the probes
@@ -870,6 +1114,257 @@ def cluster_phase(seed: int, smi: str) -> None:
 
 
 # -- phase 4 snapshot ---------------------------------------------------------
+
+
+# -- phase 7: resilience and provenance through the server -----------------------
+
+RESILIENCE_POLICY = "tpu-batch"
+RESILIENCE_REFUSED, RESILIENCE_OUTAGE, RESILIENCE_BURST = 8, 6, 32
+BUNDLE_NODES = 10240  # the flight recorder keeps bundles of the 10,240-node bucket
+
+
+def resilience_phase(seed: int, smi: str) -> None:
+    """Phase 7 (see the module docstring); raises SystemExit on any failure."""
+    import logging
+    import tempfile
+    import threading
+
+    from k8s_spark_scheduler_tpu_torch.config import ProvenanceConfig
+    from k8s_spark_scheduler_tpu_torch.kube.errors import APIError
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.provenance.recorder import _replay_solve, replay_bundle
+    from k8s_spark_scheduler_tpu_torch.scheduler import invariants
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    def launches() -> dict:
+        return {k: v for k, v in {**qk.launch_counts, **mk.launch_counts}.items() if v}
+
+    logging.disable(logging.WARNING)  # the outage logs every failed write
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-resilience-")
+    servers = {}
+    try:
+        t0 = time.perf_counter()
+        names, nodes, queue, rng, base = server_objects(seed + 7)
+        for device in ("cuda", "cpu"):
+            servers[device] = PortServer(
+                RESILIENCE_POLICY, device, nodes, queue,
+                provenance=ProvenanceConfig(max_bundle_nodes=BUNDLE_NODES,
+                                            bundle_dir=os.path.join(workdir, device)),
+            )
+        card, host = servers["cuda"], servers["cpu"]
+        kit = card.scheduler.resilience
+        prov = card.watch_provenance()
+        log(f"phase resilience: cuda and cpu servers ({RESILIENCE_POLICY}, the reference's default "
+            f"resilience and provenance, bundles up to {BUNDLE_NODES} nodes) ready in "
+            f"{time.perf_counter() - t0:.2f} s")
+        # the path is driven with every count at 0 and read after each step
+        qk.reset_launch_counts()
+        mk.reset_launch_counts()
+        stamp = [base + N_APPS]
+
+        def probe_pods(tag: str):
+            stamp[0] += 1
+            return Harness.static_allocation_spark_pods(
+                f"res-{tag}", int(rng.randint(1, 32)), executor_cpu=str(int(rng.randint(1, 8))),
+                executor_mem=f"{int(rng.randint(2, 16))}Gi", creation_timestamp=stamp[0])
+
+        def both(pod, expect_granted=None):
+            for server in servers.values():
+                server.api.create(pod.deepcopy())
+            ms, status, body = card.post(pod, names)
+            _, c_status, c_body = host.post(pod, names)
+            if (status, body) != (c_status, c_body) or status != 200:
+                raise SystemExit(f"{pod.name}: cuda {status} {body[:300]!r}, cpu {c_status} {c_body[:300]!r}")
+            result = json.loads(body)
+            if expect_granted is not None and bool(result.get("NodeNames")) != expect_granted:
+                raise SystemExit(f"{pod.name}: want granted={expect_granted}, got {body[:300]!r}")
+            return ms, result
+
+        # -- a granted probe: its captured solve sizes the refused gangs
+        warm = probe_pods("warmup")
+        both(warm[0], expect_granted=True)
+        for server in servers.values():
+            server.retire(warm[:1])
+        sizes, before, after = refused_gang_sizes(prov["art"], RESILIENCE_REFUSED)
+        log(f"phase resilience: 8 CPU / 16 Gi executors: room for {before} before the queue, "
+            f"{after} behind it; refused gangs of {sizes[0]}-{sizes[-1]}")
+
+        # -- refused probes: the explanation walks all 1,000 earlier apps
+        refused_ms, explain_ms, blockers = [], [], []
+        prov["explain_ms"].clear()
+        for j, k in enumerate(sizes):
+            stamp[0] += 1
+            pod = refused_driver(f"res-refused-{j}", k, stamp[0])
+            ms, result = both(pod, expect_granted=False)
+            refused_ms.append(ms)
+            message = next(iter(result["FailedNodes"].values()))
+            bodies = [decision_fields(s.get(f"/explain/{pod.namespace}/{pod.name}")[1])
+                      for s in (card, host)]
+            if bodies[0] != bodies[1]:
+                raise SystemExit(f"{pod.name}: /explain differs on cuda and cpu:\n{bodies[0]}\n{bodies[1]}")
+            record = bodies[0]
+            sf = record["shortfall"]
+            if record["outcome"] != "failure-fit" or sf is None or record["queueLength"] != N_APPS \
+                    or sf["flipPosition"] < 0 or not sf["blockedBy"] or "blocked by" not in message:
+                raise SystemExit(f"{pod.name}: not explained behind the queue: {message!r} {record}")
+            blockers.append(sf["blockedByCount"])
+            for server in servers.values():
+                server.api.delete("Pod", pod.namespace, pod.name)
+        explain_ms = prov["explain_ms"][-RESILIENCE_REFUSED:]
+        log(f"phase resilience: {RESILIENCE_REFUSED} refused probes explained over all {N_APPS} earlier "
+            f"apps, messages and /explain bodies (less {', '.join(EXPLAIN_SERVER_FIELDS)}) equal on cuda "
+            f"and cpu; blockers {blockers}; launches {launches()}")
+        log(f"phase resilience: refused /predicates (explanation not memoised) p50 "
+            f"{statistics.median(refused_ms):.3f} ms, p99 {float(np.percentile(refused_ms, 99)):.3f} ms "
+            f"(runs {', '.join(f'{x:.1f}' for x in refused_ms)}); the explanation alone p50 "
+            f"{statistics.median(explain_ms):.3f} ms, max {max(explain_ms):.3f} ms | {smi}")
+        log(f"phase resilience: first refusal's message: {message[:200]!r}")
+
+        # -- write-back outage: the breaker opens, intents are journaled
+        def outage(op, kind, ns, name):
+            return APIError(f"injected outage ({op} {kind})") if kind == "ResourceReservation" else None
+
+        for server in servers.values():
+            server.settle_embedded()
+            server.api.set_write_fault(outage)
+        held = []
+        for j in range(RESILIENCE_OUTAGE):
+            pods = probe_pods(f"outage-{j}")
+            _, result = both(pods[0])
+            if result.get("NodeNames"):
+                held.append(pods[0])
+        apps = {("default", p.labels["spark-app-id"]) for p in held}
+        for device, server in servers.items():
+            sk = server.scheduler.resilience
+            wait_for(lambda: sk.journal.pending_keys() == apps
+                     and not any(server.scheduler.resource_reservation_cache.inflight_queue_lengths()),
+                     f"the {device} server to journal the reservations")
+            landed = {(rr.namespace, rr.name) for rr in server.api.list("ResourceReservation")}
+            if sk.breaker.state != "open" or landed & apps:
+                raise SystemExit(f"{device}: breaker {sk.breaker.state}, landed {landed & apps}")
+            cached = {(rr.namespace, rr.name) for rr in server.scheduler.resource_reservation_cache.list()}
+            if not apps <= cached:
+                raise SystemExit(f"{device}: the cache lost admitted reservations {apps - cached}")
+        _, ready = card.get("/status/readiness")
+        ready = json.loads(ready)
+        if ready["state"] != "degraded" or ready["components"]["journalDepth"] != len(apps):
+            raise SystemExit(f"readiness during the outage: {ready}")
+        tracker = card.scheduler.provenance
+        wait_for(lambda: tracker.recorder.persisted_paths, "the breaker-open bundle file")
+        bundle_file = tracker.recorder.persisted_paths[0]
+        log(f"phase resilience: outage: {len(apps)} admitted gangs' reservations journaled on both "
+            f"servers, none landed, none dropped; breaker open; readiness {ready['state']} "
+            f"(components {ready['components']}); breaker-open bundle file "
+            f"{os.path.getsize(bundle_file)} bytes")
+
+        # -- recovery: the journal replays, nothing lost
+        t = time.perf_counter()
+        for server in servers.values():
+            server.api.set_write_fault(None)
+            server.scheduler.resource_reservation_cache.nudge_recovery(force=True)
+        for device, server in servers.items():
+            sk = server.scheduler.resilience
+            wait_for(lambda: sk.journal.depth() == 0 and sk.breaker.state == "closed",
+                     f"the {device} server's journal to replay")
+            server.settle_embedded()
+        recover_ms = (time.perf_counter() - t) * 1e3
+        written = [sorted(json.dumps(identity_free(serde_rr(rr)), sort_keys=True)
+                          for rr in s.api.list("ResourceReservation")) for s in (card, host)]
+        if written[0] != written[1] or not apps <= {(rr.namespace, rr.name)
+                                                    for rr in card.api.list("ResourceReservation")}:
+            raise SystemExit("after recovery the reservations differ from the cpu server's or are missing")
+        _, ready = card.get("/status/readiness")
+        if json.loads(ready)["state"] != "ready":
+            raise SystemExit(f"readiness after recovery: {ready!r}")
+        log(f"phase resilience: recovery: journals replayed in {recover_ms:.1f} ms, breakers closed, "
+            f"{len(written[0])} reservations in the API equal on cuda and cpu; readiness ready")
+        for server in servers.values():
+            server.retire(held)
+
+        # -- the breaker-open bundles replay through the kernel and the plain version
+        with open(bundle_file) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        bundles = [b for b in lines if not b.get("header")]
+        if lines[0].get("trigger") != "breaker-open" or not bundles:
+            raise SystemExit(f"bad bundle file header {lines[0]}")
+        replay_ms, card_ms = [], []
+        before_counts = launches()
+        for bundle in bundles:
+            t = time.perf_counter()
+            result = replay_bundle(bundle, device="cuda")
+            replay_ms.append((time.perf_counter() - t) * 1e3)
+            if not result["ok"] or result["lanes"] != {"cuda": "ok", "torch": "ok"}:
+                raise SystemExit(f"bundle {bundle['seq']} replay: {result}")
+            rows = np.asarray(bundle["apps8"], dtype=np.int32)[: bundle["nEarlier"]]
+            t = time.perf_counter()
+            _replay_solve(bundle["policyCode"], np.asarray(bundle["basis"], dtype=np.int32),
+                          np.asarray(bundle["driverRank"], dtype=np.int32),
+                          np.asarray(bundle["execOk"], dtype=bool), rows, torch.device("cuda"))
+            card_ms.append((time.perf_counter() - t) * 1e3)
+        replayed = {k: launches().get(k, 0) - before_counts.get(k, 0) for k in launches()}
+        log(f"phase resilience: {len(bundles)} breaker-open bundles ({bundles[0]['nb']} nodes x "
+            f"{bundles[0]['nEarlier']} earlier apps) replayed byte-identical through the cuda kernel and "
+            f"the plain version; replay {statistics.median(replay_ms):.1f} ms a bundle with both lanes, "
+            f"the card's lane alone {statistics.median(card_ms):.3f} ms (launches {replayed}) | {smi}")
+
+        # -- a burst over the admission gate
+        burst = [probe_pods(f"burst-{j}") for j in range(RESILIENCE_BURST)]
+        for pods in burst:
+            card.api.create(pods[0].deepcopy())
+        answers = [None] * RESILIENCE_BURST
+        barrier = threading.Barrier(RESILIENCE_BURST)
+        bodies = [card.request_body(pods[0], names) for pods in burst]  # serialised before the burst
+
+        def fire(j):
+            barrier.wait()
+            answers[j] = card.post_body(bodies[j])
+
+        threads = [threading.Thread(target=fire, args=(j,)) for j in range(RESILIENCE_BURST)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        shed_ms, kinds = [], {"granted": 0, "refused": 0, "shed": 0}
+        for ms, status, body in answers:
+            result = json.loads(body) if status == 200 else {}
+            failed = set((result.get("FailedNodes") or {}).values())
+            if status == 200 and result.get("NodeNames"):
+                kinds["granted"] += 1
+            elif failed == {"scheduler overloaded; retry"}:
+                kinds["shed"] += 1
+                shed_ms.append(ms)
+            elif status == 200 and len(failed) == 1:
+                kinds["refused"] += 1
+            else:
+                raise SystemExit(f"burst answer {status} {body[:300]!r}")
+        if not kinds["shed"] or kit.gate.shed_total < kinds["shed"]:
+            raise SystemExit(f"the burst of {RESILIENCE_BURST} shed nothing: {kinds}")
+        card.settle_embedded()
+        t = time.perf_counter()
+        violations = invariants.check(card.scheduler, raise_on_violation=False)
+        check_ms = (time.perf_counter() - t) * 1e3
+        if violations:
+            raise SystemExit(f"invariants after the burst: {violations}")
+        _, ready = card.get("/status/readiness")
+        log(f"phase resilience: burst of {RESILIENCE_BURST} concurrent /predicates: {kinds}; a shed "
+            f"request waited p50 {statistics.median(shed_ms):.3f} ms, max {max(shed_ms):.3f} ms; I1-I5 hold "
+            f"after it ({check_ms:.0f} ms); readiness {json.loads(ready)['state']} | {smi}")
+        counts = launches()
+        if counts.get("fifo_queue_tightly", 0) < 1:
+            raise SystemExit(f"fifo_queue was not launched on the resilience path: {counts}")
+        log(f"phase resilience: launches on the path (Filters, explanations, replays) {counts}")
+    finally:
+        for server in servers.values():
+            server.api.set_write_fault(None)
+            server.stop()
+        logging.disable(logging.NOTSET)
+
+
+def serde_rr(rr) -> dict:
+    from k8s_spark_scheduler_tpu_torch.types import serde
+
+    return serde.rr_to_dict_v1beta2(rr)
 
 
 def build_snapshot(seed: int):
@@ -1154,6 +1649,21 @@ def main() -> int:
         arrays[5][:] = np.where(rng.rand(a) < 0.5, rng.randint(1, 5, size=a), rng.randint(100, 300, size=a))
         check_min_frag(on(dev, arrays), f"m >= k and m < k, N={n} A={a}")
         log(f"phase kernel-vs-plain: min-frag kernel, k in 1-4 and 100-300, N={n} A={a} equal")
+    # the explainer's launches: probe flags (a verdict, nothing subtracted)
+    # and the per-app usage output, on the queue and min-frag kernels
+    for ci, (n, a) in enumerate([(7, 20), (31, 17), (1000, 200), (12345, 48), (10240, 257), (100000, 16)]):
+        rng = np.random.RandomState(args.seed * 1000 + 950 + ci)
+        arrays = on(dev, random_queue(rng, n, a))
+        probe = torch.as_tensor(rng.rand(a) < 0.5, device=dev)
+        for evenly in (False, True):
+            check("fifo_queue_evenly" if evenly else "fifo_queue_tightly",
+                  qk.fifo_queue_explain(*arrays, probe, evenly=evenly),
+                  qk.queue_plain(*arrays, evenly=evenly, probe=probe), f"probes and usage, N={n} A={a}")
+        if n <= 12345:
+            check("fifo_queue_min_frag", mk.fifo_queue_min_frag_explain(*arrays, probe),
+                  mk.queue_min_frag_plain(*arrays, probe=probe), f"probes and usage, N={n} A={a}")
+        log(f"phase kernel-vs-plain: queue{' and min-frag' if n <= 12345 else ''} kernels with probe "
+            f"flags and the usage output, N={n} A={a} equal")
     # 200 and 150 zones: many zones a block; one zone over 12,345 nodes:
     # that block's node planes in global memory; 4,000 zones: the zone
     # table in global memory
@@ -1309,6 +1819,36 @@ def main() -> int:
         lambda: mk.fifo_queue_min_frag(*floor_args), ops, queue_bytes,
     ))
 
+    # the refusal explainer's launch at the main path's inputs: the queue
+    # with a probe of the current app before every earlier app and after
+    # the last (ops/explain.py), against the plain version on the card
+    n_e = len(earlier)
+
+    def explain_args(n_apps):
+        idx = np.empty(2 * n_apps + 1, dtype=np.int64)
+        idx[0::2], idx[1::2] = n_e, np.arange(n_apps)
+        probe = np.zeros(idx.shape[0], dtype=bool)
+        probe[0::2] = True
+        inter_valid = np.where(probe, True, valid[np.minimum(idx, n_e)])
+        return queue_args[:3] + on(dev, (problem.driver[idx], problem.executor[idx], problem.count[idx],
+                                          inter_valid, probe))
+
+    ex_args = explain_args(n_e)
+    for evenly, kname in ((False, "fifo_queue_tightly"), (True, "fifo_queue_evenly")):
+        got = qk.fifo_queue_explain(*ex_args, evenly=evenly)
+        check(kname, got, qk.queue_plain(*ex_args[:7], evenly=evenly, probe=ex_args[7]),
+              "the explainer's main-path launch")
+        ms = [time_cuda(lambda: qk.fifo_queue_explain(*ex_args, evenly=evenly), 3) for _ in range(3)]
+        log(f"phase main-path: {kname} explainer launch, {ex_args[3].shape[0]} apps ({n_e} probes of the "
+            f"current app between the {n_e} earlier ones): {statistics.median(ms):.3f} ms, equal to the "
+            f"plain version | {smi}")
+    ex_small = explain_args(256)
+    check("fifo_queue_min_frag", mk.fifo_queue_min_frag_explain(*ex_small),
+          mk.queue_min_frag_plain(*ex_small[:7], probe=ex_small[7]), "the explainer's launch, 256 earlier apps")
+    ms = [time_cuda(lambda: mk.fifo_queue_min_frag_explain(*ex_args), 3) for _ in range(3)]
+    log(f"phase main-path: fifo_queue_min_frag explainer launch, {ex_args[3].shape[0]} apps: "
+        f"{statistics.median(ms):.3f} ms (equal to the plain version over the first 256 earlier apps) | {smi}")
+
     zones, zone_masks = candidate_zone_masks(driver_order, executor_order, metadata, cluster.node_names, n_b)
     inputs = single_az_queue_inputs(cluster, problem, zone_masks, len(zones), len(earlier))
     if inputs is None:
@@ -1387,7 +1927,13 @@ def main() -> int:
     log(f"phase cluster: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 7: results
+    # ---- phase 7: resilience and provenance through the server
+    t = time.perf_counter()
+    resilience_phase(args.seed, smi)
+    log(f"phase resilience: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 8: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

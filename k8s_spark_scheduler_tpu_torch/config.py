@@ -10,10 +10,12 @@ enables one raises ``ValueError`` naming the ROADMAP item, a key that
 leaves it off is accepted, and an unknown key raises too — no key is
 dropped without a word.  A config that omits a key gets the reference's
 default, and several of those defaults turn a subsystem ON in the
-reference (resilience always runs there, ``delta-solve`` defaults to
-true, provenance, capacity, contention, lifecycle and classes default to
-enabled): ``Install.reference_only`` names each such subsystem, and the
-server logs one warning for each at start.
+reference (``delta-solve`` defaults to true, capacity, contention,
+lifecycle and classes default to enabled): ``Install.reference_only``
+names each such subsystem, and the server logs one warning for each at
+start.  Resilience (always on, as in the reference) and provenance (on
+by default) are this package's own: their sections load with the
+reference's keys and defaults.
 """
 
 from __future__ import annotations
@@ -42,6 +44,117 @@ class AsyncClientConfig:
     max_retry_count: int = 5
 
 
+# the reference's kernel-lane health keys: they load (a reference config
+# works unchanged) and configure nothing, since no kernel lane here is
+# ever demoted to a host lane
+_LANE_KEYS = ("lane-failure-threshold", "lane-cooloff-seconds", "lane-latency-budget-seconds")
+_RESILIENCE_KEYS = {
+    "request-deadline-seconds",
+    "deadline-margin-seconds",
+    "admission-max-waiters",
+    "breaker-failure-threshold",
+    "breaker-cooloff-seconds",
+    "journal-path",
+    "journal-compact-fraction",
+    "journal-compact-min-records",
+    *_LANE_KEYS,
+}
+_PROVENANCE_KEYS = {
+    "enabled",
+    "ring-size",
+    "recorder-size",
+    "bundle-dir",
+    "max-bundle-nodes",
+    "parity-check-interval",
+    "trigger-min-interval-seconds",
+}
+
+
+@dataclass
+class ResilienceConfig:
+    """Overload protection / degraded mode (resilience/).
+
+    ``request_deadline_seconds`` mirrors kube-scheduler's extender
+    ``httpTimeout`` (examples/extender.yml: 30s); the server answers
+    fail-fast ``deadline_margin_seconds`` before the caller hangs up.
+    """
+
+    request_deadline_seconds: float = 30.0
+    deadline_margin_seconds: float = 1.0
+    # concurrent /predicates requests admitted (holding + queued on the
+    # extender lock) before excess requests are shed with a retriable
+    # failure
+    admission_max_waiters: int = 16
+    # consecutive API-server write failures before the write-back
+    # breaker opens and diverts reservation writes to the intent journal
+    breaker_failure_threshold: int = 5
+    breaker_cooloff_seconds: float = 30.0
+    # durable JSONL intent journal; None keeps intents in memory only
+    # (still replayed on in-process recovery, lost on process death)
+    journal_path: Optional[str] = None
+    # journal compaction: rewrite the file to pending-only once dead
+    # records (acked / superseded puts + ack markers) exceed this
+    # fraction of the file, but never below the record floor
+    journal_compact_fraction: float = 0.5
+    journal_compact_min_records: int = 64
+    # the reference's lane-* keys this config carried (they configure
+    # nothing here; the wiring says so once)
+    lane_keys: Tuple[str, ...] = ()
+
+    @staticmethod
+    def from_dict(d: dict) -> "ResilienceConfig":
+        _check_keys(d, _RESILIENCE_KEYS, "resilience")
+        return ResilienceConfig(
+            request_deadline_seconds=d.get("request-deadline-seconds", 30.0),
+            deadline_margin_seconds=d.get("deadline-margin-seconds", 1.0),
+            admission_max_waiters=d.get("admission-max-waiters", 16),
+            breaker_failure_threshold=d.get("breaker-failure-threshold", 5),
+            breaker_cooloff_seconds=d.get("breaker-cooloff-seconds", 30.0),
+            journal_path=d.get("journal-path"),
+            journal_compact_fraction=d.get("journal-compact-fraction", 0.5),
+            journal_compact_min_records=d.get("journal-compact-min-records", 64),
+            lane_keys=tuple(key for key in _LANE_KEYS if key in d),
+        )
+
+
+@dataclass
+class ProvenanceConfig:
+    """Decision provenance (provenance/): unschedulability explainer,
+    shortfall telemetry, anomaly flight recorder.
+
+    Diagnostic only — decisions are identical enabled or disabled.
+    ``bundle_dir`` (or the ``SCHED_PROVENANCE_DIR`` env var) is where
+    trigger-fired flight-recorder bundles persist; None keeps the
+    bundle ring in memory only.  ``parity_check_interval`` is the
+    reference's warm≠cold delta-solve guard: it loads and checks
+    nothing until this package has the delta-solve engine (ROADMAP
+    A.3)."""
+
+    enabled: bool = True
+    ring_size: int = 128
+    recorder_size: int = 8
+    bundle_dir: Optional[str] = None
+    max_bundle_nodes: int = 4096
+    parity_check_interval: int = 0
+    # per-trigger persist debounce (seconds): an overload-driven trigger
+    # storm writes one bundle file per trigger type per interval, not
+    # one per failed request
+    trigger_min_interval_seconds: float = 30.0
+
+    @staticmethod
+    def from_dict(d: dict) -> "ProvenanceConfig":
+        _check_keys(d, _PROVENANCE_KEYS, "provenance")
+        return ProvenanceConfig(
+            enabled=d.get("enabled", True),
+            ring_size=d.get("ring-size", 128),
+            recorder_size=d.get("recorder-size", 8),
+            bundle_dir=d.get("bundle-dir"),
+            max_bundle_nodes=d.get("max-bundle-nodes", 4096),
+            parity_check_interval=d.get("parity-check-interval", 0),
+            trigger_min_interval_seconds=d.get("trigger-min-interval-seconds", 30.0),
+        )
+
+
 @dataclass
 class ConversionWebhookConfig:
     """Where the apiserver would reach the CRD conversion webhook
@@ -59,10 +172,8 @@ class ConversionWebhookConfig:
 # subsystems of the reference package not in this one: config key →
 # (the reference's default for its "enabled" flag, ROADMAP item).  A
 # section turns its subsystem on when its "enabled" (or that default)
-# is true; "resilience" has no switch in the reference (always on), so
-# any "resilience" section configures a subsystem that is missing here.
+# is true.
 _UNPORTED_SECTIONS = {
-    "provenance": (True, "ROADMAP A.6.2 (provenance)"),
     "capacity": (True, "ROADMAP A.6.3 (capacity observatory)"),
     "contention": (True, "ROADMAP A.6.7 (contention observatory)"),
     "policy": (False, "ROADMAP A.6.5 (scheduling policy)"),
@@ -71,13 +182,11 @@ _UNPORTED_SECTIONS = {
     "concurrent": (False, "ROADMAP A.4 (concurrent admission)"),
     "classes": (True, "ROADMAP A.3 (equivalence-class aggregation)"),
 }
-_RESILIENCE_ITEM = "ROADMAP A.6.1 (resilience kit)"
 _DELTA_SOLVE_ITEM = "ROADMAP A.3 (delta-solve)"
-# what the reference runs on a config that omits every key: resilience
-# (no switch), delta-solve (default true) and each section enabled by
-# default — (subsystem, ROADMAP item) pairs
+# what the reference runs on a config that omits every key and this
+# package lacks: delta-solve (default true) and each unported section
+# enabled by default — (subsystem, ROADMAP item) pairs
 REFERENCE_DEFAULT_ONLY: Tuple[Tuple[str, str], ...] = (
-    ("resilience", _RESILIENCE_ITEM),
     ("delta-solve", _DELTA_SOLVE_ITEM),
     *((key, item) for key, (default_on, item) in _UNPORTED_SECTIONS.items() if default_on),
 )
@@ -99,6 +208,7 @@ _KNOWN_KEYS = {
     "strict-reference-parity",
     "delta-solve",
     "resilience",
+    "provenance",
     *_UNPORTED_SECTIONS,
 }
 _FIFO_KEYS = {"default-enforce-after-pod-age-seconds", "enforce-after-pod-age-by-instance-group"}
@@ -126,11 +236,6 @@ def _refuse_unported(d: dict) -> None:
                 f"install key {key!r} turns on a subsystem this package does not have: {item}; "
                 f'set "{key}": {{"enabled": false}} or leave the key out'
             )
-    if "resilience" in d:
-        raise ValueError(
-            f"install key 'resilience' configures a subsystem this package does not have: "
-            f"{_RESILIENCE_ITEM}"
-        )
     if d.get("delta-solve", False):
         raise ValueError(f"install key 'delta-solve' is true, and this package has no {_DELTA_SOLVE_ITEM}")
 
@@ -142,7 +247,7 @@ def _reference_only(d: dict) -> Tuple[Tuple[str, str], ...]:
     return tuple(
         (key, item)
         for key, item in REFERENCE_DEFAULT_ONLY
-        if key == "resilience" or key not in d
+        if key not in d
     )
 
 
@@ -167,8 +272,11 @@ class Install:
     # (see compat.py for the list); off = corrected semantics
     strict_reference_parity: bool = compat.DEFAULT_STRICT
     # the incremental delta-solve engine is not in this package yet
-    # (ROADMAP A.5): only False is accepted
+    # (ROADMAP A.3): only False is accepted
     delta_solve: bool = False
+    # overload protection (no switch: always on, as in the reference)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    provenance: ProvenanceConfig = field(default_factory=ProvenanceConfig)
     # subsystems the reference would run on this config and this package
     # lacks, as (subsystem, ROADMAP item); from_dict derives it from the
     # keys given, a directly built Install has the reference's defaults
@@ -235,5 +343,7 @@ class Install:
             ),
             strict_reference_parity=d.get("strict-reference-parity", compat.DEFAULT_STRICT),
             delta_solve=d.get("delta-solve", False),
+            resilience=ResilienceConfig.from_dict(d.get("resilience") or {}),
+            provenance=ProvenanceConfig.from_dict(d.get("provenance") or {}),
             reference_only=_reference_only(d),
         )

@@ -61,6 +61,21 @@ class APIServer:
         self._terminating_namespaces: set[str] = set()
         # registered CRD kinds → established flag
         self._crds: Dict[str, dict] = {}
+        # write-fault hook (tests, the chip smoke's write-back outage):
+        # fn(op, kind, namespace, name) -> Optional[Exception]; a returned
+        # exception is raised BEFORE the mutation commits, exactly as a
+        # real API server refusing/timing out a write
+        self._write_fault = None
+
+    def set_write_fault(self, fn) -> None:
+        self._write_fault = fn
+
+    def _check_write_fault(self, op: str, kind: str, namespace: str, name: str) -> None:
+        fn = self._write_fault
+        if fn is not None:
+            err = fn(op, kind, namespace, name)
+            if err is not None:
+                raise err
 
     @property
     def resource_version(self) -> int:
@@ -113,6 +128,7 @@ class APIServer:
     # -- object CRUD ---------------------------------------------------------
 
     def create(self, obj: APIObject) -> APIObject:
+        self._check_write_fault("create", obj.KIND, obj.namespace, obj.name)
         with self._lock:
             kind = obj.KIND
             key = (obj.namespace, obj.name)
@@ -167,6 +183,7 @@ class APIServer:
                         del self._owner_index[ref.uid]
 
     def update(self, obj: APIObject) -> APIObject:
+        self._check_write_fault("update", obj.KIND, obj.namespace, obj.name)
         with self._lock:
             kind = obj.KIND
             key = (obj.namespace, obj.name)
@@ -192,6 +209,7 @@ class APIServer:
         return out
 
     def delete(self, kind: str, namespace: str, name: str) -> None:
+        self._check_write_fault("delete", kind, namespace, name)
         self._delete_impl(kind, namespace, name)
 
     def _delete_impl(self, kind: str, namespace: str, name: str) -> None:

@@ -3,7 +3,9 @@ clientsets are built with configured QPS + Burst).
 
 A token bucket: capacity=burst, refill=qps tokens/sec; acquire() blocks
 until a token is available — or, with a timeout, only until the caller's
-budget runs out.  qps<=0 disables limiting (the reference leaves the
+budget runs out, so a rate-limited write can respect the request
+deadline propagated by the resilience layer instead of blocking a
+worker (or the request path) indefinitely.  qps<=0 disables limiting (the reference leaves the
 client defaults; we treat unset as unlimited).
 """
 
@@ -13,6 +15,14 @@ import threading
 import time
 from typing import Optional
 
+from .errors import APIError
+
+
+class RateLimitTimeoutError(APIError):
+    """Gave up waiting for a rate-limit token (deadline/timeout).  A
+    retriable client-side condition — nothing reached the server."""
+
+    reason = "RateLimitTimeout"
 
 
 class TokenBucket:
@@ -47,15 +57,31 @@ class TokenBucket:
             time.sleep(wait)
 
 
+def acquire_within_deadline(bucket: TokenBucket) -> None:
+    """Take one token, waiting at most the propagated request deadline
+    (resilience/deadline.py) when one is bound.  Raises
+    :class:`RateLimitTimeoutError` — retriable, nothing was sent — when
+    the wait cannot fit, instead of blocking past the caller's timeout."""
+    from ..resilience import deadline as req_deadline
+
+    remaining = req_deadline.remaining()
+    if not bucket.acquire(timeout=remaining):
+        raise RateLimitTimeoutError(
+            f"rate-limit token wait exceeds the request deadline "
+            f"({remaining:.3f}s remaining)"
+        )
+
+
 class RateLimitedClient:
-    """Wraps a TypedClient-shaped client with a shared token bucket."""
+    """Wraps a TypedClient-shaped client with a shared token bucket;
+    token waits are deadline-bounded (see acquire_within_deadline)."""
 
     def __init__(self, delegate, bucket: TokenBucket):
         self._delegate = delegate
         self._bucket = bucket
 
     def _acquire(self) -> None:
-        self._bucket.acquire()
+        acquire_within_deadline(self._bucket)
 
     def create(self, obj):
         self._acquire()

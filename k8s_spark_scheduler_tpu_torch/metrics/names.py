@@ -77,6 +77,58 @@ SCHEDULING_WASTE_PER_INSTANCE_GROUP = (
     "foundry.spark.scheduler.scheduling.wasteperinstancegroup"
 )
 
+# resilience layer (resilience/): overload protection + degraded mode
+RESILIENCE_SHED_COUNT = "foundry.spark.scheduler.resilience.shed.count"
+RESILIENCE_DEADLINE_EXPIRED_COUNT = (
+    "foundry.spark.scheduler.resilience.deadline.expired.count"
+)
+RESILIENCE_BREAKER_STATE = "foundry.spark.scheduler.resilience.breaker.state"
+RESILIENCE_BREAKER_TRANSITIONS = (
+    "foundry.spark.scheduler.resilience.breaker.transitions.count"
+)
+RESILIENCE_JOURNAL_DEPTH = "foundry.spark.scheduler.resilience.journal.depth"
+RESILIENCE_JOURNAL_APPENDED = (
+    "foundry.spark.scheduler.resilience.journal.appended.count"
+)
+RESILIENCE_JOURNAL_REPLAYED = (
+    "foundry.spark.scheduler.resilience.journal.replayed.count"
+)
+RESILIENCE_HEALTH_STATE = "foundry.spark.scheduler.resilience.health.state"
+RESILIENCE_GATE_INFLIGHT = "foundry.spark.scheduler.resilience.gate.inflight"
+# background compactions triggered by the acked-fraction threshold
+RESILIENCE_JOURNAL_COMPACTIONS = (
+    "foundry.spark.scheduler.resilience.journal.compaction.count"
+)
+# torn tails truncated at recovery (bad CRC / partial final records)
+RESILIENCE_JOURNAL_TORN_TAIL = (
+    "foundry.spark.scheduler.resilience.journal.torn.tail.count"
+)
+
+# decision provenance (provenance/): unschedulability explainer,
+# shortfall telemetry, anomaly flight recorder
+# per-dimension cluster shortfall (executors short when that dimension
+# alone were the constraint), tagged dim=cpu|memory|nvidia.com/gpu
+PROVENANCE_SHORTFALL = "foundry.spark.scheduler.tpu.provenance.shortfall"
+# blocker-set size distribution of explained refusals
+PROVENANCE_BLOCKERS = "foundry.spark.scheduler.tpu.provenance.blockers"
+# explain invocations, tagged source=refusal|refusal-cached|http|debug
+PROVENANCE_EXPLAIN_COUNT = (
+    "foundry.spark.scheduler.tpu.provenance.explain.count"
+)
+# decision-record ring depth
+PROVENANCE_RECORDS = "foundry.spark.scheduler.tpu.provenance.records"
+# flight-recorder persists, tagged trigger=; bytes of the last bundle file
+PROVENANCE_BUNDLE_PERSISTED = (
+    "foundry.spark.scheduler.tpu.provenance.bundle.persisted.count"
+)
+PROVENANCE_BUNDLE_BYTES = (
+    "foundry.spark.scheduler.tpu.provenance.bundle.bytes"
+)
+# warm≠cold parity guard outcomes, tagged result=ok|mismatch
+PROVENANCE_PARITY_CHECKS = (
+    "foundry.spark.scheduler.tpu.provenance.parity.check.count"
+)
+
 TAG_INSTANCE_GROUP = "instance-group"
 TAG_HOST = "nodename"
 TAG_LIFECYCLE = "lifecycle"

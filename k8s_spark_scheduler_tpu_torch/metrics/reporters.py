@@ -96,6 +96,7 @@ class ReporterSet:
             self.report_queue_depths,
             self.report_informer_delay,
             self.report_registry_series,
+            self.report_resilience,
         ):
             try:
                 fn()
@@ -251,3 +252,27 @@ class ReporterSet:
         # capacity gauges) must not keep exporting its last, too-high
         # series count — the canary tracks the registry, not history
         self.metrics.prune_gauges(names.METRICS_REGISTRY_SERIES, published)
+
+    # -- resilience ----------------------------------------------------------
+
+    def report_resilience(self) -> None:
+        """Degraded-mode gauges + the periodic write-back recovery nudge:
+        when journaled reservation intents exist and the breaker's probe
+        window is due, put one back on the queue so recovery doesn't wait
+        for organic write traffic.  Skipped under a virtual clock — a
+        test driving time itself drives recovery too."""
+        kit = getattr(self._server, "resilience", None)
+        if kit is None:
+            return
+        self.metrics.gauge(names.RESILIENCE_GATE_INFLIGHT, float(kit.gate.in_flight))
+        self.metrics.gauge(names.RESILIENCE_JOURNAL_DEPTH, float(kit.journal.depth()))
+        # refresh the health-state gauge with the REAL serving state —
+        # defaulting serving=True here would flap the gauge to "ready"
+        # mid-boot between unready readiness-probe samples
+        serving = (
+            self._server.informer_factory.wait_for_cache_sync()
+            and self._server.warmup_complete()
+        )
+        kit.health.state(serving=serving)
+        if not timesource.is_virtual():
+            self._server.resource_reservation_cache.nudge_recovery()

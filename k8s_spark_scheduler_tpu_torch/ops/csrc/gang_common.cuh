@@ -711,6 +711,16 @@ __device__ void min_frag_drain(const Nodes& s, const App& a, R& red) {
   }
 }
 
+// Adds this thread's share of an app's usage to *usage before
+// subtract_usage applies it: 2 for each node with work[i] > 0, + 1 when
+// the driver's node (local index `driver`, -1 when not in this chunk) has
+// none.  The sum is only read after the launch: a fire-and-forget add.
+__device__ __forceinline__ void add_usage(const Nodes& s, int driver, int* usage) {
+  int v = 0;
+  for (int i = s.lo; i < s.hi; ++i) v += s.work[i] > 0 ? 2 : (i == driver ? 1 : 0);
+  if (v) atomicAdd(usage, v);
+}
+
 // The reference's usage subtraction over this thread's chunk: one
 // executor's worth on every node with work[i] > 0, else the driver on the
 // driver's node (local index `driver`, -1 when not in this chunk).

@@ -10,7 +10,10 @@
 // (executor on every node with an executor, else the driver on its node).
 // Invalid apps are infeasible and subtract nothing; infeasible ->
 // driver_idx = N.  The caller guards batch_solver.mf_sentinel_safe, so no
-// real capacity reaches the unbounded sentinel.
+// real capacity reaches the unbounded sentinel.  The optional probe flags
+// and usage output are the queue kernel's (queue_kernel.cu): a probed app
+// gets its verdict and subtracts nothing, and usage[a] is 2 x the nodes
+// given executors + 1 when the driver's node got none.
 //
 // Bound.  The apps depend on each other through the carry, so the kernel
 // is a serial chain of per-app steps; each step is a few walks over a
@@ -49,9 +52,11 @@ fifo_queue_min_frag_kernel(const int* __restrict__ avail_in,    // [N, 3]
                            const int* __restrict__ executors,   // [A, 3]
                            const int* __restrict__ counts,      // [A]
                            const uint8_t* __restrict__ valid,   // [A]
+                           const uint8_t* __restrict__ probe,   // [A] or null
                            int n, int n_apps,
                            uint8_t* __restrict__ feasible_out,  // [A]
                            int* __restrict__ driver_idx_out,    // [A]
+                           int* __restrict__ usage_out,         // [A], zeroed, or null
                            int* __restrict__ avail_out,         // [N, 3]
                            int* __restrict__ scratch,           // [4N] when not in shared memory
                            int in_shared) {
@@ -84,8 +89,9 @@ fifo_queue_min_frag_kernel(const int* __restrict__ avail_in,    // [N, 3]
       feasible_out[a] = drv.idx < n ? 1 : 0;
       driver_idx_out[a] = drv.idx;
     }
-    if (drv.idx == n) continue;
+    if (drv.idx == n || (probe != nullptr && probe[a])) continue;  // uniform
     min_frag_drain(s, app, red);
+    if (usage_out != nullptr) add_usage(s, drv.local, usage_out + a);
     subtract_usage(s, app, drv.local);
   }
   store_avail<kThreads>(s, Identity{}, avail_out);
@@ -101,14 +107,16 @@ SharedLimit g_limit;
 }  // namespace
 
 // Launches the kernel on `stream` on the current device as one cluster of 8
-// blocks; `scratch` is [4N] int32.  Returns the CUDA error code (0 = ok); a
-// refused launch returns its error and nothing runs.
+// blocks; `scratch` is [4N] int32; `probe` ([A] bytes) and `usage_out` ([A]
+// int32, zeroed by the caller) may each be null.  Returns the CUDA error
+// code (0 = ok); a refused launch returns its error and nothing runs.
 extern "C" int fifo_queue_min_frag_launch(const int* avail, const int* rank,
                                           const uint8_t* exec_ok, const int* drivers,
                                           const int* executors, const int* counts,
-                                          const uint8_t* valid, int n, int n_apps,
-                                          uint8_t* feasible_out, int* driver_idx_out,
-                                          int* avail_out, int* scratch, void* stream) {
+                                          const uint8_t* valid, const uint8_t* probe, int n,
+                                          int n_apps, uint8_t* feasible_out,
+                                          int* driver_idx_out, int* usage_out, int* avail_out,
+                                          int* scratch, void* stream) {
   if (scratch == nullptr && n > 0) return cudaErrorInvalidValue;
   long long limit = 0;
   cudaError_t err = g_limit.get(reinterpret_cast<const void*>(kKernel), &limit);
@@ -116,6 +124,6 @@ extern "C" int fifo_queue_min_frag_launch(const int* avail, const int* rank,
   const long long bytes = kNodeBytes * ((n + kBlocks - 1) / kBlocks);
   const long long smem = n > 0 && bytes <= limit ? bytes : 0;
   return launch_cluster(kKernel, kBlocks, kThreads, smem, stream, avail, rank, exec_ok, drivers,
-                        executors, counts, valid, n, n_apps, feasible_out, driver_idx_out,
-                        avail_out, scratch, smem > 0 ? 1 : 0);
+                        executors, counts, valid, probe, n, n_apps, feasible_out, driver_idx_out,
+                        usage_out, avail_out, scratch, smem > 0 ? 1 : 0);
 }

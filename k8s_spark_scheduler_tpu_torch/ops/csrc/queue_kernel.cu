@@ -18,6 +18,15 @@
 //   invalid apps are infeasible and subtract nothing; infeasible -> driver_idx = N.
 //   Sums and prefixes wrap as int32, as the reference's do.
 //
+// Two optional arguments serve the refusal explainer (ops/explain.py),
+// which asks, in one launch, at which queue position a later gang stopped
+// fitting: a probe flag per app (a probed app gets its verdict and driver
+// against the carry but subtracts nothing, so the explainer interleaves
+// the refused gang between the queue's apps), and a usage output per app
+// (2 x the nodes given executors, + 1 when the driver's own node got
+// none; 0 for an app that subtracted nothing) from which the explainer
+// reads what each earlier gang took.  The Filter passes neither.
+//
 // Bound.  The apps depend on each other through the carry, so the kernel
 // is a chain of per-app steps, each a few walks over a thread's nodes and
 // reductions across the threads that hold them; the bytes are tiny and
@@ -111,6 +120,7 @@ struct QueueApp {
   int ec, em, eg;  // executor
   int k;
   int valid;
+  int probe;  // verdict only: subtract nothing
   Divisor div[3];
 };
 
@@ -123,7 +133,8 @@ __device__ __forceinline__ int app_cap(const QueueApp& a, int c, int m, int g) {
 
 // Apps [first, first + count) into the block's tile.
 __device__ void stage_apps(QueueApp* tile, const int* drivers, const int* executors,
-                           const int* counts, const uint8_t* valid, int first, int count) {
+                           const int* counts, const uint8_t* valid, const uint8_t* probe,
+                           int first, int count) {
   for (int t = threadIdx.x; t < count; t += kThreads) {
     const int a = first + t;
     QueueApp q;
@@ -135,6 +146,7 @@ __device__ void stage_apps(QueueApp* tile, const int* drivers, const int* execut
     q.eg = executors[3 * a + 2];
     q.k = counts[a];
     q.valid = valid[a];
+    q.probe = probe != nullptr ? probe[a] : 0;
     q.div[0] = make_divisor(q.ec);
     q.div[1] = make_divisor(q.em);
     q.div[2] = make_divisor(q.eg);
@@ -151,9 +163,11 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
                   const int* __restrict__ executors,    // [A, 3]
                   const int* __restrict__ counts,       // [A]
                   const uint8_t* __restrict__ valid,    // [A]
+                  const uint8_t* __restrict__ probe,    // [A] or null
                   int n, int n_apps,
                   uint8_t* __restrict__ feasible_out,   // [A]
                   int* __restrict__ driver_idx_out,     // [A]
+                  int* __restrict__ usage_out,          // [A], zeroed, or null
                   int* __restrict__ avail_out,          // [N, 3]
                   int* __restrict__ scratch,            // [4N] when not in shared memory
                   int in_shared) {
@@ -175,7 +189,7 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
     const int t = a % kTile;
     if (t == 0) {  // uniform: every thread is past the previous tile's last app
       __syncthreads();
-      stage_apps(tile, drivers, executors, counts, valid, a, min(kTile, n_apps - a));
+      stage_apps(tile, drivers, executors, counts, valid, probe, a, min(kTile, n_apps - a));
       __syncthreads();
     }
     const QueueApp app = tile[t];
@@ -249,12 +263,13 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
       feasible_out[a] = driver < n ? 1 : 0;
       driver_idx_out[a] = driver;
     }
-    if (driver == n) continue;  // uniform
+    if (driver == n || app.probe) continue;  // uniform
 
     // walk 3: the fill from P' and the usage subtraction (executor on filled
     // nodes, else the driver on its node)
     const int local = best == won.key ? best_i : -1;  // keys are unique: one thread holds it
     int run = wadd(scan.x, s.base + s.lo > driver ? won.pay : 0);
+    int hosted = 0, driver_row = 0;  // this thread's share of the usage
     for (int i0 = s.lo; i0 < s.hi; i0 += kGroup) {
       int c[kGroup], cpu[kGroup], mem[kGroup], gpu[kGroup];
 #pragma unroll
@@ -281,14 +296,18 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
             s.cpu[i] = wsub(cpu[j], app.ec);
             s.mem[i] = wsub(mem[j], app.em);
             s.gpu[i] = wsub(gpu[j], app.eg);
+            ++hosted;
           } else if (i == local) {
             s.cpu[i] = wsub(cpu[j], app.dc);
             s.mem[i] = wsub(mem[j], app.dm);
             s.gpu[i] = wsub(gpu[j], app.dg);
+            driver_row = 1;
           }
         }
       }
     }
+    // the usage is only read after the launch: a fire-and-forget add
+    if (usage_out != nullptr && (hosted | driver_row)) atomicAdd(usage_out + a, 2 * hosted + driver_row);
   }
   store_avail<kThreads>(s, Identity{}, avail_out);
   cg::this_cluster().sync();
@@ -332,18 +351,20 @@ extern "C" long long fifo_queue_shared_bytes(int n, long long* static_bytes) {
 
 // Launches the queue kernel on `stream` on the current device as one
 // cluster; `scratch` ([4N] int32) is needed only when
-// fifo_queue_shared_bytes(n) is 0.  Returns the CUDA error code (0 = ok);
-// a refused launch returns its error and nothing runs.
+// fifo_queue_shared_bytes(n) is 0.  `probe` ([A] bytes) and `usage_out`
+// ([A] int32, zeroed by the caller) may each be null.  Returns the CUDA
+// error code (0 = ok); a refused launch returns its error and nothing
+// runs.
 extern "C" int fifo_queue_launch(const int* avail, const int* rank, const uint8_t* exec_ok,
                                  const int* drivers, const int* executors, const int* counts,
-                                 const uint8_t* valid, int n, int n_apps, int evenly,
-                                 uint8_t* feasible_out, int* driver_idx_out, int* avail_out,
-                                 int* scratch, void* stream) {
+                                 const uint8_t* valid, const uint8_t* probe, int n, int n_apps,
+                                 int evenly, uint8_t* feasible_out, int* driver_idx_out,
+                                 int* usage_out, int* avail_out, int* scratch, void* stream) {
   const long long smem = evenly ? segment_bytes<true>(n) : segment_bytes<false>(n);
   if (smem < 0) return static_cast<int>(-smem);
   if (smem == 0 && scratch == nullptr && n > 0) return cudaErrorInvalidValue;
   const auto kernel = evenly ? fifo_queue_kernel<true> : fifo_queue_kernel<false>;
   return launch_cluster(kernel, kBlocks, kThreads, smem, stream, avail, rank, exec_ok, drivers,
-                        executors, counts, valid, n, n_apps, feasible_out, driver_idx_out,
-                        avail_out, scratch, smem > 0 ? 1 : 0);
+                        executors, counts, valid, probe, n, n_apps, feasible_out, driver_idx_out,
+                        usage_out, avail_out, scratch, smem > 0 ? 1 : 0);
 }

@@ -15,6 +15,7 @@ return ``supported=False`` and the caller uses the host oracle path.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, replace
 from fractions import Fraction
 from typing import List, Optional, Sequence
@@ -42,7 +43,7 @@ from .batch_adapter import (
     minimal_fragmentation_assignment,
     problem_tensors,
 )
-from .batch_solver import mf_sentinel_safe, solve_single, solve_zones
+from .batch_solver import mf_sentinel_safe, queue_policy_code, solve_single, solve_zones
 from .efficiency import PackingEfficiency, compute_packing_efficiencies
 from .minfrag_kernel import fifo_queue_min_frag
 from .packers import PackingResult, empty_packing_result
@@ -57,6 +58,8 @@ from .tensorize import (
     tensorize_cluster,
 )
 from .tensorize import _resources_to_base as _res_rows
+
+logger = logging.getLogger(__name__)
 
 
 def _ceil_div(v, d: int):
@@ -229,6 +232,10 @@ class TpuFifoSolver:
         # which lane served the last queue pass: "cuda" or "torch";
         # None = no queue pass ran
         self.last_queue_lane: Optional[str] = None
+        # provenance capture (provenance/tracker.py): wiring points this at
+        # ProvenanceTracker.capture when provenance is enabled; None (the
+        # default) keeps solve_tensor capture-free
+        self.capture_sink = None
         # (ids, strong refs, AppTensor) of the last earlier-apps list:
         # consecutive Filters tensorize the same pending queue.  The
         # cached list holds strong references, so an id can never be
@@ -350,12 +357,19 @@ class TpuFifoSolver:
                 shape_key = (problem.avail.shape, problem.driver.shape)
                 with default_profiler.profile(kernel, lane=self.last_queue_lane, shape_key=shape_key) as rec:
                     if minfrag:
-                        feasible_dev, _, avail = fifo_queue_min_frag(*queue_args)
+                        feasible_dev, didx_dev, avail = fifo_queue_min_frag(*queue_args)
                     else:
-                        feasible_dev, _, avail = fifo_queue(*queue_args, evenly=evenly)
+                        feasible_dev, didx_dev, avail = fifo_queue(*queue_args, evenly=evenly)
                     rec.sync(avail)
                 feasible = feasible_dev[:n_earlier].cpu().numpy()
                 gate_span.tag("lane", self.last_queue_lane)
+                # capture BEFORE the blocked-earlier verdict below: a
+                # FAILURE_EARLIER_DRIVER refusal is exactly the decision
+                # the provenance explainer must be able to decompose
+                if self.capture_sink is not None:
+                    self._capture_solve(
+                        cluster, problem, earlier_skip_allowed, n_earlier, feasible, didx_dev, avail
+                    )
                 # an enforced (old-enough) earlier driver that doesn't fit
                 # fails the whole request (resource.go:244-253)
                 for i in range(n_earlier):
@@ -366,11 +380,59 @@ class TpuFifoSolver:
         else:
             with tracing.child_span("fifo_gate", {"earlierApps": 0, "earlierOk": True}):
                 pass
+            if self.capture_sink is not None:
+                self._capture_solve(
+                    cluster, problem, earlier_skip_allowed, 0, np.zeros(0, dtype=bool), None, avail
+                )
 
         return self._pack_current(
             cluster, problem, (avail, driver_rank, exec_ok), n_earlier, current_app,
             metadata=metadata,
         )
+
+    def _capture_solve(
+        self, cluster, problem, earlier_skip_allowed, n_earlier, feasible, didx, avail_after
+    ) -> None:
+        """Hand the queue solve's inputs + verdicts to the provenance sink
+        (provenance/tracker.py), by reference: the host arrays of the
+        problem, the feasible verdicts already on the host, and the
+        launch's own output tensors (driver indices, availability after
+        the queue), which stay on the device until a bundle or an
+        explanation needs them.  Only runs when wiring installed a sink."""
+        try:
+            from ..provenance.tracker import SolveArtifacts
+
+            policy_code = queue_policy_code(self.assignment_policy)
+            if policy_code is None:
+                return
+            na = n_earlier + 1
+            packed = np.empty((na, 8), dtype=np.int32)
+            packed[:, 0:3] = problem.driver[:na]
+            packed[:, 3:6] = problem.executor[:na]
+            packed[:, 6] = problem.count[:na]
+            packed[:, 7] = problem.app_valid[:na]
+            lane = lane_of(self.device)
+            self.capture_sink(SolveArtifacts(
+                policy_code=int(policy_code),
+                lane=f"{lane}-minfrag" if policy_code == 2 else lane,
+                basis=problem.avail,
+                driver_rank=problem.driver_rank,
+                exec_ok=problem.exec_ok,
+                packed=packed,
+                n_earlier=n_earlier,
+                feasible=np.asarray(feasible, dtype=bool),
+                didx=didx,
+                resume=0,
+                avail_after=avail_after,
+                scale=problem.scale,
+                node_names=cluster.node_names,
+                zone_names=cluster.zone_names,
+                zone_id=cluster.zone_id,
+                skip_allowed=list(earlier_skip_allowed),
+                device=self.device,
+            ))
+        except Exception:
+            logger.exception("provenance capture failed (diagnostic only)")
 
     def _pack_current(
         self,

@@ -10,6 +10,8 @@ CUDA tensor launches the kernel, and anything else raises.  There is no
 fallback from the kernel to the plain version: a refused cluster launch
 raises.  The caller guards
 ``batch_solver.mf_sentinel_safe``: no real capacity may reach ``MF_SENT``.
+``fifo_queue_min_frag_explain`` launches the same kernel with the probe
+flags and usage output of ``queue_kernel.fifo_queue_explain``.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ from typing import Tuple
 import torch
 
 from .batch_solver import MF_SENT
-from .cuda_build import KernelLibrary
+from .cuda_build import KernelLibrary, check_tensor
 from .queue_kernel import (
     BIG,
+    app_usage,
+    apply_flags,
     check_queue_args,
     gang_core_plain,
     last_axis_min,
@@ -33,7 +37,7 @@ from .queue_kernel import (
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fifo_queue_min_frag_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, p]
+    lib.fifo_queue_min_frag_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p, p, p]
     lib.fifo_queue_min_frag_launch.restype = ctypes.c_int
 
 
@@ -169,19 +173,32 @@ def solve_queue_min_frag_plain(
     Pallas kernel formulates it (both drain passes run; truncating
     division): (feasible [A] bool, driver_idx [A] int32 (N if
     infeasible), avail_after [N, 3] int32)."""
+    feasible, idx, _, carry = queue_min_frag_plain(
+        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid
+    )
+    return feasible, idx, carry
+
+
+def queue_min_frag_plain(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe=None):
+    """solve_queue_min_frag_plain with the kernel's optional probe flags
+    ([A] bool or None): (feasible, driver_idx, usage [A] int32,
+    avail_after)."""
     n = avail.shape[0]
     carry = avail.to(torch.int32).clone()
-    feasible_out, idx_out = [], []
+    feasible_out, idx_out, usage_out = [], [], []
     for a in range(drivers.shape[0]):
         dr, ex = drivers[a], executors[a]
         feasible, flat_idx, is_driver, x = min_frag_plain(
             carry[:, 0], carry[:, 1], carry[:, 2], driver_rank, exec_ok, dr, ex, counts[a]
         )
         feasible = feasible & app_valid[a]
-        carry = subtract_usage_plain(carry, (x > 0) & feasible, is_driver & feasible, dr, ex)
+        applied = apply_flags(feasible, probe, a)
+        exec_mask, is_driver = (x > 0) & applied, is_driver & applied
+        carry = subtract_usage_plain(carry, exec_mask, is_driver, dr, ex)
         feasible_out.append(feasible)
         idx_out.append(torch.where(feasible, flat_idx, n).to(torch.int32))
-    return stack_outputs(feasible_out, idx_out, carry)
+        usage_out.append(app_usage(exec_mask, is_driver, applied))
+    return stack_outputs(feasible_out, idx_out, usage_out, carry)
 
 
 def fifo_queue_min_frag(
@@ -197,9 +214,39 @@ def fifo_queue_min_frag(
     int32, avail_after [N, 3] int32).  CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream (no
     synchronisation) as one cluster of CLUSTER_BLOCKS blocks."""
-    device = avail.device
-    if device.type == "cpu":
+    if avail.device.type == "cpu":
         return solve_queue_min_frag_plain(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid)
+    feasible, driver_idx, _, avail_after = _launch(
+        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, None
+    )
+    return feasible, driver_idx, avail_after
+
+
+def fifo_queue_min_frag_explain(
+    avail: torch.Tensor,
+    driver_rank: torch.Tensor,
+    exec_ok: torch.Tensor,
+    drivers: torch.Tensor,
+    executors: torch.Tensor,
+    counts: torch.Tensor,
+    app_valid: torch.Tensor,
+    probe: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fifo_queue_min_frag with probe flags ([A] bool: verdict only,
+    nothing subtracted) and the usage output: (feasible, driver_idx,
+    usage [A] int32, avail_after)."""
+    if avail.device.type == "cpu":
+        return queue_min_frag_plain(
+            avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe=probe
+        )
+    check_tensor(probe, "probe", torch.bool, (drivers.shape[0],), avail.device)
+    return _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe)
+
+
+def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe):
+    """One launch of the kernel on a CUDA device; the usage output only
+    when probe flags are given."""
+    device = avail.device
     if device.type != "cuda":
         raise ValueError(f"fifo_queue_min_frag runs on cpu or cuda tensors, not {device}")
     n, a = avail.shape[0], drivers.shape[0]
@@ -208,6 +255,7 @@ def fifo_queue_min_frag(
     lib = LIBRARY.load()
     feasible = torch.empty((a,), dtype=torch.bool, device=device)
     driver_idx = torch.empty((a,), dtype=torch.int32, device=device)
+    usage = None if probe is None else torch.zeros((a,), dtype=torch.int32, device=device)
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
     # the node planes when a block's nodes do not fit in its shared memory
     scratch = torch.empty((4 * n,), dtype=torch.int32, device=device)
@@ -215,11 +263,13 @@ def fifo_queue_min_frag(
         err = lib.fifo_queue_min_frag_launch(
             avail.data_ptr(), driver_rank.data_ptr(), exec_ok.data_ptr(),
             drivers.data_ptr(), executors.data_ptr(), counts.data_ptr(), app_valid.data_ptr(),
+            None if probe is None else probe.data_ptr(),
             n, a,
-            feasible.data_ptr(), driver_idx.data_ptr(), avail_after.data_ptr(), scratch.data_ptr(),
+            feasible.data_ptr(), driver_idx.data_ptr(),
+            None if usage is None else usage.data_ptr(), avail_after.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fifo_queue_min_frag kernel launch failed with CUDA error {err}")
     launch_counts["fifo_queue_min_frag"] += 1
-    return feasible, driver_idx, avail_after
+    return feasible, driver_idx, usage, avail_after

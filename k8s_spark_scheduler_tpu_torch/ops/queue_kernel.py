@@ -13,7 +13,10 @@ prefix (``layout`` reports the launch).  ``fifo_queue`` is the wrapper
 every caller goes through: a tensor on the CPU takes the plain version
 (``solve_queue_plain``), a CUDA tensor launches the kernel, and anything
 else raises.  There is no fallback from the kernel to the plain version:
-a refused cluster launch raises.
+a refused cluster launch raises.  ``fifo_queue_explain`` launches the
+same kernel with two extra arguments the refusal explainer needs
+(``ops/explain.py``): per-app probe flags (a probed app gets its verdict
+and subtracts nothing) and a per-app usage output.
 
 The kernel is compiled from the package's sources at first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
@@ -34,7 +37,7 @@ BIG = 2**31 - 1
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fifo_queue_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p, p, p]
+    lib.fifo_queue_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p, p, p, p, p]
     lib.fifo_queue_launch.restype = ctypes.c_int
     lib.fifo_queue_shared_bytes.argtypes = [i, p]
     lib.fifo_queue_shared_bytes.restype = ctypes.c_longlong
@@ -120,12 +123,27 @@ def subtract_usage_plain(carry, exec_mask, is_driver, dr, ex):
     return carry - delta
 
 
-def stack_outputs(feasible, idx, carry):
-    """(feasible [A] bool, driver_idx [A] int32, carry) from per-app lists."""
+def stack_outputs(feasible, idx, usage, carry):
+    """(feasible [A] bool, driver_idx [A] int32, usage [A] int32, carry)
+    from per-app lists."""
     if not feasible:
         empty = torch.zeros((0,), dtype=torch.int32, device=carry.device)
-        return empty.to(torch.bool), empty, carry
-    return torch.stack(feasible), torch.stack(idx), carry
+        return empty.to(torch.bool), empty, empty, carry
+    return torch.stack(feasible), torch.stack(idx), torch.stack(usage), carry
+
+
+def app_usage(exec_mask, is_driver, applied):
+    """The kernels' per-app usage word: 2 x the nodes given executors, + 1
+    when the driver's node got none (the driver row then lands there); 0
+    unless the app's usage was applied."""
+    hosted = exec_mask.sum(dtype=torch.int32) * 2
+    driver_row = (is_driver & ~exec_mask).any().to(torch.int32)
+    return torch.where(applied, hosted + driver_row, 0).to(torch.int32)
+
+
+def apply_flags(feasible, probe, a):
+    """Whether app a's usage is subtracted: feasible and not a probe."""
+    return feasible if probe is None else feasible & ~probe[a]
 
 
 def solve_queue_plain(
@@ -143,9 +161,19 @@ def solve_queue_plain(
     avail_after [N, 3] int32).  Follows the Pallas kernel's formulation
     (truncating division, (rank, node) minimum) rather than
     batch_solver's, so the two are independent references."""
+    feasible, idx, _, carry = queue_plain(
+        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=evenly
+    )
+    return feasible, idx, carry
+
+
+def queue_plain(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=False, probe=None):
+    """solve_queue_plain with the kernel's optional arguments: `probe`
+    ([A] bool or None) marks apps that get a verdict and subtract
+    nothing.  Returns (feasible, driver_idx, usage [A] int32, avail_after)."""
     n = avail.shape[0]
     carry = avail.to(torch.int32).clone()
-    feasible_out, idx_out = [], []
+    feasible_out, idx_out, usage_out = [], [], []
     for a in range(drivers.shape[0]):
         dr, ex, k = drivers[a], executors[a], counts[a]
         feasible, flat_idx, is_driver, cap = gang_core_plain(
@@ -160,10 +188,13 @@ def solve_queue_plain(
         else:
             cum_excl = torch.cumsum(cap, 0, dtype=torch.int32) - cap
             exec_mask = torch.minimum(torch.clamp(k - cum_excl, min=0), cap) > 0
-        carry = subtract_usage_plain(carry, exec_mask & feasible, is_driver & feasible, dr, ex)
+        applied = apply_flags(feasible, probe, a)
+        exec_mask, is_driver = exec_mask & applied, is_driver & applied
+        carry = subtract_usage_plain(carry, exec_mask, is_driver, dr, ex)
         feasible_out.append(feasible)
         idx_out.append(torch.where(feasible, flat_idx, n).to(torch.int32))
-    return stack_outputs(feasible_out, idx_out, carry)
+        usage_out.append(app_usage(exec_mask, is_driver, applied))
+    return stack_outputs(feasible_out, idx_out, usage_out, carry)
 
 
 def check_queue_args(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid):
@@ -192,11 +223,42 @@ def fifo_queue(
     avail_after [N, 3] int32).  CPU tensors take the plain version; CUDA
     tensors launch the kernel on the current stream (no synchronisation)
     as one thread-block cluster."""
-    device = avail.device
-    if device.type == "cpu":
+    if avail.device.type == "cpu":
         return solve_queue_plain(
             avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=evenly
         )
+    feasible, driver_idx, _, avail_after = _launch(
+        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly, None
+    )
+    return feasible, driver_idx, avail_after
+
+
+def fifo_queue_explain(
+    avail: torch.Tensor,
+    driver_rank: torch.Tensor,
+    exec_ok: torch.Tensor,
+    drivers: torch.Tensor,
+    executors: torch.Tensor,
+    counts: torch.Tensor,
+    app_valid: torch.Tensor,
+    probe: torch.Tensor,
+    evenly: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fifo_queue with probe flags ([A] bool: verdict only, nothing
+    subtracted) and the usage output: (feasible, driver_idx, usage [A]
+    int32, avail_after).  Same devices and launch as fifo_queue."""
+    if avail.device.type == "cpu":
+        return queue_plain(
+            avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=evenly, probe=probe
+        )
+    check_tensor(probe, "probe", torch.bool, (drivers.shape[0],), avail.device)
+    return _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly, probe)
+
+
+def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly, probe):
+    """One launch of the kernel on a CUDA device; the usage output only
+    when probe flags are given."""
+    device = avail.device
     if device.type != "cuda":
         raise ValueError(f"fifo_queue runs on cpu or cuda tensors, not {device}")
     n, a = avail.shape[0], drivers.shape[0]
@@ -205,6 +267,7 @@ def fifo_queue(
     lib = LIBRARY.load()
     feasible = torch.empty((a,), dtype=torch.bool, device=device)
     driver_idx = torch.empty((a,), dtype=torch.int32, device=device)
+    usage = None if probe is None else torch.zeros((a,), dtype=torch.int32, device=device)
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         # global scratch only when a block's nodes do not fit in its shared memory
@@ -213,12 +276,14 @@ def fifo_queue(
         err = lib.fifo_queue_launch(
             avail.data_ptr(), driver_rank.data_ptr(), exec_ok.data_ptr(),
             drivers.data_ptr(), executors.data_ptr(), counts.data_ptr(), app_valid.data_ptr(),
+            None if probe is None else probe.data_ptr(),
             n, a, int(evenly),
-            feasible.data_ptr(), driver_idx.data_ptr(), avail_after.data_ptr(),
+            feasible.data_ptr(), driver_idx.data_ptr(),
+            None if usage is None else usage.data_ptr(), avail_after.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fifo_queue kernel launch failed with CUDA error {err}")
     launch_counts["fifo_queue_evenly" if evenly else "fifo_queue_tightly"] += 1
-    return feasible, driver_idx, avail_after
+    return feasible, driver_idx, usage, avail_after

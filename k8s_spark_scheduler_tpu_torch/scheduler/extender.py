@@ -14,6 +14,13 @@ metadata lane (``_try_device_fifo``) never catch a solver error — a
 build, launch or solve failure propagates out of ``predicate``.  A lane
 declines only by its documented semantics: an inexact snapshot
 (``build_cluster_tensor`` returns None) or ``outcome.supported`` False.
+
+With the resilience kit (resilience/), a request whose deadline passed
+answers fail-fast at the next phase boundary (lock acquired, FIFO gate,
+binpack, reservation write-back).  With provenance (provenance/), every
+decision leaves a record, the queue solve is captured, and a refused
+driver's failure message carries the tightest-dimension shortfall and
+the earlier drivers that took the capacity.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..ops import capacity as cap
 from ..ops.efficiency import compute_avg_packing_efficiency
 from ..ops.nodesort import NodeSorter
 from ..ops.registry import SINGLE_AZ_MINIMAL_FRAGMENTATION, Binpacker
+from ..resilience import deadline as req_deadline
 from ..types.extenderapi import ExtenderArgs, ExtenderFilterResult
 from ..types.objects import Node, Pod
 from ..types.resources import (
@@ -66,6 +74,10 @@ FAILURE_INTERNAL = "failure-internal"
 FAILURE_FIT = "failure-fit"
 FAILURE_EARLIER_DRIVER = "failure-earlier-driver"
 FAILURE_NON_SPARK_POD = "failure-non-spark-pod"
+# the request outlived its caller's httpTimeout: answer fail-fast so the
+# extender lock serves callers that are still listening (retriable — the
+# next kube-scheduler attempt gets a fresh deadline)
+FAILURE_DEADLINE = "failure-deadline-exceeded"
 SUCCESS = "success"
 SUCCESS_RESCHEDULED = "success-rescheduled"
 SUCCESS_ALREADY_BOUND = "success-already-bound"
@@ -111,6 +123,7 @@ class SparkSchedulerExtender:
         tensor_snapshot_cache=None,
         strict_reference_parity: bool = compat.DEFAULT_STRICT,
         tracer: Optional[tracing.Tracer] = None,
+        provenance=None,
     ):
         self._node_informer = node_informer
         self._pod_lister = pod_lister
@@ -140,6 +153,14 @@ class SparkSchedulerExtender:
         self._predicate_lock = threading.Lock()
         self._fast_path_ok = tensor_snapshot_cache is not None
         self._strict_reference_parity = strict_reference_parity
+        # decision provenance (provenance/tracker.py): None or disabled
+        # keeps every capture sink None — the solver then runs with zero
+        # provenance work
+        self._provenance = provenance
+        if provenance is not None and provenance.enabled:
+            solver = getattr(binpacker, "queue_solver", None)
+            if solver is not None and hasattr(solver, "capture_sink"):
+                solver.capture_sink = provenance.capture
         self._last_request = 0.0
         # diagnostics: which lane served the last executor reschedule
         self.last_reschedule_path: Optional[str] = None
@@ -156,7 +177,31 @@ class SparkSchedulerExtender:
                 "predicate",
                 {"pod": args.pod.name, "namespace": args.pod.namespace},
             ):
+                # the request may have queued behind slow decisions for
+                # its whole deadline; answer fail-fast rather than spend
+                # the lock on a caller that already hung up
+                try:
+                    self._check_deadline("lock-acquired")
+                except SchedulingFailure as err:
+                    tracing.add_tag("outcome", err.outcome)
+                    if self._provenance is not None and self._provenance.enabled:
+                        self._provenance.on_trigger(
+                            "deadline-exceeded",
+                            f"{args.pod.namespace}/{args.pod.name} at lock-acquired",
+                        )
+                    return self._fail_with_message(err.outcome, args, str(err))
                 return self._predicate_locked(args)
+
+    def _check_deadline(self, phase: str) -> None:
+        """Phase-boundary deadline check (resilience/deadline.py): one
+        contextvar read when no deadline is bound."""
+        try:
+            req_deadline.check(phase)
+        except req_deadline.DeadlineExceeded as err:
+            self._metrics.counter(
+                mnames.RESILIENCE_DEADLINE_EXPIRED_COUNT, {"phase": phase}
+            )
+            raise SchedulingFailure(FAILURE_DEADLINE, str(err))
 
     def _predicate_locked(self, args: ExtenderArgs) -> ExtenderFilterResult:
         pod = args.pod
@@ -185,12 +230,17 @@ class SparkSchedulerExtender:
         instance_group, ok = L.find_instance_group_from_pod_spec(pod, self._instance_group_label)
         if not ok:
             instance_group = ""
+        if self._provenance is not None and self._provenance.enabled:
+            self._provenance.begin_decision(pod, role=role)
 
         t0 = time.perf_counter()
         try:
             self._reconcile_if_needed()
         except Exception:
             logger.exception("failed to reconcile")
+            self._finish_provenance(
+                FAILURE_INTERNAL, instance_group, message="failed to reconcile"
+            )
             return self._fail_with_message(FAILURE_INTERNAL, args, "failed to reconcile")
         self._rrm.compact_dynamic_allocation_applications()
 
@@ -198,6 +248,7 @@ class SparkSchedulerExtender:
             node_name, outcome = self._select_node(instance_group, role, pod, args.node_names)
         except SchedulingFailure as err:
             self._mark_schedule(instance_group, role, err.outcome, t0, pod)
+            self._finish_provenance(err.outcome, instance_group, message=str(err))
             if err.outcome == FAILURE_INTERNAL:
                 logger.exception("internal error scheduling pod %s", pod.name)
             else:
@@ -205,6 +256,7 @@ class SparkSchedulerExtender:
             return self._fail_with_message(err.outcome, args, str(err))
 
         self._mark_schedule(instance_group, role, outcome, t0, pod)
+        self._finish_provenance(outcome, instance_group, node=node_name)
         tracing.add_tag("node", node_name)
 
         if role == L.DRIVER:
@@ -269,6 +321,47 @@ class SparkSchedulerExtender:
                     wait,
                     outcome,
                 )
+
+    def _finish_provenance(
+        self, outcome: str, instance_group: str, node: str = "", message: str = ""
+    ) -> None:
+        """Seal the pending decision record (provenance/tracker.py) and
+        fire the deadline flight-recorder trigger when the decision died
+        at a phase boundary."""
+        prov = self._provenance
+        if prov is None or not prov.enabled:
+            return
+        # lane comes from the captured artifacts when a queue solve ran
+        # for THIS decision; passing the solver's last_queue_lane here
+        # would stamp artifact-less decisions (executor replays, early
+        # failures) with a stale lane from a previous driver solve
+        prov.finish_decision(
+            outcome,
+            node=node,
+            lane="",
+            policy=self.binpacker.name,
+            instance_group=instance_group,
+            message=message,
+        )
+        if outcome == FAILURE_DEADLINE:
+            prov.on_trigger("deadline-exceeded", message)
+
+    def _refusal_message(self, base: str, kind: str) -> str:
+        """Thread the tightest-dimension shortfall + blocker set into
+        the shared failure message ("short 12 executors … in cpu;
+        blocked by 3 earlier drivers").  The enriched message flows
+        through uniform_failure into the encode-once buffer — one
+        serialization per (candidates, message) pair, unchanged."""
+        prov = self._provenance
+        if prov is None or not prov.enabled:
+            return base
+        detail = prov.refusal_detail(kind)
+        return f"{base}: {detail}" if detail else base
+
+    def _raise_driver_refusal(self, outcome: str, base_message: str, kind: str):
+        """Shared refusal tail for the driver path: the message enriched
+        with the shortfall explanation."""
+        raise SchedulingFailure(outcome, self._refusal_message(base_message, kind))
 
     def _fail_with_message(self, outcome: str, args: ExtenderArgs, message: str) -> ExtenderFilterResult:
         if self._waste_reporter is not None:
@@ -345,8 +438,10 @@ class SparkSchedulerExtender:
                 self._demands.create_demand_for_application_in_any_zone(
                     driver, app_resources_early
                 )
-                raise SchedulingFailure(
-                    FAILURE_EARLIER_DRIVER, "earlier drivers do not fit to the cluster"
+                self._raise_driver_refusal(
+                    FAILURE_EARLIER_DRIVER,
+                    "earlier drivers do not fit to the cluster",
+                    "earlier-driver",
                 )
             return self._finish_driver_selection(
                 instance_group, driver, app_resources_early, outcome.result, zones
@@ -365,6 +460,7 @@ class SparkSchedulerExtender:
         app_resources = app_resources_early
 
         packing_result = None
+        self._check_deadline("fifo-gate")
         if self._is_fifo:
             queued_drivers = self._pod_lister.list_earlier_drivers(driver)
             # tpu-batch: the whole earlier-drivers pass plus this driver's
@@ -391,11 +487,14 @@ class SparkSchedulerExtender:
                 )
             if not earlier_ok:
                 self._demands.create_demand_for_application_in_any_zone(driver, app_resources)
-                raise SchedulingFailure(
-                    FAILURE_EARLIER_DRIVER, "earlier drivers do not fit to the cluster"
+                self._raise_driver_refusal(
+                    FAILURE_EARLIER_DRIVER,
+                    "earlier drivers do not fit to the cluster",
+                    "earlier-driver",
                 )
 
         if packing_result is None:
+            self._check_deadline("binpack")
             with self._tracer.span(
                 "binpack", {"policy": self.binpacker.name, "lane": "host"}
             ) as sp:
@@ -423,9 +522,12 @@ class SparkSchedulerExtender:
     ) -> Tuple[str, str]:
         """Common driver-path tail: demand lifecycle, metrics, reservation
         creation (resource.go:347-369)."""
+        self._check_deadline("reservation-writeback")
         if not packing_result.has_capacity:
             self._demands.create_demand_for_application_in_any_zone(driver, app_resources)
-            raise SchedulingFailure(FAILURE_FIT, "application does not fit to the cluster")
+            self._raise_driver_refusal(
+                FAILURE_FIT, "application does not fit to the cluster", "fit"
+            )
 
         if efficiency is None:
             if packing_result.max_avg_efficiency is not None:
@@ -478,8 +580,12 @@ class SparkSchedulerExtender:
         from ..ops.sparkapp import AppDemand
 
         snap = self._tensor_snapshot.snapshot()
+        prov = self._provenance
+        if prov is not None and not prov.enabled:
+            prov = None
         earlier_apps = []
         skip_allowed = []
+        queue_names: Optional[List[str]] = [] if prov is not None else None
         if self._is_fifo:
             skip_cutoff = self._fifo_skip_cutoff(instance_group)
             for queued in self._pod_lister.list_earlier_drivers(driver):
@@ -495,6 +601,14 @@ class SparkSchedulerExtender:
                     continue
                 earlier_apps.append(demand)
                 skip_allowed.append(queued.creation_timestamp > skip_cutoff)
+                if queue_names is not None:
+                    queue_names.append(queued.name)
+        if prov is not None:
+            prov.note_context(
+                queue_names=queue_names,
+                content_key=snap.content_key,
+                feed_seq=int(snap.content_key[1]),
+            )
         current = AppDemand(
             app_resources.driver_resources,
             app_resources.executor_resources,
@@ -539,8 +653,12 @@ class SparkSchedulerExtender:
             return None
         from ..ops.sparkapp import AppDemand
 
+        prov = self._provenance
+        if prov is not None and not prov.enabled:
+            prov = None
         earlier_apps = []
         skip_allowed = []
+        queue_names: Optional[List[str]] = [] if prov is not None else None
         skip_cutoff = self._fifo_skip_cutoff(instance_group)
         for queued in queued_drivers:
             try:
@@ -552,6 +670,10 @@ class SparkSchedulerExtender:
                 continue
             earlier_apps.append(demand)
             skip_allowed.append(queued.creation_timestamp > skip_cutoff)
+            if queue_names is not None:
+                queue_names.append(queued.name)
+        if prov is not None:
+            prov.note_context(queue_names=queue_names)
         outcome = solver.solve(
             metadata,
             driver_node_names,

@@ -1,9 +1,13 @@
 """HTTP surface: the kube-scheduler extender protocol + ops endpoints.
 
 - ``POST /predicates`` — ExtenderArgs JSON in, ExtenderFilterResult out
-  (reference cmd/endpoints.go:28-42).  A bad payload answers 400; an
-  error inside the Filter (a kernel build, launch or solve failure
-  among them) answers 500 — it is never turned into a decision.
+  (reference cmd/endpoints.go:28-42), behind the admission gate and the
+  request deadline (resilience/): a request beyond the gate's capacity
+  is shed at once with a retriable all-nodes failure, and one that
+  outlives kube-scheduler's httpTimeout answers fail-fast.  A bad
+  payload answers 400; an error inside the Filter (a kernel build,
+  launch or solve failure among them) answers 500 — it is never turned
+  into a decision.
 - ``POST /convert`` — CRD ConversionReview webhook
   (internal/conversionwebhook/resource_reservation.go:33-98; also served
   standalone with ``webhook_only``, mirroring the
@@ -11,12 +15,18 @@
 - ``GET /status/liveness`` / ``GET /status/readiness`` — management
   probes (witchcraft server equivalents, examples/extender.yml:142-151);
   readiness answers 503 until the caches are synced and the kernel
-  warmup has finished without error (always ready in webhook-only mode)
+  warmup has finished without error (always ready in webhook-only mode),
+  with the tri-state health body (ready / degraded / unready and the
+  resilience components) once a scheduler is wired
 - ``GET /metrics`` — metrics registry snapshot: JSON by default,
   Prometheus text exposition when the Accept header asks for
   ``text/plain``/openmetrics or ``?format=prometheus`` is passed, the
   exemplar-carrying OpenMetrics flavour only on ``?format=openmetrics``
 - ``GET /traces`` — recent completed span trees (tracing/spans.py ring)
+- ``GET /explain/<pod>`` — the pod's last decision record (provenance/):
+  queue slice, verdicts and, for a refusal, the shortfall and blockers
+- ``GET /debug/schedule/<pod>`` — the pod's last decision trace as a text
+  span tree, its events, and the provenance summary
 """
 
 from __future__ import annotations
@@ -28,11 +38,14 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
-from urllib.parse import parse_qs, urlsplit
+from urllib.parse import parse_qs, unquote, urlsplit
 
 from ..metrics import prometheus as prom
+from ..resilience import AdmissionShed
+from ..resilience import deadline as req_deadline
 from ..tracing import spans as tracing
 from ..types import serde
+from ..types.extenderapi import ExtenderFilterResult
 from .wiring import Server
 
 logger = logging.getLogger(__name__)
@@ -158,7 +171,17 @@ class _Handler(BaseHTTPRequestHandler):
                 # Filter requests, or serve a kernel that does not run
                 and self.scheduler.warmup_complete()
             )
-            self._send_json(200 if serving else 503, {"ready": serving})
+            if self.scheduler is None:  # webhook-only: no scheduler to report on
+                self._send_json(200 if serving else 503, {"ready": serving})
+                return
+            # tri-state: unready answers 503 (don't route here yet);
+            # degraded still answers 200 — a replica serving correct
+            # decisions with reduced machinery must NOT be pulled from
+            # rotation (that turns overload into an outage) — with the
+            # component breakdown in the body for operators
+            report = self.scheduler.resilience.health.report(serving=serving)
+            report["ready"] = serving
+            self._send_json(200 if serving else 503, report)
         elif path == "/metrics" and self.scheduler is not None:
             fmt = self._metrics_format(query)
             if fmt == "openmetrics":
@@ -178,8 +201,76 @@ class _Handler(BaseHTTPRequestHandler):
             except (ValueError, IndexError):
                 pass
             self._send_json(200, {"traces": self.scheduler.tracer.traces(limit=limit)})
+        elif path.startswith("/debug/schedule/") and self.scheduler is not None:
+            self._handle_debug_schedule(unquote(path[len("/debug/schedule/"):]))
+        elif path.startswith("/explain/") and self.scheduler is not None:
+            self._handle_explain(unquote(path[len("/explain/"):]))
         else:
             self._send_json(404, {"error": "not found"})
+
+    def _handle_explain(self, pod_name: str) -> None:
+        """Why was this pod's last scheduling decision what it was:
+        the provenance record — snapshot keys, queue slice, verdicts,
+        and for refusals the tightest-dimension shortfall + blocker set
+        (provenance/tracker.py).  Accepts a bare pod name (newest match
+        across namespaces) or ``<namespace>/<pod>`` to disambiguate."""
+        tracker = self.scheduler.provenance
+        if tracker is None:
+            self._send_json(404, {"error": "provenance not enabled"})
+            return
+        if not pod_name:
+            self._send_json(400, {"error": "usage: /explain/<pod-name>"})
+            return
+        record = tracker.explain(pod_name)
+        if record is None:
+            self._send_json(
+                404,
+                {
+                    "error": f"no recorded decision for pod {pod_name!r}",
+                    "ringSize": tracker.stats()["ring"]["size"],
+                },
+            )
+            return
+        self._send_json(200, record)
+
+    def _handle_debug_schedule(self, pod_name: str) -> None:
+        """Explain the last scheduling decision for a pod: the newest
+        trace tagged pod=<name> rendered as a text span tree, with the
+        event-ring records of the same trace appended, and the decision-
+        provenance record (shortfall + blockers) when one exists."""
+        tracer = self.scheduler.tracer
+        if not tracer.enabled or not pod_name:
+            self._send_json(404, {"error": "tracing not enabled"})
+            return
+        trace = tracer.find_by_tag("pod", pod_name)
+        if trace is None:
+            self._send_text(
+                404,
+                f"no recorded scheduling decision for pod {pod_name!r} "
+                f"(ring holds {len(tracer)} traces)\n",
+                "text/plain; charset=utf-8",
+            )
+            return
+        events = [
+            (e.name, e.values)
+            for e in self.scheduler.event_log.by_trace_id(trace["traceId"])
+        ]
+        text = tracing.render_trace_text(trace, events)
+        tracker = self.scheduler.provenance
+        if tracker is not None:
+            record = tracker.explain(pod_name, source="debug")
+            if record is not None:
+                text += "\nprovenance:\n"
+                summary = record.get("summary")
+                if summary:
+                    text += f"  why: {summary}\n"
+                for key in (
+                    "outcome", "lane", "policy", "feedSeq", "queueLength",
+                    "bundleSeq",
+                ):
+                    if record.get(key) is not None:
+                        text += f"  {key}: {record[key]}\n"
+        self._send_text(200, text, "text/plain; charset=utf-8")
 
     def _metrics_format(self, query) -> str:
         """"openmetrics" (exemplar-carrying text), "prometheus" (plain
@@ -259,7 +350,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(400, {"error": f"bad ExtenderArgs: {err}"})
             return
         try:
-            result = self.scheduler.extender.predicate(args)
+            result = self._predicate_guarded(args)
         except Exception as err:  # the request boundary: report, never decide
             logger.exception("predicate failed for %s/%s", args.pod.namespace, args.pod.name)
             self._send_json(500, {"error": f"predicate failed: {type(err).__name__}: {err}"})
@@ -270,6 +361,46 @@ class _Handler(BaseHTTPRequestHandler):
         with tracing.child_span("serde.encode"):
             encoded = serde.encode_extender_filter_result(result)
         self._send_bytes(200, encoded, "application/json")
+
+    def _predicate_guarded(self, args):
+        """Run the Filter under overload protection: a request deadline
+        derived from kube-scheduler's httpTimeout (checked at phase
+        boundaries inside the extender) and the bounded admission gate.
+        Shed requests answer immediately with a retriable all-nodes
+        failure — an extender protocol failure would abort the whole
+        scheduling cycle, a failed-nodes response just requeues the pod."""
+        predicate = self.scheduler.extender.predicate
+        kit = self.scheduler.resilience
+        try:
+            t_gate = time.perf_counter()
+            with kit.gate.admit():
+                span = tracing.current_span()
+                if span is not None:
+                    span.tags["gateWaitMs"] = round(
+                        (time.perf_counter() - t_gate) * 1000.0, 4
+                    )
+                with req_deadline.bind(kit.request_timeout):
+                    return predicate(args)
+        except AdmissionShed:
+            span = tracing.current_span()
+            if span is not None:
+                # the extender never ran, so nothing else stamps the
+                # pod identity — without these tags the shed trace is
+                # unfindable via /debug/schedule/<pod>
+                span.tag("pod", args.pod.name)
+                span.tag("namespace", args.pod.namespace)
+                span.tag("outcome", "shed")
+            # a shed is a real terminal verdict for this Filter attempt:
+            # it leaves a provenance DecisionRecord (`/explain` answers
+            # "why did my app not start?" for sheds too)
+            tracker = self.scheduler.provenance
+            if tracker is not None:
+                tracker.record_shed(args.pod)
+            message = "scheduler overloaded; retry"
+            return ExtenderFilterResult(
+                failed_nodes={n: message for n in args.node_names},
+                uniform_failure=(args.node_names, message),
+            )
 
 
 class ExtenderHTTPServer:

@@ -5,7 +5,10 @@ Builds the whole scheduler bottom-up on an API server (the embedded
 cluster): informers, the write-back reservation and demand caches, soft
 reservations, the reservation manager, the tensor mirror of the
 cluster, the extender around the configured binpacker, the waste and
-periodic metric reporters and the unschedulable-pod marker.  The
+periodic metric reporters, the unschedulable-pod marker, the resilience
+kit (admission gate, write-back breaker and intent journal, tri-state
+health) and decision provenance (the record ring, the refusal explainer
+and the flight recorder).  The
 ``tpu-batch*`` binpackers run their queue solvers on ``device`` (None =
 CUDA, which raises on a host without CUDA); ``start_background`` also
 starts the kernel warmup, which builds the binpacker's CUDA library and
@@ -37,6 +40,7 @@ from ..metrics.reporters import ReporterSet
 from ..metrics.waste import WasteMetricsReporter
 from ..ops.nodesort import NodeSorter
 from ..ops.registry import Binpacker, select_binpacker
+from ..resilience import ResilienceKit, build_kit
 from ..scheduler.demand_gc import start_demand_gc
 from ..scheduler.extender import SparkSchedulerExtender
 from ..scheduler.overhead import OverheadComputer
@@ -141,6 +145,8 @@ class Server:
     tracer: Tracer
     waste_reporter: WasteMetricsReporter
     reporters: Optional[ReporterSet] = None
+    resilience: Optional[ResilienceKit] = None
+    provenance: object = None  # ProvenanceTracker (provenance/tracker.py)
     _warm_done: threading.Event = field(default_factory=threading.Event)
     _warm_stop: threading.Event = field(default_factory=threading.Event)
     _warm_error: Optional[BaseException] = None
@@ -197,6 +203,10 @@ class Server:
         self.unschedulable_marker.stop()
         self.resource_reservation_cache.stop()
         self.demand_cache.stop()
+        if self.resilience is not None:
+            # the journal keeps its pending (unlanded) intents on disk
+            # for the next instance's boot-time replay
+            self.resilience.journal.close()
         self.lazy_demand_informer.stop()
         for thread in self._threads:
             # a kernel build is bounded by nvcc; joining it keeps a CUDA
@@ -222,6 +232,12 @@ def init_server_with_clients(
             "the reference package runs %s on this config; this server does not (%s)",
             subsystem,
             item,
+        )
+    if install.resilience.lane_keys:
+        logger.warning(
+            "resilience keys %s configure the reference's kernel-lane demotion; this server "
+            "never demotes a kernel lane (a kernel fault answers 500)",
+            ", ".join(install.resilience.lane_keys),
         )
     metrics = MetricsRegistry()
     event_log = EventLog()
@@ -251,14 +267,24 @@ def init_server_with_clients(
 
     # caches (cmd/server.go:129-155); one shared write-rate bucket per
     # process, like the kube clientsets' QPS/Burst (cmd/clients.go:53-54)
+    # overload protection: admission gate, write-back breaker + intent
+    # journal, tri-state readiness (resilience/)
+    resilience_kit = build_kit(install.resilience, metrics=metrics)
+
     rate_bucket = TokenBucket(install.qps, install.burst) if install.qps > 0 else None
     rr_cache = ResourceReservationCache(
         api,
         rr_informer,
         install.async_client.max_retry_count,
         rate_bucket=rate_bucket,
+        breaker=resilience_kit.breaker,
+        journal=resilience_kit.journal,
         registry=metrics,
     )
+    # intents journaled by a previous instance (durable journal-path)
+    # replay through the idempotent write path before any scheduling
+    # decision reads the cache
+    rr_cache.recover_from_journal()
     lazy_demand_informer = LazyDemandInformer(api, factory, poll_interval=demand_poll_interval)
     binpacker = select_binpacker(
         install.binpack_algo,
@@ -290,6 +316,28 @@ def init_server_with_clients(
     waste_reporter = WasteMetricsReporter(metrics, install.instance_group_label)
     waste_reporter.start(pod_informer, lazy_demand_informer)
 
+    # decision provenance: unschedulability explainer + shortfall
+    # telemetry + anomaly flight recorder (provenance/)
+    provenance_tracker = None
+    if install.provenance.enabled:
+        from ..provenance.tracker import ProvenanceTracker
+
+        provenance_tracker = ProvenanceTracker(
+            enabled=True,
+            ring_size=install.provenance.ring_size,
+            recorder_size=install.provenance.recorder_size,
+            bundle_dir=install.provenance.bundle_dir,
+            max_bundle_nodes=install.provenance.max_bundle_nodes,
+            metrics=metrics,
+            trigger_min_interval=install.provenance.trigger_min_interval_seconds,
+        )
+        # write-back breaker opening is a flight-recorder trigger: the
+        # recent decisions leading into an open breaker are exactly the
+        # forensic record an operator wants
+        resilience_kit.breaker.on_open = lambda name: provenance_tracker.on_trigger(
+            "breaker-open", f"breaker {name} opened"
+        )
+
     # extender (cmd/server.go:171-191)
     node_sorter = NodeSorter(
         install.driver_prioritized_node_label, install.executor_prioritized_node_label
@@ -316,6 +364,7 @@ def init_server_with_clients(
         tensor_snapshot_cache=tensor_snapshot,
         strict_reference_parity=install.strict_reference_parity,
         tracer=tracer,
+        provenance=provenance_tracker,
     )
 
     marker = UnschedulablePodMarker(
@@ -351,6 +400,8 @@ def init_server_with_clients(
         event_log=event_log,
         tracer=tracer,
         waste_reporter=waste_reporter,
+        resilience=resilience_kit,
+        provenance=provenance_tracker,
     )
     server.reporters = ReporterSet(server)
 

@@ -119,9 +119,18 @@ class AsyncClient:
 
     Each request replays the store's latest object against the API
     server with bounded retries (re-enqueued non-blocking), inline
-    409-conflict resolution and namespace-terminating detection; a
-    create that exhausts its retries leaves the local store, so reads
-    stay honest with what was admitted (reconciliation repairs later).
+    409-conflict resolution and namespace-terminating detection; without
+    a journal, a create that exhausts its retries leaves the local store,
+    so reads stay honest with what was admitted (reconciliation repairs
+    later).
+
+    With a circuit ``breaker`` + intent ``journal`` attached (the
+    resilience layer; reservation cache only), repeated write failures
+    open the breaker and requests are *diverted* to the journal instead
+    of burning retries against a dead API server — and, critically,
+    instead of being dropped at max retries.  The journal is replayed
+    through this same queue when a probe write succeeds (breaker closes)
+    or a recovery nudge arrives.
     """
 
     def __init__(
@@ -131,7 +140,10 @@ class AsyncClient:
         object_store: ObjectStore,
         max_retry_count: int = 5,
         metrics=None,
+        breaker=None,
+        journal=None,
         kind: str = "",
+        to_wire=None,
         registry=None,
     ):
         self._client = client
@@ -139,7 +151,10 @@ class AsyncClient:
         self._store = object_store
         self._max_retry_count = max_retry_count
         self._metrics = metrics
+        self._breaker = breaker
+        self._journal = journal
         self._kind = kind
+        self._to_wire = to_wire
         # full metrics registry (conflict-retry counter); the `metrics`
         # param above is the per-request outcome marker, kept separate
         # for reference parity
@@ -168,6 +183,11 @@ class AsyncClient:
                 continue
             r: Request = request_getter()
             try:
+                if self._breaker is not None and not self._breaker.allow():
+                    # breaker open and no probe due: don't touch the API
+                    # server at all — preserve the intent and move on
+                    self._divert(r, "journaled_breaker_open")
+                    continue
                 if r.type == CREATE:
                     self._do_create(r)
                 elif r.type == UPDATE:
@@ -179,43 +199,53 @@ class AsyncClient:
                 # is a programming error (client errors are handled in the
                 # per-request handlers) — surface it
                 logger.exception("async write-back worker failed on %s %s", r.type, r.key)
-                self._mark(r, "worker_error")
+                try:
+                    self._release_probe()  # never wedge recovery on a bug
+                    self._mark(r, "worker_error")
+                except Exception:
+                    pass
 
     # -- request handlers (async.go:77-137) ---------------------------------
 
     def _do_create(self, r: Request) -> None:
         obj = self._store.get(r.key)
         if obj is None:
-            return  # deleted while queued: no write happened
+            self._release_probe()  # deleted while queued: no write happened
+            return
         self._mark(r, "request")
         try:
             result = self._client.create(obj)
         except kerrors.AlreadyExistsError:
-            # idempotent replay: the create already landed (a write that
+            # idempotent replay: the create already landed (a journaled
+            # intent re-applied after a restart, or a write that
             # succeeded just as its response was lost) — fold the server
             # copy's RV and treat as success, never as a duplicate write
             try:
                 current = self._client.get(r.key[0], r.key[1])
             except Exception as get_err:
-                self._maybe_retry(r, get_err)
+                self._on_write_failure(r, get_err)
                 return
             self._store.fold_resource_version(current)
+            self._on_write_ok(r)
             return
         except Exception as err:
             if kerrors.is_namespace_terminating(err):
                 self._store.delete(r.key)
+                self._ack_journal(r)
                 return
-            if not self._maybe_retry(r, err):
+            if not self._on_write_failure(r, err) and self._journal is None:
                 self._store.delete(r.key)
             return
         # fold the result's RV in atomically, never resurrecting a key
         # deleted (e.g. by owner GC) while the create was in flight
         self._store.fold_resource_version(result)
+        self._on_write_ok(r)
 
     def _do_update(self, r: Request) -> None:
         obj = self._store.get(r.key)
         if obj is None:
-            return  # deleted while queued: no write happened
+            self._release_probe()  # deleted while queued: no write happened
+            return
         self._mark(r, "request")
 
         def attempt():
@@ -226,7 +256,8 @@ class AsyncClient:
 
         def refresh() -> bool:
             # refresh RV from the server and rebase (async.go:111-120);
-            # False (key folded away locally) aborts the loop
+            # a conflict means the server is alive — never a breaker
+            # signal.  False (key folded away locally) aborts the loop.
             new_obj = self._client.get(r.key[0], r.key[1])
             return self._store.fold_resource_version(new_obj)
 
@@ -235,10 +266,24 @@ class AsyncClient:
                 attempt, refresh, kind=self._kind, metrics=self._registry
             )
         except kerrors.NotFoundError:
+            if (
+                self._journal is not None
+                and r.key in self._journal.pending_keys()
+            ):
+                # journaled replay: the object's create was collapsed
+                # into this update intent while diverted (latest-wins per
+                # key) and never landed — upsert it.  The store holds the
+                # full newest content; _do_create acks the pending intent
+                # (create and update share the upsert ack class).
+                self._do_create(Request(r.key, CREATE, r.retry_count))
+                return
             # the server authoritatively lacks the object (owner GC beat
-            # this update): resurrecting a GC'd object would undo a
-            # deliberate delete.  Bounded retry while the informer's
-            # delete catches up locally, then drop.
+            # this update): a response from a LIVE server, so never a
+            # breaker signal, and not a journalable intent either —
+            # resurrecting a GC'd object would undo a deliberate delete.
+            # Bounded retry while the informer's delete catches up
+            # locally, then drop (the pre-resilience semantics).
+            self._release_probe()
             if r.retry_count >= self._max_retry_count:
                 self._mark(r, "dropped_not_found")
             else:
@@ -246,31 +291,143 @@ class AsyncClient:
                 self._queue.try_add_if_absent(r.with_incremented_retry_count())
             return
         except Exception as err:
-            # includes a ConflictError re-raised after the retry budget
-            self._maybe_retry(r, err)
+            # includes a ConflictError re-raised after the retry budget:
+            # route through the normal failure taxonomy (journal/retry)
+            self._on_write_failure(r, err)
             return
-        if result is not None:
-            self._store.fold_resource_version(result)
+        if result is None:
+            self._release_probe()  # vanished locally: no write landed
+            return
+        self._store.fold_resource_version(result)
+        self._on_write_ok(r)
 
     def _do_delete(self, r: Request) -> None:
         self._mark(r, "request")
         try:
             self._client.delete(r.key[0], r.key[1])
         except kerrors.NotFoundError:
-            return  # already deleted: the intent is satisfied
+            self._on_write_ok(r)  # already deleted: the intent is satisfied
+            return
         except Exception as err:
-            self._maybe_retry(r, err)
+            self._on_write_failure(r, err)
+            return
+        self._on_write_ok(r)
+
+    # -- resilience hooks ----------------------------------------------------
+
+    def _release_probe(self) -> None:
+        """A request granted by breaker.allow() ended without any write
+        reaching the server — free the (possible) half-open probe slot so
+        recovery can't wedge on an aborted probe."""
+        if self._breaker is not None:
+            self._breaker.release_probe()
+
+    def _on_write_ok(self, r: Request) -> None:
+        self._ack_journal(r)
+        if self._breaker is not None and self._breaker.record_success():
+            # a probe write just closed the breaker: replay everything
+            # that was diverted while it was open
+            self.replay_journal()
+
+    def _on_write_failure(self, r: Request, err: Exception) -> bool:
+        """Route a failed write: breaker accounting, then divert-or-retry.
+        Returns True when the intent is preserved (retrying or journaled),
+        False when it was dropped."""
+        if self._breaker is not None:
+            self._breaker.record_failure()
+            if not self._breaker.probe_due() and self._breaker.state != "closed":
+                # open with no probe window: stop hammering the server
+                self._divert(r, "journaled_write_failed")
+                return self._journal is not None
+        return self._maybe_retry(r, err)
+
+    def _divert(self, r: Request, what: str) -> None:
+        """Preserve the intent in the journal instead of writing.  With
+        no journal configured this degrades to the historical drop
+        semantics (creates leave the local store so reads stay honest
+        with what was admitted; reconciliation repairs later)."""
+        if self._journal is None:
+            self._mark(r, "dropped_no_journal")
+            if r.type == CREATE:
+                self._store.delete(r.key)
+            return
+        obj = self._store.get(r.key)
+        if r.type in (CREATE, UPDATE) and obj is None:
+            return  # deleted while queued: intent is moot
+        wire = None
+        if obj is not None and self._to_wire is not None:
+            try:
+                wire = self._to_wire(obj)
+            except Exception:
+                logger.exception("failed to serialize %s for the intent journal", r.key)
+        self._journal.record(r.type, self._kind, r.key[0], r.key[1], wire)
+        self._mark(r, what)
+
+    def _ack_journal(self, r: Request) -> None:
+        if self._journal is not None:
+            self._journal.ack(r.type, r.key[0], r.key[1])
+
+    def replay_journal(self) -> int:
+        """Re-enqueue every pending journaled intent through the normal
+        write path.  Idempotent: creates that already landed fold via
+        AlreadyExists, deletes via NotFound; intents whose object was
+        GC'd locally are acked as moot.  Returns the number enqueued."""
+        if self._journal is None:
+            return 0
+        enqueued = 0
+        for intent in self._journal.pending():
+            key = (intent["ns"], intent["name"])
+            op = intent["op"]
+            if op in (CREATE, UPDATE) and self._store.get(key) is None:
+                self._journal.ack(op, key[0], key[1])
+                continue
+            if self._queue.try_add_if_absent(Request(key, op)):
+                enqueued += 1
+            else:
+                break  # shard full: the next nudge picks the rest up
+        return enqueued
+
+    def nudge_recovery(self, force: bool = False) -> int:
+        """Periodic/explicit recovery poke: when journaled intents exist
+        and a write could land (breaker closed, or a probe window is
+        due — or ``force``, the explicit 'server is back' signal), put
+        them back on the queue.  While the breaker stays open only one
+        intent is enqueued (the probe); its success closes the breaker,
+        which replays the rest."""
+        if self._journal is None or self._journal.depth() == 0:
+            return 0
+        if self._breaker is None or self._breaker.state == "closed":
+            return self.replay_journal()
+        if force:
+            self._breaker.trip_half_open()
+        elif not self._breaker.probe_due():
+            return 0
+        for intent in self._journal.pending():
+            key = (intent["ns"], intent["name"])
+            op = intent["op"]
+            if op in (CREATE, UPDATE) and self._store.get(key) is None:
+                self._journal.ack(op, key[0], key[1])
+                continue
+            return 1 if self._queue.try_add_if_absent(Request(key, op)) else 0
+        return 0
 
     def _maybe_retry(self, r: Request, err: Exception) -> bool:
         """async.go:139-154: bounded retries, re-enqueued non-blocking.
-        Returns True when the intent is still queued, False when it was
-        dropped."""
+        With a journal attached, exhausted retries divert instead of
+        dropping — a reservation intent is never lost."""
         logger.warning("write-back %s %s failed: %s", r.type, r.key, err)
         if r.retry_count >= self._max_retry_count:
+            if self._journal is not None:
+                self._divert(r, "journaled_max_retries")
+                return True
             self._mark(r, "dropped_max_retries")
             return False
         self._mark(r, "retry")
-        if not self._queue.try_add_if_absent(r.with_incremented_retry_count()):
+        enqueued = self._queue.try_add_if_absent(r.with_incremented_retry_count())
+        if not enqueued:
+            if self._journal is not None:
+                self._divert(r, "journaled_queue_full")
+                return True
             self._mark(r, "dropped_queue_full")
             return False
         return True

@@ -36,6 +36,8 @@ class ResourceReservationCache:
         informer: Informer,
         max_retry_count: int = 5,
         rate_bucket=None,
+        breaker=None,
+        journal=None,
         registry=None,
     ):
         self._queue = ShardedUniqueQueue(RESERVATION_WRITER_SHARDS)
@@ -50,12 +52,18 @@ class ResourceReservationCache:
             from ..kube.ratelimit import RateLimitedClient
 
             client = RateLimitedClient(client, rate_bucket)
+        from ..types import serde
+
+        self._journal = journal
         self._async = AsyncClient(
             client,
             self._queue,
             self._store,
             max_retry_count,
+            breaker=breaker,
+            journal=journal,
             kind=ResourceReservation.KIND,
+            to_wire=serde.rr_to_dict_v1beta2,
             registry=registry,
         )
 
@@ -89,6 +97,71 @@ class ResourceReservationCache:
 
     def inflight_queue_lengths(self) -> List[int]:
         return self._queue.queue_lengths()
+
+    # -- resilience: intent-journal recovery ---------------------------------
+
+    def journal_depth(self) -> int:
+        return self._journal.depth() if self._journal is not None else 0
+
+    def nudge_recovery(self, force: bool = False) -> int:
+        """Re-enqueue journaled reservation intents when a write could
+        land again (see AsyncClient.nudge_recovery)."""
+        return self._async.nudge_recovery(force=force)
+
+    def recover_from_journal(self) -> int:
+        """Failover replay: apply intents journaled by a PREVIOUS
+        scheduler instance against this instance's lister-seeded store.
+        Exactly-once at the CRD level: intents whose write already
+        landed (the lister saw the object) — or whose object has since
+        been GC'd — are acked without a write; only genuinely-unlanded
+        intents are enqueued.  Returns the number of intents enqueued."""
+        if self._journal is None or self._journal.depth() == 0:
+            return 0
+        from ..types import serde
+        from .store import create_request, update_request
+
+        enqueued = 0
+        for intent in self._journal.pending():
+            if intent.get("kind") not in (None, ResourceReservation.KIND):
+                # defense: a journal file shared with another intent
+                # class (the reference's policy evictions) must not be
+                # replayed as reservation writes — foreign kinds are
+                # left pending for their own recoverer
+                continue
+            key = (intent["ns"], intent["name"])
+            op = intent["op"]
+            existing = self._store.get(key)
+            if op == "delete":
+                if existing is not None:
+                    self._cache.delete(key[0], key[1])
+                    enqueued += 1
+                else:
+                    self._journal.ack(op, key[0], key[1])
+                continue
+            if op == "create" and existing is not None:
+                # landed before the old instance died; lister seeded it
+                self._journal.ack(op, key[0], key[1])
+                continue
+            wire = intent.get("obj")
+            if not wire:
+                self._journal.ack(op, key[0], key[1])
+                continue
+            obj = serde.rr_from_dict_v1beta2(wire)
+            if existing is None:
+                # covers updates whose create was collapsed into them
+                # while diverted: recreate from the journaled wire copy.
+                # If the owning driver died meanwhile, the API server's
+                # dangling-owner GC collects the recreated object.
+                self._store.put_if_absent(obj)
+                self._queue.add_if_absent(create_request(obj))
+            else:
+                # the old instance was the sole writer: its journaled
+                # content is the newest intended state
+                self._store.put(obj)
+                self._queue.add_if_absent(update_request(obj))
+            enqueued += 1
+        return enqueued
+
 
 class DemandCache:
     """internal/cache/demands.go:40-117."""

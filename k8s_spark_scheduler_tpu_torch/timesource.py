@@ -41,6 +41,11 @@ def perf() -> float:
     return time.perf_counter()
 
 
+def is_virtual() -> bool:
+    """True while a replacement time source is installed."""
+    return _source is not time.time
+
+
 def reset() -> None:
     """Restore the real wall clock."""
     global _source

@@ -15,10 +15,11 @@ from __future__ import annotations
 
 import itertools
 import threading
+import time
 import uuid
 from collections import deque
 from contextvars import ContextVar
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from .. import timesource
 
@@ -240,6 +241,14 @@ class Tracer:
             out = out[: max(limit, 0)]
         return out
 
+    def find_by_tag(self, key: str, value: Any) -> Optional[dict]:
+        """Newest completed trace with ``tags[key] == value`` on any
+        span in the tree."""
+        for trace in self.traces():
+            if _tree_has_tag(trace["root"], key, value):
+                return trace
+        return None
+
     def clear(self) -> None:
         with self._lock:
             self._ring.clear()
@@ -247,6 +256,41 @@ class Tracer:
     def __len__(self) -> int:
         with self._lock:
             return len(self._ring)
+
+
+def _tree_has_tag(span_dict: dict, key: str, value: Any) -> bool:
+    if span_dict.get("tags", {}).get(key) == value:
+        return True
+    return any(
+        _tree_has_tag(c, key, value) for c in span_dict.get("children", ())
+    )
+
+
+def render_trace_text(trace: dict, events: Optional[List[Tuple[str, dict]]] = None) -> str:
+    """Human-readable span tree (the /debug/schedule payload): one line
+    per span with duration, indented by depth, tags inline; correlated
+    events appended."""
+    lines = [
+        f"trace {trace['traceId']}  start={time.strftime('%Y-%m-%dT%H:%M:%S', time.gmtime(trace['startTime']))}Z"
+        f"  total={trace['durationMs']:.3f}ms"
+    ]
+
+    def walk(span: dict, depth: int) -> None:
+        tags = span.get("tags", {})
+        tag_str = " ".join(f"{k}={v}" for k, v in sorted(tags.items(), key=lambda kv: kv[0]))
+        lines.append(
+            f"{'  ' * depth}- {span['name']}  {span['durationMs']:.3f}ms"
+            + (f"  [{tag_str}]" if tag_str else "")
+        )
+        for child in span.get("children", ()):
+            walk(child, depth + 1)
+
+    walk(trace["root"], 1)
+    if events:
+        lines.append("events:")
+        for name, values in events:
+            lines.append(f"  - {name} {values}")
+    return "\n".join(lines) + "\n"
 
 
 # module-level default (swappable for tests; the server wires its own)

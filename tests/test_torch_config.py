@@ -1,8 +1,8 @@
 """The port's config against the reference's on the subsystems a config
 turns on: ``Install.reference_only`` names exactly the subsystems the
-JAX package runs on the same config and the port does not have, and the
-server logs one warning for each at start (on examples/install.json
-among others).  Also the two settings that now configure something:
+JAX package runs on the same config and the port does not have (all but
+resilience and provenance, which the port has), and the server logs one
+warning for each at start (on examples/install.json among others).  Also the two settings that now configure something:
 ``conversion-webhook`` (the CRD's conversion stanza) and
 ``unschedulable-pod-timeout-seconds`` (the marker)."""
 
@@ -21,6 +21,8 @@ from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("provenance", "capacity", "contention", "policy", "ha", "lifecycle", "concurrent", "classes")
+# the reference's subsystems the port has too
+PORTED = {"resilience", "provenance"}
 
 
 def _example() -> dict:
@@ -50,7 +52,7 @@ CONFIGS = {
 def test_reference_only_names_what_the_reference_runs(config):
     d = CONFIGS[config]
     ours = Install.from_dict(d)
-    assert {name for name, _ in ours.reference_only} == _reference_runs(d)
+    assert {name for name, _ in ours.reference_only} == _reference_runs(d) - PORTED
     for name, item in ours.reference_only:
         assert item.startswith("ROADMAP A."), (name, item)
 
@@ -64,8 +66,8 @@ def test_example_config_warns_once_per_missing_subsystem(tmp_path, caplog):
     with caplog.at_level(logging.WARNING, logger="k8s_spark_scheduler_tpu_torch.server.wiring"):
         server = init_server_with_clients(APIServer(), install, start_background=False, device="cpu")
     warned = [r.getMessage() for r in caplog.records if "the reference package runs" in r.getMessage()]
-    expected = _reference_runs(_example())
-    assert len(warned) == len(expected) == 7
+    expected = _reference_runs(_example()) - PORTED
+    assert len(warned) == len(expected) == 5
     for name in expected:
         assert sum(f" runs {name} on this config" in w for w in warned) == 1, name
     # the two settings configure something now: the marker's timeout,

@@ -19,7 +19,6 @@ import torch
 
 from k8s_spark_scheduler_tpu import timesource as jax_timesource
 from k8s_spark_scheduler_tpu.config import Install as JaxInstall
-from k8s_spark_scheduler_tpu.config import ProvenanceConfig as JaxProvenanceConfig
 from k8s_spark_scheduler_tpu.kube.apiserver import APIServer as JaxAPIServer
 from k8s_spark_scheduler_tpu.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
 from k8s_spark_scheduler_tpu.server.http import ExtenderHTTPServer as JaxHTTPServer
@@ -75,10 +74,7 @@ def both_served():
         japi.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
         jsched = jax_init(
             japi,
-            JaxInstall(
-                fifo=True, binpack_algo="tpu-batch", delta_solve=False,
-                provenance=JaxProvenanceConfig(enabled=False),
-            ),
+            JaxInstall(fifo=True, binpack_algo="tpu-batch", delta_solve=False),
             demand_poll_interval=0.02,
         )
         started.append(jsched)
@@ -206,13 +202,16 @@ def test_bad_payloads_answer_400(both_served):
 def test_management_endpoints(both_served):
     _, _, _, psched, phttp = both_served
     assert _get(phttp.port, "/status/liveness") == (200, {"status": "up"})
-    assert _get(phttp.port, "/status/readiness") == (200, {"ready": True})
+    status, body = _get(phttp.port, "/status/readiness")
+    assert status == 200 and body["ready"] is True and body["state"] == "ready"
+    assert body["components"]["demotedLanes"] == []
     status, metrics = _get(phttp.port, "/metrics")
     assert status == 200 and "counters" in metrics
     assert _get(phttp.port, "/nope")[0] == 404
     # a warmup that failed keeps readiness at 503 and wait_ready raises
     psched._warm_error = RuntimeError("nvcc failed")
-    assert _get(phttp.port, "/status/readiness") == (503, {"ready": False})
+    status, body = _get(phttp.port, "/status/readiness")
+    assert status == 503 and body["ready"] is False and body["state"] == "unready"
     with pytest.raises(RuntimeError, match="kernel warmup failed"):
         psched.wait_ready(1)
 
@@ -300,27 +299,24 @@ def test_cli_serves_the_example_config_on_cpu(tmp_path):
     assert proc.returncode == 0
 
 
+# (case id, config, ROADMAP item).  The ids are those the cases had when
+# ROADMAP numbered these items A.5 and A.8; the items are ROADMAP's
+# current numbers.  The provenance and resilience sections (config1,
+# config2, config10) load since both subsystems were ported.
 _REFUSED = [
-    ({"delta-solve": True}, r"A\.3 \(delta-solve\)"),
-    ({"provenance": {}}, r"A\.6\.2 \(provenance\)"),
-    ({"provenance": {"enabled": True}}, r"A\.6\.2 \(provenance\)"),
-    ({"policy": {"enabled": True}}, r"A\.6\.5 \(scheduling policy\)"),
-    ({"lifecycle": {"enabled": True}}, r"A\.6\.4 \(lifecycle"),
-    ({"ha": {"enabled": True}}, r"A\.6\.6 \(HA failover\)"),
-    ({"concurrent": {"enabled": True}}, r"A\.4 \(concurrent admission\)"),
-    ({"capacity": {}}, r"A\.6\.3 \(capacity observatory\)"),
-    ({"contention": {"enabled": True}}, r"A\.6\.7 \(contention observatory\)"),
-    ({"classes": {}}, r"A\.3 \(equivalence-class aggregation\)"),
-    ({"resilience": {"request-deadline-seconds": 5}}, r"A\.6\.1 \(resilience kit\)"),
+    ("config0-A.5", {"delta-solve": True}, r"A\.3 \(delta-solve\)"),
+    ("config3-A.8", {"policy": {"enabled": True}}, r"A\.6\.5 \(scheduling policy\)"),
+    ("config4-A.8", {"lifecycle": {"enabled": True}}, r"A\.6\.4 \(lifecycle"),
+    ("config5-A.8", {"ha": {"enabled": True}}, r"A\.6\.6 \(HA failover\)"),
+    ("config6-A.5", {"concurrent": {"enabled": True}}, r"A\.4 \(concurrent admission\)"),
+    ("config7-A.8", {"capacity": {}}, r"A\.6\.3 \(capacity observatory\)"),
+    ("config8-A.8", {"contention": {"enabled": True}}, r"A\.6\.7 \(contention observatory\)"),
+    ("config9-A.5", {"classes": {}}, r"A\.3 \(equivalence-class aggregation\)"),
 ]
 
 
-# the ids are those the cases had when ROADMAP numbered these items A.5
-# and A.8; the items are ROADMAP's current numbers
 @pytest.mark.parametrize(
-    "config, item",
-    _REFUSED,
-    ids=[f"config{i}-{old}" for i, old in enumerate("A.5 A.8 A.8 A.8 A.8 A.8 A.5 A.8 A.8 A.5 A.8".split())],
+    "config, item", [case[1:] for case in _REFUSED], ids=[case[0] for case in _REFUSED]
 )
 def test_install_refuses_keys_that_enable_unported_subsystems(config, item):
     with pytest.raises(ValueError, match=item):

@@ -288,6 +288,78 @@ def test_rest_cluster_slice_runs_with_jax_and_reference_package_blocked():
     assert "CLUSTER-OK" in proc.stdout
 
 
+_BLOCKED_PROVENANCE = textwrap.dedent(
+    """
+    import importlib, os, sys, tempfile
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    for name in ("resilience", "resilience.deadline", "resilience.gate", "resilience.breaker",
+                 "resilience.journal", "resilience.health", "provenance", "provenance.records",
+                 "provenance.explain", "provenance.recorder", "provenance.tracker", "ops.explain"):
+        importlib.import_module("k8s_spark_scheduler_tpu_torch." + name)
+    from k8s_spark_scheduler_tpu_torch.config import Install, ProvenanceConfig, ResilienceConfig
+    from k8s_spark_scheduler_tpu_torch.kube.errors import APIError
+    from k8s_spark_scheduler_tpu_torch.provenance import replay_bundle_file
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    tmp = tempfile.mkdtemp()
+    install = Install(fifo=True, binpack_algo="tpu-batch",
+                      resilience=ResilienceConfig(journal_path=os.path.join(tmp, "j.jsonl"),
+                                                  breaker_failure_threshold=1),
+                      provenance=ProvenanceConfig(bundle_dir=os.path.join(tmp, "b")))
+    h = Harness(extra_install=install, device="cpu")
+    try:
+        h.new_node("n0", cpu="8", memory="32Gi")
+        queued = h.static_allocation_spark_pods("app-q", 1, executor_cpu="4")[0]
+        h.create_pod(queued)
+        big = h.static_allocation_spark_pods("app-big", 1, executor_cpu="4")[0]
+        r = h.schedule(big, ["n0"])
+        msg = next(iter(r.failed_nodes.values()))
+        assert "blocked by 1 earlier drivers (app-q-driver)" in msg, msg
+        h.delete_pod(big)  # refused: it leaves the queue
+        h.api.set_write_fault(lambda op, kind, ns, name: APIError("down") if kind == "ResourceReservation" else None)
+        assert h.schedule(h.static_allocation_spark_pods("app-ok", 0)[0], ["n0"]).node_names
+        kit, tracker = h.server.resilience, h.server.provenance
+        assert h.wait_for_api(lambda: kit.journal.depth() == 1 and tracker.recorder.persisted_paths)
+        h.api.set_write_fault(None)
+        h.server.resource_reservation_cache.nudge_recovery(force=True)
+        assert h.wait_for_api(lambda: kit.journal.depth() == 0)
+        results = replay_bundle_file(tracker.recorder.persisted_paths[0], device="cpu")
+        assert results and all(x["ok"] for x in results), results
+    finally:
+        h.close()
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("PROVENANCE-OK")
+    """
+)
+
+
+def test_resilience_and_provenance_run_with_jax_and_reference_package_blocked():
+    """The resilience kit and provenance, each module imported by name:
+    a refusal explained, a write-back outage journaled and recovered, the
+    breaker-open bundle replayed."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_PROVENANCE],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "PROVENANCE-OK" in proc.stdout
+
+
 def test_package_sources_import_neither_jax_nor_reference_package():
     import re
 

@@ -17,7 +17,6 @@ import pytest
 from k8s_spark_scheduler_tpu import timesource as jax_timesource
 from k8s_spark_scheduler_tpu.config import FifoConfig as JaxFifoConfig
 from k8s_spark_scheduler_tpu.config import Install as JaxInstall
-from k8s_spark_scheduler_tpu.config import ProvenanceConfig as JaxProvenanceConfig
 from k8s_spark_scheduler_tpu.kube.crd import DEMAND_CRD_NAME as JAX_DEMAND_CRD
 from k8s_spark_scheduler_tpu.kube.crd import demand_crd_spec as jax_demand_crd_spec
 from k8s_spark_scheduler_tpu.server.wiring import init_server_with_clients as jax_init
@@ -121,7 +120,6 @@ class RestTwin:
                     binpack_algo=policy,
                     instance_group_label=IG_LABEL,
                     delta_solve=False,
-                    provenance=JaxProvenanceConfig(enabled=False),
                 ),
                 demand_poll_interval=0.02,
             )

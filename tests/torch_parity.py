@@ -7,10 +7,13 @@ serialised with its serde, and the same wire dict is decoded by each
 package (the JAX serde, the port's ``convert.object_from_wire``), so
 both servers see identical state.  Both packages' time sources are
 pinned to one virtual clock, so FIFO ages and reconciliation triggers
-agree.  The JAX server runs without the two subsystems the port does not
-have and would refuse in its config: delta-solve and provenance.  ``Twin.schedule`` holds every ``ExtenderFilterResult`` equal
-and ``Twin.assert_state_equal`` the reservations and demands in both
-API servers.
+agree.  Both servers run their default resilience kit and decision
+provenance, so a refused driver's failure message carries the
+shortfall explanation on both sides; the JAX server runs without
+delta-solve, which the port does not have yet and would refuse in its
+config.  ``Twin.schedule`` holds every ``ExtenderFilterResult`` equal
+(failure messages included) and ``Twin.assert_state_equal`` the
+reservations and demands in both API servers.
 
 Both servers write reservations and demands back on worker threads, and
 a Filter or a delete that overtakes a pending write can decide
@@ -28,7 +31,6 @@ from typing import List, Optional, Sequence
 from k8s_spark_scheduler_tpu import timesource as jax_timesource
 from k8s_spark_scheduler_tpu.config import FifoConfig as JaxFifoConfig
 from k8s_spark_scheduler_tpu.config import Install as JaxInstall
-from k8s_spark_scheduler_tpu.config import ProvenanceConfig as JaxProvenanceConfig
 from k8s_spark_scheduler_tpu.scheduler import invariants as jax_invariants
 from k8s_spark_scheduler_tpu.testing.harness import Harness as JaxHarness
 from k8s_spark_scheduler_tpu.types import serde as jax_serde
@@ -95,11 +97,10 @@ class Twin:
                     should_schedule_dynamically_allocated_executors_in_same_az=(
                         dynamic_allocation_single_az
                     ),
-                    # the port has neither (config.py refuses them):
-                    # provenance would enrich the reference's failure
-                    # messages with a shortfall explanation
+                    # the port has no delta-solve engine yet (its
+                    # config refuses it); resilience and provenance run
+                    # at their defaults on both sides
                     delta_solve=False,
-                    provenance=JaxProvenanceConfig(enabled=False),
                 )
             )
             self.port = PortHarness(
