@@ -22,7 +22,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    odd and power-of-two requests, gangs whose capacity sums wrap), with
    its cluster size, threads and shared bytes a block; the queue and
    min-frag kernels also with the refusal explainer's probe flags and
-   usage output; outputs are integers and must be exactly equal;
+   usage output, and with the delta-solve session's checkpoint buffer
+   (the carry before every stride-th queue position, from a nonzero
+   queue position, slots past the buffer skipped); outputs are integers
+   and must be exactly equal;
 4. main path: Filter decisions on a 10,000-node cluster in 3 zones with a
    1,000-deep pending queue, on the card and equal to the same calls on
    the CPU: ``TpuFifoSolver`` tightly-pack, distribute-evenly and
@@ -40,17 +43,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    single decisions;
 5. server: the port's Filter server on the card — ``init_server_with_clients``
    (binpack ``tpu-batch``, then ``tpu-batch-distribute-evenly``, then
-   ``tpu-batch-minimal-fragmentation``, fifo, the reference's default
-   resilience and provenance) with
+   ``tpu-batch-minimal-fragmentation``, fifo, the reference's defaults:
+   resilience, provenance and the delta-solve engine) with
    ``ExtenderHTTPServer`` on port 0, bench.py's headline HTTP snapshot
    (10,000 nodes in 3 zones, allocatable 4–96 CPU / 8–256 Gi, 1,000 queued
    drivers of 1–32 executors of 1–8 CPU / 2–16 Gi) rebuilt from ``--seed``;
    2 warmup and 24 timed ``POST /predicates`` probes with all 10,000 node
    names, each retired and settled before the next; every response body
    equal to the same probe on a ``device="cpu"`` server fed the same
-   objects (every 8th probe under min-frag, whose plain version takes
-   seconds a Filter on the host), every timed probe on the tensor lane
-   (``lane=fast``) with the CUDA queue kernel (one launch a probe); for 3
+   objects, every probe on the tensor lane (``lane=fast``) through the
+   delta-solve session on the card (its first, cold pass a launch of the
+   checkpointed queue kernel; the retired probes leave the cluster as it
+   was, so the timed probes are served warm); for 3
    granted probes the driver is bound and every executor POSTed, each
    granted its reserved node; request latency p50 / p99, the provenance
    work a request does, span medians and the device's idle share in a
@@ -62,7 +66,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kubeconfig as the CLI's ``--kubeconfig`` reaches it; the first full
    LIST's time and decode and the time until the informers watch; phase
    5's probe protocol under ``tpu-batch`` (2 warmup and 24 timed probes,
-   bodies equal, one ``fifo_queue`` launch a timed probe, 3 granted
+   bodies equal, served by the delta-solve session, 3 granted
    probes' executors), with every pod created, bound and deleted in the
    fake and seen through the watches, and the reservations and demands
    each server wrote back read over REST and equal; the invariant checker
@@ -87,7 +91,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    a burst of 32 concurrent ``/predicates`` on the cuda server: each
    answer a grant, a refusal or the shed message, at least one shed,
    the shed requests' wait, and I1-I5 after it;
-8. the kernels line (times, bounds, launches) and the device result line.
+8. delta: the delta-solve engine (ops/deltasolve.py, its device-resident
+   session ops/fifo_session.py) on phase 5's snapshot.  (1) The
+   checkpointed launches of ``fifo_queue`` (tightly, evenly) and
+   ``fifo_queue_min_frag`` at phase 4's inputs (10,240 x 1,024, 1,000
+   valid apps), stride 64: outputs and every checkpoint equal to the plain
+   version, a suffix pass from a checkpoint too, a pass resumed from
+   every checkpoint equal to the whole-queue pass, with times.  (2) Under
+   ``tpu-batch`` and ``tpu-batch-minimal-fragmentation``, a cuda server
+   with the engine on, one with it off and a cpu server with it on, the
+   1,000 queued drivers behind an enforced driver that fits nowhere;
+   three segments of 200 Filters, each posted to the two cuda servers in
+   turns: (a) retries of queued drivers in random order, nothing changing
+   between them; (b) the same with an unrelated reservation created and
+   deleted before each (the change feed moves, the class digest cancels
+   back); (c) every 10th Filter an app that is granted and starts (the
+   basis changes).  Bodies equal on and off, and on the cpu server for a
+   sample; per segment p50 / p99 on and off, the warm-hit share, miss
+   reasons, resume depths and span medians; the device's busy share in a
+   profiler trace of one warm and one cold request.  (3) The engine's
+   warm-captured decisions persisted and replayed cold through the
+   kernel and the plain version, and a session stream at the library
+   layer (a FifoSession on the card against one on the CPU and the
+   stateless pass);
+9. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -264,18 +291,21 @@ def time_cuda(fn, reps: int) -> float:
 
 SERVER_POLICIES = ("tpu-batch", "tpu-batch-distribute-evenly", "tpu-batch-minimal-fragmentation")
 SERVER_WARMUP_PROBES, SERVER_TIMED_PROBES, SERVER_EXECUTOR_CHECKS = 2, 24, 3
-# the probes each policy's cpu server answers too (every probe is retired
-# before the next, so the servers stay equal whichever it skips): the
-# min-frag queue's plain version takes seconds a Filter on the host
-SERVER_CPU_EVERY = {"tpu-batch-minimal-fragmentation": 8}
 # the policy whose probes also go to a cuda server with provenance off,
 # in alternating order: provenance's cost within one run
 SERVER_PROVENANCE_OFF = "tpu-batch"
 # the kernel (variant) each server policy's Filter launches
 SERVER_KERNEL = {"tpu-batch": "fifo_queue_tightly", "tpu-batch-distribute-evenly": "fifo_queue_evenly",
                  "tpu-batch-minimal-fragmentation": "fifo_queue_min_frag"}
-SERVER_SPANS = ("http.read", "serde.decode", "predicate", "fast_path.build_tensor", "fifo_gate",
-                "kernel:fifo_queue", "binpack", "serde.encode", "http.request")
+# the spans of a Filter the delta-solve session serves warm (a cold one
+# adds deltasolve.cold_build with fast_path.build_tensor, tensorize.scale
+# and deltasolve.load, and skips deltasolve.scale)
+SERVER_SPANS = ("http.read", "serde.decode", "predicate", "fast_path.snapshot", "fast_path.earlier_drivers",
+                "deltasolve.lookup", "deltasolve.scale", "fifo_gate", "kernel:fifo_queue", "binpack",
+                "serde.encode", "http.request")
+# the lane that serves a Filter with the delta-solve engine on (the
+# default): the session, on the card
+SESSION_LANE = "cuda-session"
 
 
 def server_objects(seed: int):
@@ -323,7 +353,7 @@ class PortServer:
     """The port's server on its own embedded API server, serving HTTP on
     an ephemeral port."""
 
-    def __init__(self, policy: str, device: str, nodes, queue, provenance=None):
+    def __init__(self, policy: str, device: str, nodes, queue, provenance=None, delta_solve: bool = True):
         from k8s_spark_scheduler_tpu_torch.config import Install, ProvenanceConfig
         from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
         from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
@@ -335,7 +365,7 @@ class PortServer:
         # the reference's defaults, resilience and provenance included;
         # the marker's scan is phase 6's, not a load on the timed probes
         install = Install(binpack_algo=policy, fifo=True, provenance=provenance or ProvenanceConfig(),
-                          resilience=server_resilience(device))
+                          resilience=server_resilience(device), delta_solve=delta_solve)
         self.scheduler = init_server_with_clients(
             self.api, install, demand_poll_interval=0.5, unschedulable_polling_interval=3600.0,
             device=device,
@@ -455,14 +485,20 @@ class PortServer:
                         acc[key].append(dt)
             return wrapper
 
-        sink = solver.capture_sink
+        def keeping(sink):
+            def keep(art):
+                acc["art"] = art
+                sink(art)
+            return keep
 
-        def keep(art):
-            acc["art"] = art
-            sink(art)
-
-        solver.capture_sink = keep
+        # the solve is captured by the delta-solve engine when it serves,
+        # else by the solver's cold lane
+        solver.capture_sink = keeping(solver.capture_sink)
         solver._capture_solve = timed(solver._capture_solve)
+        engine = self.scheduler.extender.delta_engine
+        if engine is not None:
+            engine.capture_sink = keeping(engine.capture_sink)
+            engine._capture = timed(engine._capture)
         tracker.begin_decision = timed(tracker.begin_decision)
         tracker.note_context = timed(tracker.note_context)
         finish = tracker.finish_decision
@@ -543,8 +579,10 @@ def span_durations(span: dict, out: dict) -> dict:
     return out
 
 
-def server_phase(seed: int, smi: str) -> None:
-    """Phase 5 (see the module docstring); raises SystemExit on any failure."""
+def server_phase(seed: int, smi: str) -> dict:
+    """Phase 5 (see the module docstring); returns the launches of each
+    policy's checkpointed kernel on its cuda servers' run.  Raises
+    SystemExit on any failure."""
     import logging
 
     from k8s_spark_scheduler_tpu_torch.config import ProvenanceConfig
@@ -553,6 +591,7 @@ def server_phase(seed: int, smi: str) -> None:
     from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
 
     logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    path_launches = {}
     try:
         t0 = time.perf_counter()
         names, nodes, queue, rng, base = server_objects(seed)
@@ -574,15 +613,19 @@ def server_phase(seed: int, smi: str) -> None:
                 solver = card.scheduler.extender.binpacker.queue_solver
                 prov = card.watch_provenance()
                 kname = SERVER_KERNEL[policy]
-                cpu_every = SERVER_CPU_EVERY.get(policy, 1)
+                engine = card.scheduler.extender.delta_engine
                 lat_ms, off_ms, traces, granted, exec_checked, compared = [], [], [], 0, 0, 0
                 n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
+                # the path is driven with every count at 0: the first probe's
+                # cold session pass launches the checkpointed kernel, and
+                # the warm probes after it launch none
+                qk.reset_launch_counts()
+                mk.reset_launch_counts()
                 for i in range(n_probes):
                     timed = i >= SERVER_WARMUP_PROBES
                     if i == SERVER_WARMUP_PROBES:
-                        qk.reset_launch_counts()  # the timed probes' run starts here
-                        mk.reset_launch_counts()
-                        prov["ms"].clear()
+                        prov["ms"].clear()  # the timed probes' run starts here
+                        warm_before = engine.stats()["warm_hits"]
                     pods = Harness.static_allocation_spark_pods(
                         f"probe-{pi}-{i:03d}", int(rng.randint(1, 32)),
                         executor_cpu=str(int(rng.randint(1, 8))),
@@ -609,21 +652,18 @@ def server_phase(seed: int, smi: str) -> None:
                             off_ms.append(o_ms)
                     if status != 200:
                         raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}")
-                    if i % cpu_every == 0 or i == n_probes - 1:
-                        compared += 1
-                        _, cpu_status, cpu_body = servers["cpu"].post(pods[0], names)
-                        if (status, body) != (cpu_status, cpu_body):
-                            raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}, "
-                                             f"cpu {cpu_status} {cpu_body[:300]!r}")
-                    if card.fast_lane_count() != fast_before + 1 or solver.last_queue_lane != "cuda":
+                    compared += 1
+                    _, cpu_status, cpu_body = servers["cpu"].post(pods[0], names)
+                    if (status, body) != (cpu_status, cpu_body):
+                        raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}, "
+                                         f"cpu {cpu_status} {cpu_body[:300]!r}")
+                    if card.fast_lane_count() != fast_before + 1 or solver.last_queue_lane != SESSION_LANE:
                         raise SystemExit(f"{policy} probe {i} did not take the tensor lane with the CUDA "
-                                         f"kernel (queue lane {solver.last_queue_lane!r})")
+                                         f"session (queue lane {solver.last_queue_lane!r})")
                     result = json.loads(body)
                     if result["NodeNames"]:
                         granted += 1
-                        if timed and exec_checked < SERVER_EXECUTOR_CHECKS and (
-                            i % cpu_every == 0 or i == n_probes - 1
-                        ):
+                        if timed and exec_checked < SERVER_EXECUTOR_CHECKS:
                             exec_checked += 1
                             for server in servers.values():
                                 server.bind(pods[0], result["NodeNames"][0])
@@ -645,16 +685,22 @@ def server_phase(seed: int, smi: str) -> None:
                                 f"equal on cuda and cpu")
                     for server in servers.values():
                         server.retire(created)
-                launches = {**qk.launch_counts, **mk.launch_counts}[kname]
-                cuda_servers = 2 if off is not None else 1
-                if launches != SERVER_TIMED_PROBES * cuda_servers:
-                    raise SystemExit(f"{policy}: {launches} {kname} launches for {SERVER_TIMED_PROBES} timed "
-                                     f"probes on {cuda_servers} cuda servers")
+                launches = {**qk.launch_counts, **mk.launch_counts}[kname + "_checkpointed"]
+                path_launches[kname + "_checkpointed"] = launches
+                warm = engine.stats()["warm_hits"] - warm_before
+                cuda_servers = 1 + (off is not None)
+                if launches != cuda_servers:  # one cold session pass a server, the rest served warm
+                    raise SystemExit(f"{policy}: {kname}_checkpointed launched {launches} times on the "
+                                     f"server's path, expected {cuda_servers} (one cold pass a cuda server)")
+                if warm != SERVER_TIMED_PROBES:
+                    raise SystemExit(f"{policy}: {warm} of the {SERVER_TIMED_PROBES} timed probes served warm")
                 if exec_checked < SERVER_EXECUTOR_CHECKS:
                     raise SystemExit(f"{policy}: only {exec_checked} granted probes to check executors on")
                 log(f"phase server: {policy}: {n_probes} probes, {compared} of them equal on cuda and cpu, "
-                    f"{granted} granted, all on lane=fast with the cuda queue kernel; {kname} launches in "
-                    f"the timed run {launches} (one a probe a cuda server)")
+                    f"{granted} granted, all on lane=fast with the cuda delta-solve session; "
+                    f"{kname}_checkpointed launches {launches} over the probes on {cuda_servers} cuda "
+                    f"servers, {warm} of the {SERVER_TIMED_PROBES} timed probes served warm; engine "
+                    f"{engine.stats()}")
                 log(f"phase server: {policy}: provenance on the request path (begin, context, capture, "
                     f"record) median {statistics.median(prov['ms']):.3f} ms, max {max(prov['ms']):.3f} ms "
                     f"a Filter over the timed run's {len(prov['ms'])} driver and executor Filters")
@@ -696,17 +742,18 @@ def server_phase(seed: int, smi: str) -> None:
                 mk.reset_launch_counts()
                 ms, status, body = card.post(pod, names)
                 _, cpu_status, cpu_body = servers["cpu"].post(pod, names)
-                explain_launches = {**qk.launch_counts, **mk.launch_counts}[kname]
+                explain_launches = {**qk.launch_counts, **mk.launch_counts}
                 message = next(iter(json.loads(body).get("FailedNodes", {}).values()), "")
                 if (status, body) != (cpu_status, cpu_body) or "blocked by" not in message:
                     raise SystemExit(f"{policy} refused probe: cuda {status} {body[:300]!r}, "
                                      f"cpu {cpu_status} {cpu_body[:300]!r}")
-                if explain_launches != 2:
-                    raise SystemExit(f"{policy} refused probe: {explain_launches} {kname} launches, "
-                                     f"want the Filter's and the explanation's")
+                if explain_launches[kname] != 1:
+                    raise SystemExit(f"{policy} refused probe: {explain_launches[kname]} {kname} launches, "
+                                     f"want the explanation's")
                 log(f"phase server: {policy}: refused probe of {ks[0]} executors (room {before} before the "
                     f"queue, {after} behind it): {ms:.3f} ms, explanation {prov['explain_ms'][-1]:.3f} ms "
-                    f"({kname} launches {explain_launches}: the Filter's and the explanation's), equal on "
+                    f"({kname} launches {explain_launches[kname]}: the explanation's; the warm Filter's "
+                    f"{kname}_checkpointed {explain_launches[kname + '_checkpointed']}), equal on "
                     f"cuda and cpu: {message[:160]!r} | {smi}")
                 for server in (card, servers["cpu"]):
                     server.api.delete("Pod", pod.namespace, pod.name)  # refused: nothing reserved
@@ -715,6 +762,7 @@ def server_phase(seed: int, smi: str) -> None:
                     server.stop()
     finally:
         logging.disable(logging.NOTSET)
+    return path_launches
 
 
 # -- phase 6: the server against a cluster over REST ----------------------------
@@ -944,10 +992,12 @@ def cluster_phase(seed: int, smi: str) -> None:
         lat_ms, net_ms, check_ms, traces, granted, exec_checked, n_written = [], [], [], [], 0, 0, 0
         n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
         checks_before = checked["checks"]
+        engine = card.scheduler.extender.delta_engine
+        qk.reset_launch_counts()  # the path's run starts here
         for i in range(n_probes):
             timed = i >= SERVER_WARMUP_PROBES
             if i == SERVER_WARMUP_PROBES:
-                qk.reset_launch_counts()  # the timed probes' run starts here
+                warm_before = engine.stats()["warm_hits"]
             pods = Harness.static_allocation_spark_pods(
                 f"probe-c-{i:03d}", int(rng.randint(1, 32)), executor_cpu=str(int(rng.randint(1, 8))),
                 executor_mem=f"{int(rng.randint(2, 16))}Gi", creation_timestamp=base + N_APPS + i,
@@ -971,8 +1021,8 @@ def cluster_phase(seed: int, smi: str) -> None:
             if (status, body) != (cpu_status, cpu_body) or status != 200:
                 raise SystemExit(f"cluster probe {i}: cuda answered {status} {body[:300]!r}, "
                                  f"cpu {cpu_status} {cpu_body[:300]!r}")
-            if card.fast_lane_count() != fast_before + 1 or solver.last_queue_lane != "cuda":
-                raise SystemExit(f"cluster probe {i} did not take the tensor lane with the CUDA kernel "
+            if card.fast_lane_count() != fast_before + 1 or solver.last_queue_lane != SESSION_LANE:
+                raise SystemExit(f"cluster probe {i} did not take the tensor lane with the CUDA session "
                                  f"(queue lane {solver.last_queue_lane!r})")
             result = json.loads(body)
             if result["NodeNames"]:
@@ -1012,13 +1062,18 @@ def cluster_phase(seed: int, smi: str) -> None:
             n_written += len(rrs) + len(demands)
             for server in servers.values():
                 server.retire(created)
-        launches = qk.launch_counts["fifo_queue_tightly"]
-        if launches != SERVER_TIMED_PROBES:
-            raise SystemExit(f"cluster: {launches} fifo_queue launches for {SERVER_TIMED_PROBES} timed probes")
+        launches = qk.launch_counts["fifo_queue_tightly_checkpointed"]
+        warm = engine.stats()["warm_hits"] - warm_before
+        if launches != 1:  # the first probe's cold session pass, the rest served warm
+            raise SystemExit(f"cluster: fifo_queue_tightly_checkpointed launched {launches} times on the path, "
+                             f"expected 1")
+        if warm != SERVER_TIMED_PROBES:
+            raise SystemExit(f"cluster: {warm} of the {SERVER_TIMED_PROBES} timed probes served warm")
         if exec_checked < SERVER_EXECUTOR_CHECKS or not n_written:
             raise SystemExit(f"cluster: only {exec_checked} granted probes checked, {n_written} objects written")
         log(f"phase cluster: {n_probes} probes equal on cuda and cpu, {granted} granted, all on lane=fast with "
-            f"the cuda queue kernel; fifo_queue launches in the timed run {launches} (one a probe); "
+            f"the cuda delta-solve session; fifo_queue_tightly_checkpointed launches {launches}, {warm} of the "
+            f"{SERVER_TIMED_PROBES} timed probes served warm; engine {engine.stats()}; "
             f"{n_written} reservations and demands read back over REST equal on both fakes")
         log(f"phase cluster: /predicates over REST at {N_NODES} nodes x {N_APPS} queued drivers, without "
             f"the invariant checker's time: p50 {statistics.median(net_ms):.3f} ms, "
@@ -1361,6 +1416,333 @@ def resilience_phase(seed: int, smi: str) -> None:
         logging.disable(logging.NOTSET)
 
 
+# -- phase delta: the delta-solve engine on against off ---------------------------
+
+DELTA_POLICIES = ("tpu-batch", "tpu-batch-minimal-fragmentation")
+DELTA_FILTERS = 200  # Filters a segment
+DELTA_GRANT_EVERY = 10  # segment (c): every 10th Filter is an app that is granted and starts
+# the queued drivers' Filters of segments (a) and (b) the cpu server
+# answers too: its warm passes are the plain versions' suffixes, seconds a
+# Filter on the host under min-frag
+DELTA_CPU_EVERY = {"tpu-batch": 20, "tpu-batch-minimal-fragmentation": 40}
+DELTA_CPU_COLD = 2  # segment (c): queued drivers' Filters the cpu server answers, each a cold pass
+DELTA_SEGMENTS = {
+    "a": "retries of queued drivers in random order, nothing changes between them",
+    "b": "the same, an unrelated reservation created and deleted before each",
+    "c": "the same, every 10th Filter an app that is granted and starts",
+}
+DELTA_SPANS = ("predicate", "fast_path.snapshot", "fast_path.earlier_drivers", "deltasolve.lookup",
+               "deltasolve.scale", "deltasolve.cold_build", "fast_path.build_tensor", "tensorize.scale",
+               "deltasolve.load", "fifo_gate", "kernel:fifo_queue", "kernel:fifo_queue_min_frag", "binpack")
+DELTA_STRIDE = 64  # the session's checkpoint stride (ops/deltasolve.py)
+
+
+def timed_once(fn):
+    """(fn's result, its milliseconds by CUDA events), no warmup."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -> dict:
+    """Phase delta, step 1: the checkpointed launches of fifo_queue
+    (tightly, evenly) and fifo_queue_min_frag at the main path's inputs
+    (the 10,240 x 1,024 bucket, 1,000 valid apps), stride 64: a whole-queue
+    pass and a suffix pass from the checkpoint at position 384 against
+    their plain versions (outputs and every checkpoint), and a pass
+    resumed from every checkpoint against the whole-queue pass.  Returns
+    {kernel name: (ms runs, plain ms, bytes bound ms, operations bound ms)}."""
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+
+    n_b, a_b = queue_args[0].shape[0], queue_args[3].shape[0]
+    k = (a_b - 1) // DELTA_STRIDE
+    out = {}
+    for kname, policy in (("fifo_queue_tightly", 0), ("fifo_queue_evenly", 1), ("fifo_queue_min_frag", 2)):
+        def kernel(args, base, chk):
+            if policy == 2:
+                return mk.fifo_queue_min_frag(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
+            return qk.fifo_queue(*args, evenly=policy == 1, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
+
+        def plain(args, base, chk):
+            if policy == 2:
+                return mk.solve_queue_min_frag_plain(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
+            return qk.solve_queue_plain(*args, evenly=policy == 1, chk_base=base, chk_stride=DELTA_STRIDE,
+                                        chk_out=chk)
+
+        name = kname + "_checkpointed"
+        blank = torch.full((k, n_b, 3), -7, dtype=torch.int32, device=queue_args[0].device)
+        chk = blank.clone()
+        got = kernel(queue_args, 0, chk)
+        chk_plain = blank.clone()
+        want, plain_ms = timed_once(lambda: plain(queue_args, 0, chk_plain))
+        check(name, got + (chk,), want + (chk_plain,), "the main-path inputs, every checkpoint")
+        r = 6 * DELTA_STRIDE
+        suffix = (chk[5].clone(),) + queue_args[1:3] + tuple(x[r:] for x in queue_args[3:])
+        s_chk_plain = blank.clone()
+        s_want = plain(suffix, r, s_chk_plain)
+        s_chk = blank.clone()
+        s_got = kernel(suffix, r, s_chk)
+        check(name, s_got + (s_chk,), s_want + (s_chk_plain,), f"a suffix pass from position {r}")
+        for j in range(k):
+            r = (j + 1) * DELTA_STRIDE
+            resumed = (chk[j].clone(),) + queue_args[1:3] + tuple(x[r:] for x in queue_args[3:])
+            r_chk = blank.clone()
+            f, d, after = kernel(resumed, r, r_chk)
+            check(name, (f, d, after, r_chk[j:]), (got[0][r:], got[1][r:], got[2], chk[j:]),
+                  f"resumed from the checkpoint at position {r}")
+        n_feasible = int(got[0].sum())
+        per_app = MF_OPS_PER_NODE_FEASIBLE_APP if policy == 2 else OPS_PER_NODE_FEASIBLE_APP
+        ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * per_app)
+        n_bytes = queue_bytes + k * n_b * 12  # and each checkpoint written once
+        ms = [time_cuda(lambda: kernel(queue_args, 0, chk), 5) for _ in range(3)]
+        r = 6 * DELTA_STRIDE
+        resume_ms = time_cuda(lambda: kernel(suffix, r, s_chk), 5)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        log(f"phase delta: {name} N={n_b} A={a_b} ({n_valid} valid, {k} checkpoints a stride of "
+            f"{DELTA_STRIDE}): outputs and every checkpoint equal to the plain version, a suffix pass "
+            f"from position {r} too, and a pass resumed from each of the {k} checkpoints equal to the "
+            f"whole-queue pass; {statistics.median(ms):.3f} ms (runs {', '.join(f'{x:.3f}' for x in ms)}), "
+            f"the suffix of {a_b - r} apps {resume_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations {t_ops:.4f}) | {smi}")
+        out[name] = (ms, plain_ms, t_bytes, t_ops)
+    return out
+
+
+def unrelated_reservation(server, tag: str, created: float, node: str) -> None:
+    """A reservation the measured Filters do not ask about: a driver pod
+    (younger than every queued one) and its reservation created, seen by
+    the mirror, then the pod deleted and the reservation collected."""
+    from k8s_spark_scheduler_tpu_torch.scheduler.reservations_manager import new_resource_reservation
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+    from k8s_spark_scheduler_tpu_torch.types.resources import Resources
+
+    pod = Harness.static_allocation_spark_pods(tag, 1, creation_timestamp=created)[0]
+    stored = server.api.create(pod.deepcopy())
+    server.api.create(new_resource_reservation(node, [node], stored, Resources.of("1", "1Gi"),
+                                               Resources.of("1", "1Gi")))
+    cache = server.scheduler.resource_reservation_cache
+    wait_for(lambda: cache.get(pod.namespace, tag) is not None, "the unrelated reservation to reach the cache")
+    server.retire([pod])
+
+
+def delta_phase(seed: int, smi: str) -> dict:
+    """Phase delta, steps 2 and 3 (see the module docstring); returns the
+    launches of each kernel variant on the engine-on servers' runs.
+    Raises SystemExit on any failure."""
+    import logging
+    import tempfile
+
+    from k8s_spark_scheduler_tpu_torch.config import ProvenanceConfig
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.provenance.recorder import replay_bundle
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-delta-")
+    launches = {}
+    try:
+        names, nodes, queue, rng, base = server_objects(seed)
+        # an enforced driver at the head of the queue that fits nowhere (one
+        # 97-CPU executor, above every node's allocatable): every queued
+        # driver's Filter is refused behind it, so the retries change nothing
+        blocker = Harness.static_allocation_spark_pods(
+            "delta-blocker", 1, executor_cpu="97", creation_timestamp=base - 1.0)[0]
+        stamp = [base + N_APPS + 100.0]
+        for pi, policy in enumerate(DELTA_POLICIES):
+            t0 = time.perf_counter()
+            servers = {}
+            try:
+                servers["on"] = PortServer(policy, "cuda", nodes, queue + [blocker], provenance=ProvenanceConfig(
+                    max_bundle_nodes=BUNDLE_NODES, bundle_dir=os.path.join(workdir, policy)))
+                servers["off"] = PortServer(policy, "cuda", nodes, queue + [blocker], delta_solve=False)
+                servers["cpu"] = PortServer(policy, "cpu", nodes, queue + [blocker])
+                on, off, cpu = servers["on"], servers["off"], servers["cpu"]
+                engine = on.scheduler.extender.delta_engine
+                if off.scheduler.extender.delta_engine is not None or engine is None:
+                    raise SystemExit("the delta-solve switch did not reach the servers")
+                depths = []
+                record_warm = engine._record_warm
+
+                def note_depth(resume, record_warm=record_warm):
+                    depths.append(int(resume))
+                    record_warm(resume)
+
+                engine._record_warm = note_depth
+                log(f"phase delta: {policy}: servers with delta-solve on (cuda), off (cuda) and on (cpu) "
+                    f"ready in {time.perf_counter() - t0:.2f} s; {N_APPS} queued drivers behind an "
+                    f"enforced driver that fits nowhere")
+                kname = SERVER_KERNEL[policy]
+                qk.reset_launch_counts()
+                mk.reset_launch_counts()
+                n_compared = n_granted = 0
+                for seg, what in DELTA_SEGMENTS.items():
+                    lat = {"on": [], "off": []}
+                    traces = []
+                    stats0, depth0 = engine.stats(), len(depths)
+                    cold_compares = 0
+                    for f in range(DELTA_FILTERS):
+                        grant = seg == "c" and f % DELTA_GRANT_EVERY == DELTA_GRANT_EVERY - 1
+                        if grant:
+                            # older than the blocker: no earlier drivers, granted
+                            pod = Harness.static_allocation_spark_pods(
+                                f"delta-{pi}-grant-{f}", int(rng.randint(1, 8)),
+                                executor_cpu=str(int(rng.randint(1, 4))), creation_timestamp=base - 10.0 - f)[0]
+                            for server in servers.values():
+                                server.api.create(pod.deepcopy())
+                        else:
+                            pod = queue[int(rng.randint(0, N_APPS))]
+                            if seg == "b":
+                                stamp[0] += 1
+                                for side in ("on", "off"):
+                                    unrelated_reservation(servers[side], f"delta-{pi}-unrelated-{f}", stamp[0],
+                                                          names[int(rng.randint(0, len(names)))])
+                        order = ("on", "off") if f % 2 else ("off", "on")
+                        answers = {}
+                        for side in order:
+                            ms, status, body = servers[side].post(pod, names)
+                            answers[side] = (status, body)
+                            lat[side].append(ms)
+                            if side == "on":
+                                traces.append(on.scheduler.tracer.traces(limit=1)[0])
+                        if answers["on"] != answers["off"] or answers["on"][0] != 200:
+                            raise SystemExit(f"{policy} segment {seg} Filter {f}: on {answers['on'][1][:300]!r}, "
+                                             f"off {answers['off'][1][:300]!r}")
+                        ask_cpu = grant or (seg != "c" and f % DELTA_CPU_EVERY[policy] == 0) or (
+                            seg == "c" and not grant and f > DELTA_GRANT_EVERY and cold_compares < DELTA_CPU_COLD)
+                        if ask_cpu:
+                            cold_compares += seg == "c" and not grant
+                            n_compared += 1
+                            if cpu.post(pod, names)[1:] != answers["on"]:
+                                raise SystemExit(f"{policy} segment {seg} Filter {f}: cuda and cpu differ")
+                        granted = bool(json.loads(answers["on"][1]).get("NodeNames"))
+                        if granted != grant:
+                            raise SystemExit(f"{policy} segment {seg} Filter {f}: granted={granted}, want {grant}: "
+                                             f"{answers['on'][1][:300]!r}")
+                        if grant:
+                            n_granted += 1
+                            for server in servers.values():
+                                server.bind(pod, json.loads(answers["on"][1])["NodeNames"][0])
+                    stats1 = engine.stats()
+                    n = DELTA_FILTERS
+                    warm = stats1["warm_hits"] - stats0["warm_hits"]
+                    digest = stats1["digest_hits"] - stats0["digest_hits"]
+                    cold = stats1["cold_solves"] - stats0["cold_solves"]
+                    misses = {r: c - stats0["misses"].get(r, 0) for r, c in stats1["misses"].items()
+                              if c - stats0["misses"].get(r, 0)}
+                    seg_depths = depths[depth0:]
+                    spans = {}
+                    for trace in traces:
+                        span_durations(trace["root"], spans)
+                    for side in ("on", "off"):
+                        log(f"phase delta: {policy} segment {seg} ({what}): delta-solve {side}: /predicates "
+                            f"p50 {statistics.median(lat[side]):.3f} ms, p99 "
+                            f"{float(np.percentile(lat[side], 99)):.3f} ms over {n} Filters (the 3 slowest "
+                            f"{', '.join(f'{x:.1f}' for x in sorted(lat[side])[-3:])}) | {smi}")
+                    log(f"phase delta: {policy} segment {seg}: bodies equal on and off; warm hits {warm} of {n} "
+                        f"({100.0 * warm / n:.1f} %; class-digest tier {digest}), cold builds {cold}, misses "
+                        f"{misses or 'none'}; resume depth p50 "
+                        f"{statistics.median(seg_depths) if seg_depths else 'none'}, min "
+                        f"{min(seg_depths) if seg_depths else 'none'}, max {max(seg_depths) if seg_depths else 'none'}"
+                        f" of up to {N_APPS + 1} earlier apps")
+                    log(f"phase delta: {policy} segment {seg}: span medians on (ms, spans seen / Filters) "
+                        + ", ".join(f"{name} {statistics.median(spans[name]):.3f} ({len(spans[name])})"
+                                    for name in DELTA_SPANS if name in spans) + f" | {smi}")
+                    if seg == "a":
+                        if warm < n - 1:
+                            raise SystemExit(f"{policy} segment a: only {warm} of {n} Filters served warm")
+                        pod = queue[int(rng.randint(0, N_APPS))]
+                        log(f"phase delta: {policy}: profiler trace of one warm request (delta-solve on): "
+                            f"{busy_share(lambda: on.post(pod, names))} | {smi}")
+                        log(f"phase delta: {policy}: profiler trace of one cold request (delta-solve off): "
+                            f"{busy_share(lambda: off.post(pod, names))} | {smi}")
+                    if seg == "b" and digest < n - 1:
+                        raise SystemExit(f"{policy} segment b: only {digest} of {n} Filters warmed by the digest")
+                counts = {**qk.launch_counts, **mk.launch_counts}
+                launches[kname + "_checkpointed"] = counts[kname + "_checkpointed"]
+                log(f"phase delta: {policy}: {3 * DELTA_FILTERS} Filters on each cuda server ({n_granted} "
+                    f"granted), {n_compared} of them equal on a cpu server too; launches {counts} (the "
+                    f"engine-off server's whole-queue passes count under {kname}, the session's under "
+                    f"{kname}_checkpointed; the refusals' explanations under {kname})")
+                if counts[kname + "_checkpointed"] < 1 or counts[kname] < 1:
+                    raise SystemExit(f"{policy}: a kernel of the path was not launched: {counts}")
+                if pi == 0:
+                    # step 3: the session's warm-captured decisions, persisted
+                    # and replayed through the kernel and the plain version
+                    path = on.scheduler.provenance.recorder.persist("delta-phase", "warm captures")
+                    with open(path) as fh:
+                        bundles = [b for b in (json.loads(line) for line in fh if line.strip())
+                                   if not b.get("header")]
+                    replay_ms, resumes = [], []
+                    for bundle in bundles:
+                        if bundle["lane"] != SESSION_LANE:
+                            raise SystemExit(f"bundle {bundle['seq']} captured on lane {bundle['lane']!r}")
+                        t = time.perf_counter()
+                        result = replay_bundle(bundle, device="cuda")
+                        replay_ms.append((time.perf_counter() - t) * 1e3)
+                        resumes.append(bundle["verdicts"]["resume"])
+                        if not result["ok"] or result["lanes"] != {"cuda": "ok", "torch": "ok"}:
+                            raise SystemExit(f"warm-captured bundle {bundle['seq']} replay: {result}")
+                    if not any(resumes):
+                        raise SystemExit(f"no replayed bundle was captured warm: resumes {resumes}")
+                    log(f"phase delta: {len(bundles)} decisions captured on lane {SESSION_LANE} (resumed at "
+                        f"{resumes}) persisted and replayed cold through the cuda kernel and the plain version, "
+                        f"equal to their recorded verdicts; {statistics.median(replay_ms):.1f} ms a bundle with "
+                        f"both lanes | {smi}")
+            finally:
+                for server in servers.values():
+                    server.stop()
+    finally:
+        logging.disable(logging.NOTSET)
+    return launches
+
+
+def session_stream(problem, n_earlier: int, smi: str) -> None:
+    """Phase delta, step 3 at the library layer: one FifoSession on the
+    card and one on the CPU fed the same stream of queues from the main
+    path's snapshot (a whole queue, an identical resubmit, arrivals, one
+    app changed mid-queue, the head popped, a cut), every step equal on
+    both, resume positions included, and equal to the stateless pass."""
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_session import FifoSession, solve_packed_cold
+
+    rows = np.zeros((problem.driver.shape[0], 8), np.int32)
+    rows[:, 0:3], rows[:, 3:6], rows[:, 6], rows[:, 7] = (problem.driver, problem.executor, problem.count,
+                                                          problem.app_valid)
+    queue = rows[:n_earlier]
+    changed = queue.copy()
+    changed[n_earlier // 2] = queue[7]
+    first = 9 * n_earlier // 10
+    stream = [("whole queue", queue[:first]), ("identical resubmit", queue[:first]), ("arrivals", queue),
+              ("one app changed mid-queue", changed), ("head popped", changed[1:]),
+              ("cut", changed[1: 3 * n_earlier // 10])]
+    card, host = FifoSession(device="cuda"), FifoSession(device="cpu")
+    for s in (card, host):
+        s.load(problem.avail, problem.driver_rank, problem.exec_ok, 0, stride=DELTA_STRIDE)
+    steps = []
+    for what, q in stream:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = card.solve(q)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        want = host.solve(q)
+        cold = solve_packed_cold(0, card.basis, card.driver_rank, card.exec_ok, q, device="cuda")
+        if got[0] != want[0] or not (np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+                                     and torch.equal(got[3].cpu(), want[3])):
+            raise SystemExit(f"session stream, {what}: the card's session differs from the cpu session")
+        if not (np.array_equal(got[1], cold[0]) and np.array_equal(got[2], cold[1]) and torch.equal(got[3], cold[2])):
+            raise SystemExit(f"session stream, {what}: the session differs from the stateless pass")
+        steps.append(f"{what} ({len(q)} apps): resume {got[0]}, {ms:.3f} ms")
+    log(f"phase delta: session stream at the library layer (tightly-pack, {problem.avail.shape[0]} nodes, "
+        f"stride {DELTA_STRIDE}), equal on cuda and cpu and to the stateless pass: " + "; ".join(steps)
+        + f"; {card.checkpoints()} live checkpoints, {card.mem_bytes()} bytes | {smi}")
+
+
 def serde_rr(rr) -> dict:
     from k8s_spark_scheduler_tpu_torch.types import serde
 
@@ -1393,39 +1775,76 @@ def build_snapshot(seed: int):
     return metadata, apps[:N_APPS], skip, apps[N_APPS:]
 
 
+# each kernel library's launch function, timed by traced_device_time
+LAUNCH_FUNCTIONS = {"queue": "fifo_queue_launch", "min_frag": "fifo_queue_min_frag_launch",
+                    "single_az": "fifo_queue_single_az_launch"}
+
+
 def traced_device_time(fn):
-    """Run fn once under torch.profiler: (device busy ms as the union of
-    the trace's device intervals, or None if it holds none; host-clock ms
-    of the call, profiler overhead included)."""
+    """Run fn once under torch.profiler: (device busy ms, host-clock ms of
+    the call with the profiler's overhead, the port's kernel launches in
+    the call, those of them the trace holds), or busy None when the call
+    left no device work.  The busy time is the union of the trace's device
+    intervals other than the port's kernels, plus each launch of the
+    port's kernels timed by CUDA events recorded around it on its stream:
+    a trace of a server's Filter does not always hold the kernel the
+    Filter launched through its ctypes library (PERF.md section 7)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.ops import single_az_kernel as sk
+
+    launches = []
+    patched = []
+    for module, kind in ((qk, "queue"), (mk, "min_frag"), (sk, "single_az")):
+        lib = module.LIBRARY.load()
+        name = LAUNCH_FUNCTIONS[kind]
+        launch = getattr(lib, name)
+
+        def timed_launch(*a, _launch=launch):
+            stream = torch.cuda.current_stream()
+            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            begin.record(stream)
+            err = _launch(*a)
+            end.record(stream)
+            launches.append((begin, end))
+            return err
+
+        setattr(lib, name, timed_launch)
+        patched.append((lib, name, launch))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == DeviceType.CUDA
-    )
-    if not spans:
-        return None, wall_ms
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for lib, name, launch in patched:
+            setattr(lib, name, launch)
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = sum("fifo_queue" in e.name for e in device_events)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events if "fifo_queue" not in e.name)
+    kernel_ms = sum(begin.elapsed_time(end) for begin, end in launches)
+    if not spans and not launches:
+        return None, wall_ms, 0, 0
     busy_us, end = 0.0, float("-inf")
     for lo, hi in spans:
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
-    return busy_us / 1e3, wall_ms
+    return busy_us / 1e3 + kernel_ms, wall_ms, len(launches), seen
 
 
 def busy_share(fn) -> str:
-    busy_ms, wall_ms = traced_device_time(fn)
+    busy_ms, wall_ms, n_launches, seen = traced_device_time(fn)
     if busy_ms is None:
-        return "not measured (no device events in the trace)"
-    return f"device busy {busy_ms:.3f} ms of {wall_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.2f} %"
+        return "not measured (no device work in the call)"
+    return (f"device busy {busy_ms:.3f} ms of {wall_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.2f} % "
+            f"({n_launches} kernel launches of the port, timed by events; the profiler's trace holds "
+            f"{seen} of them)")
 
 
 def outcome_key(o):
@@ -1596,6 +2015,8 @@ def main() -> int:
     # ---- phase 3: kernel vs plain on the card
     max_err = {"fifo_queue_tightly": 0, "fifo_queue_evenly": 0, "fifo_queue_min_frag": 0}
     max_err.update({kname: 0 for kname in SINGLE_AZ})
+    max_err.update({kname + "_checkpointed": 0 for kname in ("fifo_queue_tightly", "fifo_queue_evenly",
+                                                             "fifo_queue_min_frag")})
 
     def check(kname, got, want, where):
         torch.cuda.synchronize()
@@ -1664,6 +2085,29 @@ def main() -> int:
                   mk.queue_min_frag_plain(*arrays, probe=probe), f"probes and usage, N={n} A={a}")
         log(f"phase kernel-vs-plain: queue{' and min-frag' if n <= 12345 else ''} kernels with probe "
             f"flags and the usage output, N={n} A={a} equal")
+    # the delta-solve session's checkpointed launches: the carry before
+    # every stride-th queue position into a [K, N, 3] buffer, from a queue
+    # position chk_base on (queue and min-frag kernels; the queue kernel
+    # also with its node planes in global scratch), slots past K skipped
+    for ci, (n, a, stride, chk_base, slots) in enumerate([(7, 20, 3, 0, 6), (129, 64, 7, 13, 10),
+                                                          (3000, 200, 16, 0, 8), (100000, 40, 8, 5, 5)]):
+        arrays = on(dev, random_queue(np.random.RandomState(args.seed * 1000 + 970 + ci), n, a))
+        chk_args = dict(chk_base=chk_base, chk_stride=stride)
+        blank = torch.full((slots, n, 3), -7, dtype=torch.int32, device=dev)
+        variants = [(kname, lambda c, evenly=evenly: qk.fifo_queue(*arrays, evenly=evenly, chk_out=c, **chk_args),
+                     lambda c, evenly=evenly: qk.solve_queue_plain(*arrays, evenly=evenly, chk_out=c, **chk_args))
+                    for evenly, kname in ((False, "fifo_queue_tightly"), (True, "fifo_queue_evenly"))]
+        if n <= 12345:
+            variants.append(("fifo_queue_min_frag",
+                             lambda c: mk.fifo_queue_min_frag(*arrays, chk_out=c, **chk_args),
+                             lambda c: mk.solve_queue_min_frag_plain(*arrays, chk_out=c, **chk_args)))
+        for kname, kernel, plain in variants:
+            got_chk, want_chk = blank.clone(), blank.clone()
+            check(kname + "_checkpointed", kernel(got_chk) + (got_chk,), plain(want_chk) + (want_chk,),
+                  f"checkpoints N={n} A={a} stride={stride} base={chk_base} slots={slots}")
+        log(f"phase kernel-vs-plain: checkpointed launches of the queue{' and min-frag' if n <= 12345 else ''} "
+            f"kernels, N={n} A={a} stride {stride} from position {chk_base} into {slots} slots, outputs and "
+            f"checkpoints equal")
     # 200 and 150 zones: many zones a block; one zone over 12,345 nodes:
     # that block's node planes in global memory; 4,000 zones: the zone
     # table in global memory
@@ -1849,6 +2293,11 @@ def main() -> int:
     log(f"phase main-path: fifo_queue_min_frag explainer launch, {ex_args[3].shape[0]} apps: "
         f"{statistics.median(ms):.3f} ms (equal to the plain version over the first 256 earlier apps) | {smi}")
 
+    # phase delta, steps 1 and 3: the checkpointed launches at these
+    # inputs, and a session stream at the library layer
+    delta_timing = delta_kernels(queue_args, n_valid, queue_bytes, check, smi)
+    session_stream(problem, len(earlier), smi)
+
     zones, zone_masks = candidate_zone_masks(driver_order, executor_order, metadata, cluster.node_names, n_b)
     inputs = single_az_queue_inputs(cluster, problem, zone_masks, len(zones), len(earlier))
     if inputs is None:
@@ -1917,7 +2366,7 @@ def main() -> int:
 
     # ---- phase 5: the Filter server on the card
     t = time.perf_counter()
-    server_phase(args.seed, smi)
+    server_launches = server_phase(args.seed, smi)
     log(f"phase server: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
@@ -1933,7 +2382,22 @@ def main() -> int:
     log(f"phase resilience: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 8: results
+    # ---- phase delta: the delta-solve engine on against off through the server
+    t = time.perf_counter()
+    # the checkpointed launches of the main path: phase delta's engine-on
+    # servers (tightly-pack, min-frag), phase 5's (distribute-evenly)
+    delta_launches = {**server_launches, **delta_phase(args.seed, smi)}
+    for kname, (ms, plain_ms, t_bytes, t_ops) in delta_timing.items():
+        kind = "min_frag" if kname.startswith("fifo_queue_min_frag") else "queue"
+        kernels.append(kernel_entry(kname, kind, delta_launches.get(kname, 0), max_err[kname], ms, plain_ms,
+                                    t_bytes, t_ops))
+    missing = [kname for kname in delta_timing if delta_launches.get(kname, 0) < 1]
+    if missing:
+        raise SystemExit(f"phase delta: {missing} not launched on the engine-on servers' path")
+    log(f"phase delta: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 9: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,12 +10,12 @@ enables one raises ``ValueError`` naming the ROADMAP item, a key that
 leaves it off is accepted, and an unknown key raises too — no key is
 dropped without a word.  A config that omits a key gets the reference's
 default, and several of those defaults turn a subsystem ON in the
-reference (``delta-solve`` defaults to true, capacity, contention,
-lifecycle and classes default to enabled): ``Install.reference_only``
-names each such subsystem, and the server logs one warning for each at
-start.  Resilience (always on, as in the reference) and provenance (on
-by default) are this package's own: their sections load with the
-reference's keys and defaults.
+reference (capacity, contention and lifecycle default to enabled):
+``Install.reference_only`` names each such subsystem, and the server
+logs one warning for each at start.  Resilience (always on, as in the
+reference), provenance (on by default), delta-solve (default true) and
+class aggregation (``classes``, enabled by default) are this package's
+own: they load with the reference's keys and defaults.
 """
 
 from __future__ import annotations
@@ -126,9 +126,9 @@ class ProvenanceConfig:
     ``bundle_dir`` (or the ``SCHED_PROVENANCE_DIR`` env var) is where
     trigger-fired flight-recorder bundles persist; None keeps the
     bundle ring in memory only.  ``parity_check_interval`` is the
-    reference's warm≠cold delta-solve guard: it loads and checks
-    nothing until this package has the delta-solve engine (ROADMAP
-    A.3)."""
+    warm≠cold delta-solve guard: every Nth warm hit re-solves the queue
+    with the stateless cold pass and fires the flight recorder on a
+    divergence (0 = off)."""
 
     enabled: bool = True
     ring_size: int = 128
@@ -152,6 +152,32 @@ class ProvenanceConfig:
             max_bundle_nodes=d.get("max-bundle-nodes", 4096),
             parity_check_interval=d.get("parity-check-interval", 0),
             trigger_min_interval_seconds=d.get("trigger-min-interval-seconds", 30.0),
+        )
+
+
+_CLASSES_KEYS = {"enabled", "min-nodes"}
+
+
+@dataclass
+class ClassesConfig:
+    """Equivalence-class node aggregation (state/classindex.py): the
+    O(1) class-digest warm tier of the delta-solve engine.
+
+    Decisions are byte-identical enabled or disabled, so ``enabled`` is
+    an operator kill switch, not a semantics switch.  ``min_nodes`` is
+    where the reference starts class-compressed stepping; this package
+    steps node by node at every size (ROADMAP A.3b) and logs one warning
+    when a session reaches it."""
+
+    enabled: bool = True
+    min_nodes: int = 20000
+
+    @staticmethod
+    def from_dict(d: dict) -> "ClassesConfig":
+        _check_keys(d, _CLASSES_KEYS, "classes")
+        return ClassesConfig(
+            enabled=d.get("enabled", True),
+            min_nodes=d.get("min-nodes", 20000),
         )
 
 
@@ -180,15 +206,12 @@ _UNPORTED_SECTIONS = {
     "ha": (False, "ROADMAP A.6.6 (HA failover)"),
     "lifecycle": (True, "ROADMAP A.6.4 (lifecycle ledger and SLO engine)"),
     "concurrent": (False, "ROADMAP A.4 (concurrent admission)"),
-    "classes": (True, "ROADMAP A.3 (equivalence-class aggregation)"),
 }
-_DELTA_SOLVE_ITEM = "ROADMAP A.3 (delta-solve)"
 # what the reference runs on a config that omits every key and this
-# package lacks: delta-solve (default true) and each unported section
-# enabled by default — (subsystem, ROADMAP item) pairs
-REFERENCE_DEFAULT_ONLY: Tuple[Tuple[str, str], ...] = (
-    ("delta-solve", _DELTA_SOLVE_ITEM),
-    *((key, item) for key, (default_on, item) in _UNPORTED_SECTIONS.items() if default_on),
+# package lacks: each unported section enabled by default —
+# (subsystem, ROADMAP item) pairs
+REFERENCE_DEFAULT_ONLY: Tuple[Tuple[str, str], ...] = tuple(
+    (key, item) for key, (default_on, item) in _UNPORTED_SECTIONS.items() if default_on
 )
 
 _KNOWN_KEYS = {
@@ -209,6 +232,7 @@ _KNOWN_KEYS = {
     "delta-solve",
     "resilience",
     "provenance",
+    "classes",
     *_UNPORTED_SECTIONS,
 }
 _FIFO_KEYS = {"default-enforce-after-pod-age-seconds", "enforce-after-pod-age-by-instance-group"}
@@ -236,8 +260,6 @@ def _refuse_unported(d: dict) -> None:
                 f"install key {key!r} turns on a subsystem this package does not have: {item}; "
                 f'set "{key}": {{"enabled": false}} or leave the key out'
             )
-    if d.get("delta-solve", False):
-        raise ValueError(f"install key 'delta-solve' is true, and this package has no {_DELTA_SOLVE_ITEM}")
 
 
 def _reference_only(d: dict) -> Tuple[Tuple[str, str], ...]:
@@ -271,20 +293,19 @@ class Install:
     # replicate the reference's accidental-but-load-bearing behaviors
     # (see compat.py for the list); off = corrected semantics
     strict_reference_parity: bool = compat.DEFAULT_STRICT
-    # the incremental delta-solve engine is not in this package yet
-    # (ROADMAP A.3): only False is accepted
-    delta_solve: bool = False
+    # incremental delta-solve engine (ops/deltasolve.py): device-resident
+    # solver sessions + prefix-feasibility reuse; on by default, as in
+    # the reference (decisions are identical on or off)
+    delta_solve: bool = True
     # overload protection (no switch: always on, as in the reference)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     provenance: ProvenanceConfig = field(default_factory=ProvenanceConfig)
+    # class-digest warm tier (state/classindex.py, ops/deltasolve.py)
+    classes: ClassesConfig = field(default_factory=ClassesConfig)
     # subsystems the reference would run on this config and this package
     # lacks, as (subsystem, ROADMAP item); from_dict derives it from the
     # keys given, a directly built Install has the reference's defaults
     reference_only: Tuple[Tuple[str, str], ...] = REFERENCE_DEFAULT_ONLY
-
-    def __post_init__(self):
-        if self.delta_solve:
-            raise ValueError(f"delta_solve=True needs {_DELTA_SOLVE_ITEM}, not in this package")
 
     @staticmethod
     def from_dict(d: dict) -> "Install":
@@ -342,8 +363,9 @@ class Install:
                 else None
             ),
             strict_reference_parity=d.get("strict-reference-parity", compat.DEFAULT_STRICT),
-            delta_solve=d.get("delta-solve", False),
+            delta_solve=d.get("delta-solve", True),
             resilience=ResilienceConfig.from_dict(d.get("resilience") or {}),
             provenance=ProvenanceConfig.from_dict(d.get("provenance") or {}),
+            classes=ClassesConfig.from_dict(d.get("classes") or {}),
             reference_only=_reference_only(d),
         )

@@ -129,6 +129,29 @@ PROVENANCE_PARITY_CHECKS = (
     "foundry.spark.scheduler.tpu.provenance.parity.check.count"
 )
 
+# delta-solve engine (ops/deltasolve.py): device-resident solver
+# sessions + prefix-feasibility reuse for the earlier-drivers-fit loop
+DELTASOLVE_WARM_HITS = "foundry.spark.scheduler.tpu.deltasolve.warm.hit.count"
+DELTASOLVE_WARM_MISSES = "foundry.spark.scheduler.tpu.deltasolve.warm.miss.count"
+DELTASOLVE_RESUME_DEPTH = "foundry.spark.scheduler.tpu.deltasolve.resume.depth"
+DELTASOLVE_SESSIONS = "foundry.spark.scheduler.tpu.deltasolve.sessions"
+DELTASOLVE_SESSION_BYTES = "foundry.spark.scheduler.tpu.deltasolve.session.bytes"
+
+# equivalence-class aggregation (state/classindex.py): fleet shape
+# diversity and compression health (the reference's names; this package
+# has no class-compressed stepping yet, ROADMAP A.3b)
+# distinct node equivalence classes in the mirror (gauge)
+CLASSES_COUNT = "foundry.spark.scheduler.tpu.classes.count"
+# nodes per class
+CLASSES_COMPRESSION_RATIO = (
+    "foundry.spark.scheduler.tpu.classes.compression.ratio"
+)
+# session partition rebuilds (the reference's native class mode)
+CLASSES_REBUILD_COUNT = "foundry.spark.scheduler.tpu.classes.rebuild.count"
+# bind-time expansion latency: class placements → concrete node rows
+# (milliseconds; histogram)
+CLASSES_EXPAND_MS = "foundry.spark.scheduler.tpu.classes.expand.ms"
+
 TAG_INSTANCE_GROUP = "instance-group"
 TAG_HOST = "nodename"
 TAG_LIFECYCLE = "lifecycle"

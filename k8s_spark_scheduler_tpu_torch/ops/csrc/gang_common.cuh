@@ -506,6 +506,37 @@ struct Identity {
   __device__ __forceinline__ int operator()(int i) const { return i; }
 };
 
+// Checkpoints of the carried planes for the delta-solve session
+// (ops/fifo_session.py, the counterpart of the reference's native
+// FifoSession): before the app at queue position p = base + a (a the
+// launch's local app), whenever p > 0 and p % stride == 0, the planes go to
+// slot p / stride - 1 of `out` ([slots, n, 3] int32, the layout of the
+// session's checkpoint buffer: slot j holds the planes before position
+// (j + 1) * stride).  A slot past `slots` is never written; `out` null
+// writes nothing.
+struct Checkpoints {
+  int* out;
+  int base;
+  int stride;
+  int slots;
+};
+
+// The checkpoint due before local app a, if any: every thread of every
+// block of the cluster calls it at the same a (a uniform condition), and
+// each block stores its own segment.  store_avail's barrier orders the
+// previous app's in-place subtraction before the store; the next write of
+// the planes comes after the next app's first exchange, whose block barrier
+// every thread reaches only after its part of the store.
+template <int kThreads>
+__device__ __forceinline__ void store_checkpoint(const Nodes& s, const Checkpoints& c, int a) {
+  if (c.out == nullptr) return;
+  const int p = c.base + a;
+  if (p <= 0 || p % c.stride != 0) return;
+  const int slot = p / c.stride - 1;
+  if (slot >= c.slots) return;
+  store_avail<kThreads>(s, Identity{}, c.out + static_cast<size_t>(slot) * 3 * s.n);
+}
+
 struct App {
   int dc, dm, dg;  // driver
   int ec, em, eg;  // executor

@@ -13,7 +13,9 @@
 // real capacity reaches the unbounded sentinel.  The optional probe flags
 // and usage output are the queue kernel's (queue_kernel.cu): a probed app
 // gets its verdict and subtracts nothing, and usage[a] is 2 x the nodes
-// given executors + 1 when the driver's node got none.
+// given executors + 1 when the driver's node got none.  The checkpoint
+// buffer is the queue kernel's too: the delta-solve session's carries, one
+// store of each block's segment before every chk_stride-th queue position.
 //
 // Bound.  The apps depend on each other through the carry, so the kernel
 // is a serial chain of per-app steps; each step is a few walks over a
@@ -59,7 +61,8 @@ fifo_queue_min_frag_kernel(const int* __restrict__ avail_in,    // [N, 3]
                            int* __restrict__ usage_out,         // [A], zeroed, or null
                            int* __restrict__ avail_out,         // [N, 3]
                            int* __restrict__ scratch,           // [4N] when not in shared memory
-                           int in_shared) {
+                           int in_shared,
+                           Checkpoints chk) {                   // the session's checkpoints, or out null
   extern __shared__ int4 smem_raw[];
   __shared__ typename ClusterRed<kThreads>::Storage red_storage;
   ClusterRed<kThreads> red(&red_storage);
@@ -76,6 +79,7 @@ fifo_queue_min_frag_kernel(const int* __restrict__ avail_in,    // [N, 3]
   const auto node = [&](int i) { return s.base + i; };
 
   for (int a = 0; a < n_apps; ++a) {
+    store_checkpoint<kThreads>(s, chk, a);
     if (!valid[a]) {  // uniform across the cluster
       if (writer) {
         feasible_out[a] = 0;
@@ -108,16 +112,20 @@ SharedLimit g_limit;
 
 // Launches the kernel on `stream` on the current device as one cluster of 8
 // blocks; `scratch` is [4N] int32; `probe` ([A] bytes) and `usage_out` ([A]
-// int32, zeroed by the caller) may each be null.  Returns the CUDA error
-// code (0 = ok); a refused launch returns its error and nothing runs.
+// int32, zeroed by the caller) may each be null; `chk_out` ([chk_slots, N,
+// 3] int32, or null) gets the checkpoints of queue_kernel.cu's launch.
+// Returns the CUDA error code (0 = ok); a refused launch returns its error
+// and nothing runs.
 extern "C" int fifo_queue_min_frag_launch(const int* avail, const int* rank,
                                           const uint8_t* exec_ok, const int* drivers,
                                           const int* executors, const int* counts,
                                           const uint8_t* valid, const uint8_t* probe, int n,
                                           int n_apps, uint8_t* feasible_out,
                                           int* driver_idx_out, int* usage_out, int* avail_out,
-                                          int* scratch, void* stream) {
+                                          int* scratch, int chk_base, int chk_stride,
+                                          int chk_slots, int* chk_out, void* stream) {
   if (scratch == nullptr && n > 0) return cudaErrorInvalidValue;
+  if (chk_out != nullptr && (chk_stride <= 0 || chk_base < 0)) return cudaErrorInvalidValue;
   long long limit = 0;
   cudaError_t err = g_limit.get(reinterpret_cast<const void*>(kKernel), &limit);
   if (err != cudaSuccess) return err;
@@ -125,5 +133,6 @@ extern "C" int fifo_queue_min_frag_launch(const int* avail, const int* rank,
   const long long smem = n > 0 && bytes <= limit ? bytes : 0;
   return launch_cluster(kKernel, kBlocks, kThreads, smem, stream, avail, rank, exec_ok, drivers,
                         executors, counts, valid, probe, n, n_apps, feasible_out, driver_idx_out,
-                        usage_out, avail_out, scratch, smem > 0 ? 1 : 0);
+                        usage_out, avail_out, scratch, smem > 0 ? 1 : 0,
+                        Checkpoints{chk_out, chk_base, chk_stride, chk_slots});
 }

@@ -27,6 +27,15 @@
 // none; 0 for an app that subtracted nothing) from which the explainer
 // reads what each earlier gang took.  The Filter passes neither.
 //
+// One more optional argument serves the delta-solve session
+// (ops/fifo_session.py, the reference's native FifoSession on the card): a
+// checkpoint buffer that gets the carried planes before every app whose
+// queue position (chk_base + the launch's local app) is a positive multiple
+// of chk_stride, so one launch both solves a queue or its suffix and leaves
+// the carries a later launch resumes from (gang_common.cuh: Checkpoints).
+// A checkpoint is one store of each block's segment between two apps, at
+// every chk_stride-th app only.
+//
 // Bound.  The apps depend on each other through the carry, so the kernel
 // is a chain of per-app steps, each a few walks over a thread's nodes and
 // reductions across the threads that hold them; the bytes are tiny and
@@ -170,7 +179,8 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
                   int* __restrict__ usage_out,          // [A], zeroed, or null
                   int* __restrict__ avail_out,          // [N, 3]
                   int* __restrict__ scratch,            // [4N] when not in shared memory
-                  int in_shared) {
+                  int in_shared,
+                  Checkpoints chk) {                    // the session's checkpoints, or out null
   extern __shared__ int4 smem_raw[];
   __shared__ Red::Storage red_storage;
   __shared__ QueueApp tile[kTile];
@@ -186,6 +196,7 @@ fifo_queue_kernel(const int* __restrict__ avail_in,     // [N, 3]
   const bool writer = red.rank == 0 && threadIdx.x == 0;
 
   for (int a = 0; a < n_apps; ++a) {
+    store_checkpoint<kThreads>(s, chk, a);
     const int t = a % kTile;
     if (t == 0) {  // uniform: every thread is past the previous tile's last app
       __syncthreads();
@@ -352,19 +363,25 @@ extern "C" long long fifo_queue_shared_bytes(int n, long long* static_bytes) {
 // Launches the queue kernel on `stream` on the current device as one
 // cluster; `scratch` ([4N] int32) is needed only when
 // fifo_queue_shared_bytes(n) is 0.  `probe` ([A] bytes) and `usage_out`
-// ([A] int32, zeroed by the caller) may each be null.  Returns the CUDA
-// error code (0 = ok); a refused launch returns its error and nothing
-// runs.
+// ([A] int32, zeroed by the caller) may each be null.  `chk_out`
+// ([chk_slots, N, 3] int32, or null for none) gets the carried planes
+// before each app at a queue position p = chk_base + a with p > 0 and
+// p % chk_stride == 0, in slot p / chk_stride - 1 (gang_common.cuh:
+// Checkpoints).  Returns the CUDA error code (0 = ok); a refused launch
+// returns its error and nothing runs.
 extern "C" int fifo_queue_launch(const int* avail, const int* rank, const uint8_t* exec_ok,
                                  const int* drivers, const int* executors, const int* counts,
                                  const uint8_t* valid, const uint8_t* probe, int n, int n_apps,
                                  int evenly, uint8_t* feasible_out, int* driver_idx_out,
-                                 int* usage_out, int* avail_out, int* scratch, void* stream) {
+                                 int* usage_out, int* avail_out, int* scratch, int chk_base,
+                                 int chk_stride, int chk_slots, int* chk_out, void* stream) {
   const long long smem = evenly ? segment_bytes<true>(n) : segment_bytes<false>(n);
   if (smem < 0) return static_cast<int>(-smem);
   if (smem == 0 && scratch == nullptr && n > 0) return cudaErrorInvalidValue;
+  if (chk_out != nullptr && (chk_stride <= 0 || chk_base < 0)) return cudaErrorInvalidValue;
   const auto kernel = evenly ? fifo_queue_kernel<true> : fifo_queue_kernel<false>;
   return launch_cluster(kernel, kBlocks, kThreads, smem, stream, avail, rank, exec_ok, drivers,
                         executors, counts, valid, probe, n, n_apps, feasible_out, driver_idx_out,
-                        usage_out, avail_out, scratch, smem > 0 ? 1 : 0);
+                        usage_out, avail_out, scratch, smem > 0 ? 1 : 0,
+                        Checkpoints{chk_out, chk_base, chk_stride, chk_slots});
 }

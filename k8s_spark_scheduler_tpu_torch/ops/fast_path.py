@@ -217,11 +217,14 @@ def _compute_prep(snap, driver_pod, candidate_names, dlp, elp) -> _BuildPrep:
     )
 
 
-def _build_prep(snap, driver_pod, candidate_names, dlp, elp) -> _BuildPrep:
-    """The avail-independent prework, cached under its exact key —
-    (structure revision, affinity signature, candidate tuple,
-    label-priority signatures); an uncacheable affinity shape is
-    computed afresh."""
+def build_prep_keyed(snap, driver_pod, candidate_names, dlp, elp):
+    """(prep, key): the avail-independent prework plus the exact cache
+    key it lives under — (structure revision, affinity signature,
+    candidate tuple, label-priority signatures) — or key=None when the
+    affinity shape is uncacheable (the prework is then computed afresh).
+    The delta-solve engine keys its solver sessions by the same
+    identity, so a session can only ever be consulted for the
+    cluster/candidate shape it was built for."""
     from ..tracing import add_tag
 
     aff = _single_in_sig(driver_pod)
@@ -241,7 +244,7 @@ def _build_prep(snap, driver_pod, candidate_names, dlp, elp) -> _BuildPrep:
             if hit is not None:
                 _PREP_CACHE.move_to_end(key)
                 add_tag("prepCache", "hit")
-                return hit
+                return hit, key
     # a miss at 10k nodes is ~20ms of the request — worth seeing on the
     # span when hunting a latency outlier
     add_tag("prepCache", "miss" if key is not None else "uncacheable")
@@ -251,7 +254,11 @@ def _build_prep(snap, driver_pod, candidate_names, dlp, elp) -> _BuildPrep:
             _PREP_CACHE[key] = prep
             while len(_PREP_CACHE) > _PREP_CACHE_MAX:
                 _PREP_CACHE.popitem(last=False)
-    return prep
+    return prep, key
+
+
+def _build_prep(snap, driver_pod, candidate_names, dlp, elp) -> _BuildPrep:
+    return build_prep_keyed(snap, driver_pod, candidate_names, dlp, elp)[0]
 
 
 def build_cluster_tensor(

@@ -11,13 +11,15 @@ fallback from the kernel to the plain version: a refused cluster launch
 raises.  The caller guards
 ``batch_solver.mf_sentinel_safe``: no real capacity may reach ``MF_SENT``.
 ``fifo_queue_min_frag_explain`` launches the same kernel with the probe
-flags and usage output of ``queue_kernel.fifo_queue_explain``.
+flags and usage output of ``queue_kernel.fifo_queue_explain``, and
+``fifo_queue_min_frag`` takes the checkpoint arguments of
+``queue_kernel.fifo_queue`` for the delta-solve session.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,24 +29,27 @@ from .queue_kernel import (
     BIG,
     app_usage,
     apply_flags,
+    check_checkpoints,
     check_queue_args,
     gang_core_plain,
     last_axis_min,
     stack_outputs,
     subtract_usage_plain,
+    write_checkpoint,
 )
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fifo_queue_min_frag_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p, p, p]
+    lib.fifo_queue_min_frag_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p, p, i, i, i, p, p]
     lib.fifo_queue_min_frag_launch.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("minfrag_kernel.cu", _declare)
 
 # kernel launches, counted by fifo_queue_min_frag where it launches
-launch_counts = {"fifo_queue_min_frag": 0}
+# (a launch that writes checkpoints counts under its own name)
+launch_counts = {"fifo_queue_min_frag": 0, "fifo_queue_min_frag_checkpointed": 0}
 
 
 def reset_launch_counts() -> None:
@@ -168,18 +173,26 @@ def solve_queue_min_frag_plain(
     executors: torch.Tensor,    # [A, 3] int32
     counts: torch.Tensor,       # [A] int32
     app_valid: torch.Tensor,    # [A] bool
+    chk_base: int = 0,
+    chk_stride: int = 0,
+    chk_out: Optional[torch.Tensor] = None,  # [K, N, 3] int32, filled in place
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch ops, app by app, as the
     Pallas kernel formulates it (both drain passes run; truncating
     division): (feasible [A] bool, driver_idx [A] int32 (N if
-    infeasible), avail_after [N, 3] int32)."""
+    infeasible), avail_after [N, 3] int32), and the checkpoints into
+    chk_out as the kernel writes them (queue_kernel.write_checkpoint)."""
     feasible, idx, _, carry = queue_min_frag_plain(
-        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid
+        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid,
+        chk_base=chk_base, chk_stride=chk_stride, chk_out=chk_out,
     )
     return feasible, idx, carry
 
 
-def queue_min_frag_plain(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe=None):
+def queue_min_frag_plain(
+    avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe=None,
+    chk_base=0, chk_stride=0, chk_out=None,
+):
     """solve_queue_min_frag_plain with the kernel's optional probe flags
     ([A] bool or None): (feasible, driver_idx, usage [A] int32,
     avail_after)."""
@@ -187,6 +200,7 @@ def queue_min_frag_plain(avail, driver_rank, exec_ok, drivers, executors, counts
     carry = avail.to(torch.int32).clone()
     feasible_out, idx_out, usage_out = [], [], []
     for a in range(drivers.shape[0]):
+        write_checkpoint(chk_out, chk_base, chk_stride, a, carry)
         dr, ex = drivers[a], executors[a]
         feasible, flat_idx, is_driver, x = min_frag_plain(
             carry[:, 0], carry[:, 1], carry[:, 2], driver_rank, exec_ok, dr, ex, counts[a]
@@ -209,15 +223,24 @@ def fifo_queue_min_frag(
     executors: torch.Tensor,
     counts: torch.Tensor,
     app_valid: torch.Tensor,
+    chk_base: int = 0,
+    chk_stride: int = 0,
+    chk_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-queue min-frag gang solve: (feasible [A] bool, driver_idx [A]
     int32, avail_after [N, 3] int32).  CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream (no
-    synchronisation) as one cluster of CLUSTER_BLOCKS blocks."""
+    synchronisation) as one cluster of CLUSTER_BLOCKS blocks.  chk_*:
+    the checkpoints of queue_kernel.fifo_queue."""
+    check_checkpoints(chk_out, chk_base, chk_stride, avail.shape[0], avail.device)
     if avail.device.type == "cpu":
-        return solve_queue_min_frag_plain(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid)
+        return solve_queue_min_frag_plain(
+            avail, driver_rank, exec_ok, drivers, executors, counts, app_valid,
+            chk_base=chk_base, chk_stride=chk_stride, chk_out=chk_out,
+        )
     feasible, driver_idx, _, avail_after = _launch(
-        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, None
+        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, None,
+        (chk_base, chk_stride, chk_out),
     )
     return feasible, driver_idx, avail_after
 
@@ -243,9 +266,11 @@ def fifo_queue_min_frag_explain(
     return _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe)
 
 
-def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe):
+def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, probe,
+            checkpoints=(0, 0, None)):
     """One launch of the kernel on a CUDA device; the usage output only
-    when probe flags are given."""
+    when probe flags are given; checkpoints = (chk_base, chk_stride,
+    chk_out or None), already checked."""
     device = avail.device
     if device.type != "cuda":
         raise ValueError(f"fifo_queue_min_frag runs on cpu or cuda tensors, not {device}")
@@ -259,6 +284,7 @@ def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, 
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
     # the node planes when a block's nodes do not fit in its shared memory
     scratch = torch.empty((4 * n,), dtype=torch.int32, device=device)
+    chk_base, chk_stride, chk_out = checkpoints
     with torch.cuda.device(device):
         err = lib.fifo_queue_min_frag_launch(
             avail.data_ptr(), driver_rank.data_ptr(), exec_ok.data_ptr(),
@@ -267,9 +293,11 @@ def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, 
             n, a,
             feasible.data_ptr(), driver_idx.data_ptr(),
             None if usage is None else usage.data_ptr(), avail_after.data_ptr(), scratch.data_ptr(),
+            chk_base, chk_stride, 0 if chk_out is None else chk_out.shape[0],
+            None if chk_out is None else chk_out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fifo_queue_min_frag kernel launch failed with CUDA error {err}")
-    launch_counts["fifo_queue_min_frag"] += 1
+    launch_counts["fifo_queue_min_frag_checkpointed" if chk_out is not None else "fifo_queue_min_frag"] += 1
     return feasible, driver_idx, usage, avail_after

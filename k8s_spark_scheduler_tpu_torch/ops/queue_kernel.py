@@ -16,7 +16,12 @@ else raises.  There is no fallback from the kernel to the plain version:
 a refused cluster launch raises.  ``fifo_queue_explain`` launches the
 same kernel with two extra arguments the refusal explainer needs
 (``ops/explain.py``): per-app probe flags (a probed app gets its verdict
-and subtracts nothing) and a per-app usage output.
+and subtracts nothing) and a per-app usage output.  The delta-solve
+session (``ops/fifo_session.py``) passes ``fifo_queue`` a checkpoint
+buffer: the same launch leaves the carried planes behind at every
+``chk_stride``-th queue position (``write_checkpoint``), and a later launch
+resumes from one of them with ``chk_base`` the queue position of its
+first app.
 
 The kernel is compiled from the package's sources at first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
@@ -26,7 +31,7 @@ loaded with ctypes, under ``<package>/_build`` (listed in .gitignore).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,7 +42,7 @@ BIG = 2**31 - 1
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fifo_queue_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p, p, p, p, p]
+    lib.fifo_queue_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p, p, p, p, i, i, i, p, p]
     lib.fifo_queue_launch.restype = ctypes.c_int
     lib.fifo_queue_shared_bytes.argtypes = [i, p]
     lib.fifo_queue_shared_bytes.restype = ctypes.c_longlong
@@ -48,7 +53,13 @@ def _declare(lib: ctypes.CDLL) -> None:
 LIBRARY = KernelLibrary("queue_kernel.cu", _declare)
 
 # kernel launches per variant, counted by fifo_queue where it launches
-launch_counts = {"fifo_queue_tightly": 0, "fifo_queue_evenly": 0}
+# (a launch that writes checkpoints counts under its own name)
+launch_counts = {
+    "fifo_queue_tightly": 0,
+    "fifo_queue_evenly": 0,
+    "fifo_queue_tightly_checkpointed": 0,
+    "fifo_queue_evenly_checkpointed": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -146,6 +157,28 @@ def apply_flags(feasible, probe, a):
     return feasible if probe is None else feasible & ~probe[a]
 
 
+def write_checkpoint(chk_out, chk_base: int, chk_stride: int, a: int, carry) -> None:
+    """The kernels' checkpoint store (csrc/gang_common.cuh: Checkpoints)
+    before local app `a`: the carry goes to slot p // chk_stride - 1 of
+    chk_out ([K, N, 3] int32) when p = chk_base + a is a positive
+    multiple of chk_stride and the slot is below K; chk_out None stores
+    nothing."""
+    if chk_out is None:
+        return
+    p = chk_base + a
+    if p > 0 and p % chk_stride == 0 and p // chk_stride - 1 < chk_out.shape[0]:
+        chk_out[p // chk_stride - 1] = carry
+
+
+def check_checkpoints(chk_out, chk_base: int, chk_stride: int, n: int, device) -> None:
+    """Raise unless chk_out is a checkpoint buffer the kernels take."""
+    if chk_out is None:
+        return
+    check_tensor(chk_out, "chk_out", torch.int32, (chk_out.shape[0], n, 3), device)
+    if chk_stride <= 0 or chk_base < 0:
+        raise ValueError(f"checkpoints need chk_stride > 0 and chk_base >= 0, not {chk_stride}, {chk_base}")
+
+
 def solve_queue_plain(
     avail: torch.Tensor,        # [N, 3] int32
     driver_rank: torch.Tensor,  # [N] int32 (BIG = not a driver candidate)
@@ -155,19 +188,27 @@ def solve_queue_plain(
     counts: torch.Tensor,       # [A] int32
     app_valid: torch.Tensor,    # [A] bool
     evenly: bool = False,
+    chk_base: int = 0,
+    chk_stride: int = 0,
+    chk_out: Optional[torch.Tensor] = None,  # [K, N, 3] int32, filled in place
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch ops, app by app:
     (feasible [A] bool, driver_idx [A] int32 (N if infeasible),
-    avail_after [N, 3] int32).  Follows the Pallas kernel's formulation
-    (truncating division, (rank, node) minimum) rather than
+    avail_after [N, 3] int32), and the checkpoints into chk_out as the
+    kernel writes them (write_checkpoint).  Follows the Pallas kernel's
+    formulation (truncating division, (rank, node) minimum) rather than
     batch_solver's, so the two are independent references."""
     feasible, idx, _, carry = queue_plain(
-        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=evenly
+        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=evenly,
+        chk_base=chk_base, chk_stride=chk_stride, chk_out=chk_out,
     )
     return feasible, idx, carry
 
 
-def queue_plain(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=False, probe=None):
+def queue_plain(
+    avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=False, probe=None,
+    chk_base=0, chk_stride=0, chk_out=None,
+):
     """solve_queue_plain with the kernel's optional arguments: `probe`
     ([A] bool or None) marks apps that get a verdict and subtract
     nothing.  Returns (feasible, driver_idx, usage [A] int32, avail_after)."""
@@ -175,6 +216,7 @@ def queue_plain(avail, driver_rank, exec_ok, drivers, executors, counts, app_val
     carry = avail.to(torch.int32).clone()
     feasible_out, idx_out, usage_out = [], [], []
     for a in range(drivers.shape[0]):
+        write_checkpoint(chk_out, chk_base, chk_stride, a, carry)
         dr, ex, k = drivers[a], executors[a], counts[a]
         feasible, flat_idx, is_driver, cap = gang_core_plain(
             carry[:, 0], carry[:, 1], carry[:, 2], driver_rank, exec_ok, dr, ex, k
@@ -218,17 +260,27 @@ def fifo_queue(
     counts: torch.Tensor,
     app_valid: torch.Tensor,
     evenly: bool = False,
+    chk_base: int = 0,
+    chk_stride: int = 0,
+    chk_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-queue gang solve: (feasible [A] bool, driver_idx [A] int32,
     avail_after [N, 3] int32).  CPU tensors take the plain version; CUDA
     tensors launch the kernel on the current stream (no synchronisation)
-    as one thread-block cluster."""
+    as one thread-block cluster.  With chk_out ([K, N, 3] int32 on the
+    same device) the launch also writes the carried planes before every
+    app whose queue position chk_base + a is a positive multiple of
+    chk_stride into slot (chk_base + a) // chk_stride - 1 (slots past K
+    are skipped): the delta-solve session's checkpoints."""
+    check_checkpoints(chk_out, chk_base, chk_stride, avail.shape[0], avail.device)
     if avail.device.type == "cpu":
         return solve_queue_plain(
-            avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=evenly
+            avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly=evenly,
+            chk_base=chk_base, chk_stride=chk_stride, chk_out=chk_out,
         )
     feasible, driver_idx, _, avail_after = _launch(
-        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly, None
+        avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly, None,
+        (chk_base, chk_stride, chk_out),
     )
     return feasible, driver_idx, avail_after
 
@@ -255,9 +307,11 @@ def fifo_queue_explain(
     return _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly, probe)
 
 
-def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly, probe):
+def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, evenly, probe,
+            checkpoints=(0, 0, None)):
     """One launch of the kernel on a CUDA device; the usage output only
-    when probe flags are given."""
+    when probe flags are given; checkpoints = (chk_base, chk_stride,
+    chk_out or None), already checked."""
     device = avail.device
     if device.type != "cuda":
         raise ValueError(f"fifo_queue runs on cpu or cuda tensors, not {device}")
@@ -269,6 +323,7 @@ def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, 
     driver_idx = torch.empty((a,), dtype=torch.int32, device=device)
     usage = None if probe is None else torch.zeros((a,), dtype=torch.int32, device=device)
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
+    chk_base, chk_stride, chk_out = checkpoints
     with torch.cuda.device(device):
         # global scratch only when a block's nodes do not fit in its shared memory
         in_shared = shared_bytes_or_raise(lib.fifo_queue_shared_bytes(n, None), "queue") > 0
@@ -281,9 +336,12 @@ def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, 
             feasible.data_ptr(), driver_idx.data_ptr(),
             None if usage is None else usage.data_ptr(), avail_after.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
+            chk_base, chk_stride, 0 if chk_out is None else chk_out.shape[0],
+            None if chk_out is None else chk_out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fifo_queue kernel launch failed with CUDA error {err}")
-    launch_counts["fifo_queue_evenly" if evenly else "fifo_queue_tightly"] += 1
+    name = "fifo_queue_evenly" if evenly else "fifo_queue_tightly"
+    launch_counts[name + ("_checkpointed" if chk_out is not None else "")] += 1
     return feasible, driver_idx, usage, avail_after

@@ -223,24 +223,13 @@ class FlightRecorder:
 
 
 def _replay_solve(policy_code: int, avail, rank, eok, earlier, device):
-    """The bundle's queue through the port's queue pass on `device`:
+    """The bundle's queue through the port's queue pass on `device` (the
+    stateless pass the delta-solve engine's parity guard runs too):
     (feasible, driver_idx, avail_after) on the host."""
-    from ..ops.minfrag_kernel import fifo_queue_min_frag
-    from ..ops.queue_kernel import fifo_queue
+    from ..ops.fifo_session import solve_packed_cold
 
-    def dev(x, dtype):
-        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
-
-    args = (
-        dev(avail, torch.int32), dev(rank, torch.int32), dev(eok, torch.bool),
-        dev(earlier[:, 0:3], torch.int32), dev(earlier[:, 3:6], torch.int32),
-        dev(earlier[:, 6], torch.int32), dev(earlier[:, 7] != 0, torch.bool),
-    )
-    if policy_code == 2:
-        out = fifo_queue_min_frag(*args)
-    else:
-        out = fifo_queue(*args, evenly=policy_code == 1)
-    return tuple(_host(x) for x in out)
+    feasible, didx, after = solve_packed_cold(policy_code, avail, rank, eok, earlier, device=device)
+    return feasible, didx, _host(after)
 
 
 def replay_bundle(bundle: dict, device: DeviceLike = None) -> dict:

@@ -43,9 +43,11 @@ _QUEUE_SLICE = 8
 @dataclass
 class SolveArtifacts:
     """One queue solve, captured by reference (no copies): the arrays a
-    replay or explain needs.  Only the solver's whole-queue lane
-    (``TpuFifoSolver.solve_tensor``) captures; Quantity-path decisions
-    record without artifacts.  The driver indices and the availability
+    replay or explain needs.  The solver's whole-queue lane
+    (``TpuFifoSolver.solve_tensor``) and the delta-solve session
+    (``DeltaSolveEngine``, whose verdicts cover the whole queue whatever
+    position it resumed from) capture; Quantity-path decisions record
+    without artifacts.  The driver indices and the availability
     after the queue stay the launch's device tensors (no later launch
     writes them); they reach the host only when a bundle is persisted."""
 
@@ -418,9 +420,8 @@ class ProvenanceTracker:
 
     def on_parity_mismatch(self, detail: dict) -> None:
         """The delta-solve engine's warm≠cold parity guard detected
-        divergence (nothing calls this until this package has that
-        engine, ROADMAP A.3) —
-        the one anomaly this subsystem exists to catch in the wild.
+        divergence (ops/deltasolve.py) — the one anomaly this subsystem
+        exists to catch in the wild.
         ``detail`` may carry the diverging solve's artifacts (with the
         WARM verdicts recorded): noted into the recorder BEFORE
         persisting, so the bundle file contains the anomaly itself —

@@ -123,6 +123,7 @@ class SparkSchedulerExtender:
         tensor_snapshot_cache=None,
         strict_reference_parity: bool = compat.DEFAULT_STRICT,
         tracer: Optional[tracing.Tracer] = None,
+        delta_solve: bool = True,
         provenance=None,
     ):
         self._node_informer = node_informer
@@ -152,6 +153,17 @@ class SparkSchedulerExtender:
         # threaded HTTP front end can't interleave predicates
         self._predicate_lock = threading.Lock()
         self._fast_path_ok = tensor_snapshot_cache is not None
+        # incremental delta-solve engine (ops/deltasolve.py):
+        # device-resident solver sessions + prefix-feasibility reuse for
+        # the earlier-drivers pass.  None when disabled or when there is
+        # no tensor mirror to key invalidation on; the engine itself
+        # declines (returns None) per request when it can't serve
+        # exactly, so construction is cheap and unconditional otherwise.
+        self.delta_engine = None
+        if delta_solve and tensor_snapshot_cache is not None:
+            from ..ops.deltasolve import DeltaSolveEngine
+
+            self.delta_engine = DeltaSolveEngine(metrics=self._metrics)
         self._strict_reference_parity = strict_reference_parity
         # decision provenance (provenance/tracker.py): None or disabled
         # keeps every capture sink None — the solver then runs with zero
@@ -161,6 +173,8 @@ class SparkSchedulerExtender:
             solver = getattr(binpacker, "queue_solver", None)
             if solver is not None and hasattr(solver, "capture_sink"):
                 solver.capture_sink = provenance.capture
+            if self.delta_engine is not None:
+                self.delta_engine.capture_sink = provenance.capture
         self._last_request = 0.0
         # diagnostics: which lane served the last executor reschedule
         self.last_reschedule_path: Optional[str] = None
@@ -561,11 +575,12 @@ class SparkSchedulerExtender:
 
     def _try_fast_driver_path(self, instance_group, driver, node_names, app_resources):
         """Whole driver decision (FIFO pass + gang pack) from the
-        event-driven tensor snapshot: zero Quantity arithmetic.  Returns
-        (FifoOutcome, zones), or None when the lane declines (no
-        solve_tensor solver, an inexact snapshot, an unsupported
-        problem) and the Quantity path serves.  A solver error
-        propagates."""
+        event-driven tensor snapshot: zero Quantity arithmetic.  The
+        delta-solve engine serves first; when it declines, the
+        per-request tensor build and cold solve.  Returns (FifoOutcome,
+        zones), or None when the lane declines (no solve_tensor solver,
+        an inexact snapshot, an unsupported problem) and the Quantity
+        path serves.  A solver error propagates."""
         solver = getattr(self.binpacker, "queue_solver", None)
         # the tensor-snapshot lane needs a solver that accepts prebuilt
         # tensors; the single-AZ FIFO solver requires Quantity metadata
@@ -579,7 +594,8 @@ class SparkSchedulerExtender:
         from ..ops.fast_path import build_cluster_tensor
         from ..ops.sparkapp import AppDemand
 
-        snap = self._tensor_snapshot.snapshot()
+        with self._tracer.span("fast_path.snapshot"):
+            snap = self._tensor_snapshot.snapshot()
         prov = self._provenance
         if prov is not None and not prov.enabled:
             prov = None
@@ -587,22 +603,24 @@ class SparkSchedulerExtender:
         skip_allowed = []
         queue_names: Optional[List[str]] = [] if prov is not None else None
         if self._is_fifo:
-            skip_cutoff = self._fifo_skip_cutoff(instance_group)
-            for queued in self._pod_lister.list_earlier_drivers(driver):
-                try:
-                    # stable AppDemand per pod version: tensor rows are
-                    # computed once per app, not per request
-                    _, demand = spark_app_demand_cached(queued)
-                except AnnotationError:
-                    logger.warning(
-                        "failed to get driver resources, skipping driver %s",
-                        queued.name,
-                    )
-                    continue
-                earlier_apps.append(demand)
-                skip_allowed.append(queued.creation_timestamp > skip_cutoff)
-                if queue_names is not None:
-                    queue_names.append(queued.name)
+            with self._tracer.span("fast_path.earlier_drivers") as sp:
+                skip_cutoff = self._fifo_skip_cutoff(instance_group)
+                for queued in self._pod_lister.list_earlier_drivers(driver):
+                    try:
+                        # stable AppDemand per pod version: tensor rows
+                        # are computed once per app, not per request
+                        _, demand = spark_app_demand_cached(queued)
+                    except AnnotationError:
+                        logger.warning(
+                            "failed to get driver resources, skipping driver %s",
+                            queued.name,
+                        )
+                        continue
+                    earlier_apps.append(demand)
+                    skip_allowed.append(queued.creation_timestamp > skip_cutoff)
+                    if queue_names is not None:
+                        queue_names.append(queued.name)
+                sp.tag("earlierApps", len(earlier_apps))
         if prov is not None:
             prov.note_context(
                 queue_names=queue_names,
@@ -614,6 +632,20 @@ class SparkSchedulerExtender:
             app_resources.executor_resources,
             app_resources.min_executor_count,
         )
+
+        # incremental lane first: a warm session skips the tensor build,
+        # the sorts, the GCD scaling, the basis upload AND the
+        # already-proved queue prefix — the engine declines (None)
+        # whenever it cannot serve the request exactly.  Its misses after a
+        # cold build (inexact, scale, mf-sentinel) build the tensor again
+        # below; they are rare enough that the second build is not kept
+        if self.delta_engine is not None:
+            served = self.delta_engine.solve(
+                snap, driver, node_names, self._node_sorter,
+                earlier_apps, skip_allowed, current, solver,
+            )
+            if served is not None:
+                return served
 
         with self._tracer.span("fast_path.build_tensor") as sp:
             # node_names flows through verbatim — on the HTTP path it is

@@ -364,8 +364,23 @@ def init_server_with_clients(
         tensor_snapshot_cache=tensor_snapshot,
         strict_reference_parity=install.strict_reference_parity,
         tracer=tracer,
+        delta_solve=install.delta_solve,
         provenance=provenance_tracker,
     )
+    if provenance_tracker is not None and extender.delta_engine is not None:
+        # warm≠cold parity guard: every Nth warm hit re-proves the
+        # session verdicts against the stateless cold pass and fires
+        # the flight recorder on divergence (0 = off)
+        extender.delta_engine.parity_interval = install.provenance.parity_check_interval
+        extender.delta_engine.parity_hooks = (
+            provenance_tracker.on_parity_ok,
+            provenance_tracker.on_parity_mismatch,
+        )
+    if extender.delta_engine is not None:
+        # equivalence-class aggregation (Install.classes): the O(1)
+        # digest warm tier
+        extender.delta_engine.classes_enabled = install.classes.enabled
+        extender.delta_engine.classes_min_nodes = install.classes.min_nodes
 
     marker = UnschedulablePodMarker(
         api,

@@ -43,6 +43,7 @@ from ..scheduler import labels as L
 from ..scheduler.overhead import pod_to_resources
 from ..types.objects import Node, Pod
 from ..types.resources import ZONE_LABEL, ZONE_LABEL_PLACEHOLDER
+from .classindex import ClassIndex
 from .store import (
     DELTA_NODE,
     DELTA_NODE_STRUCTURE,
@@ -88,8 +89,22 @@ class TensorSnapshot:
 
     # (maintainer instance, change-feed sequence): changes on EVERY
     # mutation the mirror absorbs — an equal content_key across two
-    # snapshots proves their contents are identical
+    # snapshots proves their contents are identical, so consumers
+    # (ops/deltasolve.py) can skip even the content compare
     content_key: tuple = (-1, -1)
+
+    # (maintainer instance, XOR node-content digest) from the class
+    # index (state/classindex.py): equal digests across snapshots of
+    # the same mirror imply equal node rows up to 64-bit collisions —
+    # the delta-solve engine's O(1) warm-basis tier between content_key
+    # equality and the O(N) row compare.  Survives same-content churn
+    # (a reserve+release pair cancels in the XOR) that content_key,
+    # which counts every mutation, cannot.
+    class_digest: tuple = (-1, -1)
+
+    # class-structure revision: bumps only when the class MULTISET
+    # changes, so class-derived caches survive same-class node churn
+    class_rev: int = -1
 
     _name_index: Optional[Dict[str, int]] = None
 
@@ -125,8 +140,13 @@ class TensorSnapshotCache:
         self._struct_cache = None
         # monotonic typed-delta feed: every mutation this mirror absorbs
         # publishes one delta (under the mirror lock, so a snapshot
-        # taken under the same lock sees a consistent sequence)
+        # taken under the same lock sees a consistent sequence); the
+        # delta-solve engine keys its warm-path checks on the sequence
         self.feed = ChangeFeed()
+        # equivalence-class index (state/classindex.py): every node mutation below
+        # renotes its one slot, keeping the class multiset, revision and
+        # XOR content digest O(1)-current off the same deltas
+        self.classes = ClassIndex()
 
         # node table
         self._node_slot: Dict[str, int] = {}
@@ -238,6 +258,7 @@ class TensorSnapshotCache:
             self._ready[slot] = node.ready
             self._unsched[slot] = node.unschedulable
             self._labels[slot] = dict(node.labels)
+            self._note_class(slot, labels=node.labels)
 
     def _on_node_delete(self, node: Node) -> None:
         with self._lock:
@@ -261,6 +282,36 @@ class TensorSnapshotCache:
             self._labels[slot] = {}
             self._free_nodes.append(slot)
             self._pods_dirty = True
+            self.classes.drop_node(slot)
+
+    def _note_class(self, slot: int,
+                    labels: Optional[Dict[str, str]] = None) -> None:
+        """Mirror one slot's full row into the equivalence-class index
+        (O(1); callers hold ``self._lock``).  Overhead is recomputed
+        lazily at snapshot() — until then the index sees the previous
+        overhead row, and _recompute_overhead re-notes whatever changed,
+        so by the time snapshot() stamps class_digest the index is
+        consistent with the rows it hands out."""
+        name = self._node_names[slot]
+        if name is None:
+            return
+        overhead = (
+            self._node_overhead[slot]
+            if slot < len(self._node_overhead)
+            else np.zeros(3, np.int64)
+        )
+        self.classes.note_node(
+            slot,
+            name,
+            self._alloc[slot],
+            self._usage[slot],
+            overhead,
+            int(self._zone_id[slot]),
+            bool(self._ready[slot]),
+            bool(self._unsched[slot]),
+            res_count=int(self._res_count[slot]),
+            labels=labels,
+        )
 
     # -- reservation usage ---------------------------------------------------
 
@@ -276,6 +327,7 @@ class TensorSnapshotCache:
         if slot is not None:
             self._usage[slot] += sign * row
             self._res_count[slot] += sign
+            self._note_class(slot)
         else:
             current = self._orphan_usage.get(node)
             if current is None:
@@ -418,8 +470,18 @@ class TensorSnapshotCache:
             )
             ok = node_idx >= 0
             np.add.at(overhead, node_idx[ok], self._pod_requests[counted][ok])
+        old = self._node_overhead
+        if len(old) < n_nodes:
+            pad = np.zeros((n_nodes - len(old), 3), np.int64)
+            old = np.vstack([old, pad]) if len(old) else pad
+        changed = np.flatnonzero((old[:n_nodes] != overhead).any(axis=1))
         self._node_overhead = overhead
         self._pods_dirty = False
+        # overhead shifted under some nodes: bring their class-index rows
+        # up to date (class KEY never depends on overhead, so this only
+        # refreshes content hashes — class_rev is untouched)
+        for slot in changed:
+            self._note_class(int(slot))
 
     def _recompute_name_ranks(self) -> None:
         live = [i for i, name in enumerate(self._node_names) if name is not None]
@@ -484,4 +546,8 @@ class TensorSnapshotCache:
                 # feed.seq is stable here: every publisher holds this
                 # mirror's lock, which snapshot() also holds
                 content_key=(self._instance_id, self.feed.seq),
+                # all class-index mutators run under this lock too, so
+                # the digest/rev pair is consistent with the rows above
+                class_digest=(self._instance_id, self.classes.digest),
+                class_rev=self.classes.class_rev,
             )

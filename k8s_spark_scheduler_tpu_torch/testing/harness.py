@@ -40,8 +40,11 @@ class Harness:
         driver_prioritized_node_label=None,
         executor_prioritized_node_label=None,
         device: DeviceLike = None,
+        delta_solve: bool = True,
     ):
-        """`device` is where the tpu-batch* solvers run (None = CUDA)."""
+        """`device` is where the tpu-batch* solvers run (None = CUDA);
+        `delta_solve` turns the delta-solve engine on (the default, as in
+        the reference) or off, unless `extra_install` is given."""
         self.api = APIServer()
         if with_demand_crd:
             self.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
@@ -53,6 +56,7 @@ class Harness:
             should_schedule_dynamically_allocated_executors_in_same_az=dynamic_allocation_single_az,
             driver_prioritized_node_label=driver_prioritized_node_label,
             executor_prioritized_node_label=executor_prioritized_node_label,
+            delta_solve=delta_solve,
         )
         self.server: Server = init_server_with_clients(
             self.api,

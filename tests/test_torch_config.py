@@ -1,10 +1,13 @@
 """The port's config against the reference's on the subsystems a config
 turns on: ``Install.reference_only`` names exactly the subsystems the
 JAX package runs on the same config and the port does not have (all but
-resilience and provenance, which the port has), and the server logs one
-warning for each at start (on examples/install.json among others).  Also the two settings that now configure something:
-``conversion-webhook`` (the CRD's conversion stanza) and
-``unschedulable-pod-timeout-seconds`` (the marker)."""
+resilience, provenance, delta-solve and class aggregation, which the
+port has), and the server logs one warning for each at start (on
+examples/install.json among others).  ``delta-solve`` (default true, as
+in the reference) and ``classes`` load and reach the engine, with
+``provenance.parity-check-interval``.  Also the two settings that now
+configure something: ``conversion-webhook`` (the CRD's conversion
+stanza) and ``unschedulable-pod-timeout-seconds`` (the marker)."""
 
 import json
 import logging
@@ -22,7 +25,7 @@ from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("provenance", "capacity", "contention", "policy", "ha", "lifecycle", "concurrent", "classes")
 # the reference's subsystems the port has too
-PORTED = {"resilience", "provenance"}
+PORTED = {"resilience", "provenance", "delta-solve", "classes"}
 
 
 def _example() -> dict:
@@ -67,7 +70,7 @@ def test_example_config_warns_once_per_missing_subsystem(tmp_path, caplog):
         server = init_server_with_clients(APIServer(), install, start_background=False, device="cpu")
     warned = [r.getMessage() for r in caplog.records if "the reference package runs" in r.getMessage()]
     expected = _reference_runs(_example()) - PORTED
-    assert len(warned) == len(expected) == 5
+    assert len(warned) == len(expected) == 3  # capacity, contention, lifecycle
     for name in expected:
         assert sum(f" runs {name} on this config" in w for w in warned) == 1, name
     # the two settings configure something now: the marker's timeout,
@@ -105,3 +108,40 @@ def test_background_loops_start_and_stop():
         server.stop()
     assert not server.unschedulable_marker._thread.is_alive()
     assert not server.reporters._thread.is_alive()
+
+
+@pytest.mark.parametrize(
+    "d,delta,classes,parity",
+    [
+        ({}, True, (True, 20000), 0),
+        ({"delta-solve": True, "classes": {"enabled": True, "min-nodes": 5000}}, True, (True, 5000), 0),
+        ({"delta-solve": False, "classes": {"enabled": False}, "provenance": {"parity-check-interval": 7}},
+         False, (False, 20000), 7),
+        ({"provenance": {"parity-check-interval": 3}}, True, (True, 20000), 3),
+    ],
+)
+def test_delta_solve_and_classes_load_as_in_the_reference(d, delta, classes, parity):
+    ours, theirs = Install.from_dict(d), JaxInstall.from_dict(d)
+    assert ours.delta_solve is theirs.delta_solve is delta
+    assert (ours.classes.enabled, ours.classes.min_nodes) == (theirs.classes.enabled, theirs.classes.min_nodes) == classes
+    assert ours.provenance.parity_check_interval == theirs.provenance.parity_check_interval == parity
+    server = init_server_with_clients(APIServer(), Install(**{
+        "binpack_algo": "tpu-batch", "fifo": True, "delta_solve": ours.delta_solve,
+        "classes": ours.classes, "provenance": ours.provenance,
+    }), start_background=False, device="cpu")
+    try:
+        engine = server.extender.delta_engine
+        if not delta:
+            assert engine is None
+            return
+        assert (engine.classes_enabled, engine.classes_min_nodes) == classes
+        assert engine.parity_interval == parity
+        assert engine.parity_hooks == (server.provenance.on_parity_ok, server.provenance.on_parity_mismatch)
+        assert engine.capture_sink == server.provenance.capture
+    finally:
+        server.stop()
+
+
+def test_classes_section_refuses_unknown_keys():
+    with pytest.raises(ValueError):
+        Install.from_dict({"classes": {"enabled": True, "min_nodes": 5}})

@@ -225,7 +225,9 @@ def test_solver_error_answers_500_and_reaches_the_caller(both_served):
     def broken(*args, **kwargs):
         raise RuntimeError("fifo_queue kernel launch failed with CUDA error 719")
 
-    solver.solve_tensor = broken
+    # both tensor lanes: the cold solve and the delta-solve session's pack
+    # of the current driver
+    solver.solve_tensor = solver._pack_current = broken
     pods = static_pod_wires("app-x", 1)
     papi.create(object_from_wire(pods[0]))
     status, body = _post(phttp.port, "/predicates", {"Pod": pods[0], "NodeNames": ["n0", "n1"]})
@@ -302,16 +304,15 @@ def test_cli_serves_the_example_config_on_cpu(tmp_path):
 # (case id, config, ROADMAP item).  The ids are those the cases had when
 # ROADMAP numbered these items A.5 and A.8; the items are ROADMAP's
 # current numbers.  The provenance and resilience sections (config1,
-# config2, config10) load since both subsystems were ported.
+# config2, config10) load since both subsystems were ported, and so do
+# delta-solve and classes (config0, config9; tests/test_torch_config.py).
 _REFUSED = [
-    ("config0-A.5", {"delta-solve": True}, r"A\.3 \(delta-solve\)"),
     ("config3-A.8", {"policy": {"enabled": True}}, r"A\.6\.5 \(scheduling policy\)"),
     ("config4-A.8", {"lifecycle": {"enabled": True}}, r"A\.6\.4 \(lifecycle"),
     ("config5-A.8", {"ha": {"enabled": True}}, r"A\.6\.6 \(HA failover\)"),
     ("config6-A.5", {"concurrent": {"enabled": True}}, r"A\.4 \(concurrent admission\)"),
     ("config7-A.8", {"capacity": {}}, r"A\.6\.3 \(capacity observatory\)"),
     ("config8-A.8", {"contention": {"enabled": True}}, r"A\.6\.7 \(contention observatory\)"),
-    ("config9-A.5", {"classes": {}}, r"A\.3 \(equivalence-class aggregation\)"),
 ]
 
 
@@ -336,12 +337,12 @@ def test_install_reads_the_reference_keys():
     assert ours.fifo_config.__dict__ == theirs.fifo_config.__dict__
     assert ours.async_client.__dict__ == theirs.async_client.__dict__
     assert ours.conversion_webhook.__dict__ == theirs.conversion_webhook.__dict__
-    assert ours.delta_solve is False
+    assert ours.delta_solve is theirs.delta_solve is True
+    assert ours.classes.__dict__ == theirs.classes.__dict__
     # keys that leave an unported subsystem off are accepted
     off = {k: {"enabled": False} for k in ("provenance", "policy", "lifecycle", "ha",
                                             "concurrent", "capacity", "contention", "classes")}
     assert Install.from_dict(dict(off, **{"delta-solve": False})).delta_solve is False
     with pytest.raises(ValueError, match="unknown install key"):
         Install.from_dict({"binpak": "tpu-batch"})
-    with pytest.raises(ValueError, match="delta_solve"):
-        Install(delta_solve=True)
+    assert Install(delta_solve=True).delta_solve is Install().delta_solve is True

@@ -411,3 +411,61 @@ def test_backend_must_match_device():
         assert solver(backend="torch", device="cpu").backend == "torch"
         with pytest.raises(ValueError):
             solver(backend="cuda", device="cpu")
+
+
+_BLOCKED_DELTA = textwrap.dedent(
+    """
+    import sys, time
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    # the modules of the delta-solve slice, each by name
+    from k8s_spark_scheduler_tpu_torch.state.classindex import ClassIndex, labels_signature
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_session import FifoSession, solve_packed_cold
+    from k8s_spark_scheduler_tpu_torch.ops.deltasolve import DeltaSolveEngine
+    from k8s_spark_scheduler_tpu_torch.ops.fast_path import build_prep_keyed
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    h = Harness(binpack_algo="tpu-batch-minimal-fragmentation", is_fifo=True, device="cpu")
+    try:
+        names = [f"n{i}" for i in range(4)]
+        for name in names:
+            h.new_node(name, cpu="16", memory="32Gi")
+        t0 = time.time()
+        for i in range(6):
+            h.create_pod(h.static_allocation_spark_pods(f"q{i}", 2, creation_timestamp=t0 - 100 + i)[0])
+        big = h.static_allocation_spark_pods("big", 200, creation_timestamp=t0)[0]
+        h.create_pod(big)
+        for _ in range(3):
+            assert not h.schedule(big, names).node_names
+        stats = h.extender.delta_engine.stats()
+        assert stats["cold_solves"] == 1 and stats["warm_hits"] == 2, stats
+        assert h.server.tensor_snapshot.snapshot().class_digest[1] != -1
+    finally:
+        h.close()
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("DELTA-OK")
+    """
+)
+
+
+def test_delta_solve_runs_with_jax_and_reference_package_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_DELTA],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "DELTA-OK" in proc.stdout

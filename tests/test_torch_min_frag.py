@@ -296,7 +296,7 @@ def test_min_frag_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
     want = mk.solve_queue_min_frag_plain(*arrays)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert mk.launch_counts == {"fifo_queue_min_frag": 0}
+    assert set(mk.launch_counts.values()) == {0}
     meta = [x.to("meta") for x in arrays]
     with pytest.raises(ValueError):
         mk.fifo_queue_min_frag(*meta)

@@ -17,9 +17,10 @@ the port, and the port against the reference:
   native / xla / pallas, the trace id, and the mirror instance in the
   content key).
 
-The reference's ``test_engine_parity_guard_runs_clean`` (the delta-solve
-engine, ROADMAP A.3) and ``test_sim_replay_bundle_cli`` (the ``sim``
-command line, A.7) have no counterpart yet.
+The reference's ``test_engine_parity_guard_runs_clean`` is in
+tests/test_torch_deltasolve.py with the rest of the delta-solve engine;
+``test_sim_replay_bundle_cli`` (the ``sim`` command line, A.7) has no
+counterpart yet.
 """
 
 import json
@@ -556,7 +557,8 @@ def test_refused_driver_explain_has_shortfall_and_message(fifo_harness):
     assert sf["shortfallExecutors"] >= 1
     assert sf["nearestFitNode"] in names
     assert record["feedSeq"] is not None
-    assert record["lane"] == "torch"
+    # the delta-solve session served it (on by default, as in the reference)
+    assert record["lane"] == "torch-session"
 
 
 def test_refusal_blocked_by_earlier_driver_names_blockers(fifo_harness):
@@ -592,11 +594,13 @@ def test_refusal_blocked_by_earlier_driver_names_blockers(fifo_harness):
 
 
 def test_earlier_driver_refusal_explained_without_delta_engine():
-    """The solve_tensor lane captures artifacts BEFORE the
-    blocked-earlier early return, so FAILURE_EARLIER_DRIVER refusals
-    carry shortfall detail too (the port has no delta engine at all)."""
-    h = Harness(binpack_algo="tpu-batch", is_fifo=True, device="cpu")
+    """With the delta engine off (the Install kill switch) the stateless
+    solve_tensor lane captures artifacts BEFORE the blocked-earlier
+    early return, so FAILURE_EARLIER_DRIVER refusals carry shortfall
+    detail too."""
+    h = Harness(binpack_algo="tpu-batch", is_fifo=True, device="cpu", delta_solve=False)
     try:
+        assert h.server.extender.delta_engine is None
         for i in range(2):
             h.new_node(f"node-{i}", cpu="8", memory="32Gi", zone="az-a")
         names = [f"node-{i}" for i in range(2)]

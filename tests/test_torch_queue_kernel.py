@@ -165,7 +165,7 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
         want = qk.solve_queue_plain(*arrays, evenly=evenly)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert qk.launch_counts == {"fifo_queue_tightly": 0, "fifo_queue_evenly": 0}
+    assert set(qk.launch_counts.values()) == {0}
 
 
 def test_wrapper_refuses_other_devices():

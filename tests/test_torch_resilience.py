@@ -428,7 +428,9 @@ def test_kernel_fault_answers_500_and_never_demotes():
             calls.append(1)
             raise RuntimeError("fifo_queue kernel launch failed with CUDA error 719")
 
-        solver.solve_tensor = broken
+        # both tensor lanes: the cold solve and the delta-solve session's
+        # pack of the current driver
+        solver.solve_tensor = solver._pack_current = broken
         from k8s_spark_scheduler_tpu_torch.types import serde
 
         for i in range(4):

@@ -7,13 +7,14 @@ serialised with its serde, and the same wire dict is decoded by each
 package (the JAX serde, the port's ``convert.object_from_wire``), so
 both servers see identical state.  Both packages' time sources are
 pinned to one virtual clock, so FIFO ages and reconciliation triggers
-agree.  Both servers run their default resilience kit and decision
-provenance, so a refused driver's failure message carries the
-shortfall explanation on both sides; the JAX server runs without
-delta-solve, which the port does not have yet and would refuse in its
-config.  ``Twin.schedule`` holds every ``ExtenderFilterResult`` equal
-(failure messages included) and ``Twin.assert_state_equal`` the
-reservations and demands in both API servers.
+agree.  Both servers run the reference's defaults: the resilience kit,
+decision provenance (so a refused driver's failure message carries the
+shortfall explanation on both sides) and the delta-solve engine (the
+JAX server's native session, the port's device-resident one; a driver
+Filter is served warm wherever the engine can).  ``Twin.schedule``
+holds every ``ExtenderFilterResult`` equal (failure messages included),
+``Twin.assert_state_equal`` the reservations and demands in both API
+servers, and ``Twin.delta_stats`` reads both engines' counters.
 
 Both servers write reservations and demands back on worker threads, and
 a Filter or a delete that overtakes a pending write can decide
@@ -97,10 +98,6 @@ class Twin:
                     should_schedule_dynamically_allocated_executors_in_same_az=(
                         dynamic_allocation_single_az
                     ),
-                    # the port has no delta-solve engine yet (its
-                    # config refuses it); resilience and provenance run
-                    # at their defaults on both sides
-                    delta_solve=False,
                 )
             )
             self.port = PortHarness(
@@ -291,6 +288,14 @@ class Twin:
             app: (sorted((k, r.node) for k, r in sr.reservations.items()), sorted(sr.status.items()))
             for app, sr in jsoft.items()
         }
+
+    def delta_stats(self) -> tuple:
+        """(JAX engine stats, port engine stats): warm hits, cold solves,
+        digest hits and misses of each side's delta-solve engine."""
+        keys = ("warm_hits", "cold_solves", "digest_hits", "misses")
+        return tuple(
+            {k: h.extender.delta_engine.stats()[k] for k in keys} for h in (self.jax, self.port)
+        )
 
     def port_fast_lane_count(self) -> float:
         return self.port.server.metrics.get_counter(
