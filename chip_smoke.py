@@ -70,9 +70,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    probes' executors), with every pod created, bound and deleted in the
    fake and seen through the watches, and the reservations and demands
    each server wrote back read over REST and equal; the invariant checker
-   (I1-I5, I5 at 10,000 nodes) after every driver Filter of the cuda
-   server (the executors' Filters skip it: ~1.5 s a check),
-   no violation, and the request latency given without and with its time;
+   (I1-I5, I5 at 10,000 nodes) after every 4th driver Filter of the cuda
+   server (the other Filters skip it: ~1.5 s a check) and on both servers
+   at the end, no violation, and the request latency given without and with its time;
    ``/metrics`` with ``Accept: text/plain`` parsed as Prometheus text,
    its fast-lane counter equal to the probes; ``/convert`` round-tripping
    a v1beta1 reservation; one unschedulable-marker scan of the 1,000
@@ -106,15 +106,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
    between them; (b) the same with an unrelated reservation created and
    deleted before each (the change feed moves, the class digest cancels
    back); (c) every 10th Filter an app that is granted and starts (the
-   basis changes).  Bodies equal on and off, and on the cpu server for a
+   basis changes); segment (a) under ``tpu-batch-distribute-evenly`` too.
+   Bodies equal on and off, and on the cpu server for a
    sample; per segment p50 / p99 on and off, the warm-hit share, miss
    reasons, resume depths and span medians; the device's busy share in a
    profiler trace of one warm and one cold request.  (3) The engine's
    warm-captured decisions persisted and replayed cold through the
    kernel and the plain version, and a session stream at the library
    layer (a FifoSession on the card against one on the CPU and the
-   stateless pass);
-9. the kernels line (times, bounds, launches) and the device result line.
+   stateless pass).  Step (1) also launches the tightly-pack and
+   min-frag kernels checkpointed at 20,480 nodes (the main path's
+   cluster twice over, the same apps), a whole queue and a 640-app
+   suffix, each equal to its plain version and timed;
+9. observatory: the capacity observatory and the lifecycle ledger
+   (capacity/, lifecycle/) on phase 5's snapshot under ``tpu-batch``: a
+   cuda server on the reference's defaults, a cuda server with both
+   off and a cpu server on the defaults; after the same 4 Filters on
+   each, a sample on the cuda and the cpu server, equal but for the
+   fields that name the host (``SAMPLE_HOST_FIELDS``,
+   ``QUEUE_HOST_FIELDS``); the sampler's two probe programs (row-level
+   over the cluster and its (group, zone) combos, and the class lane)
+   by CUDA events at 10,000 nodes × 16 shapes, and a whole sample's
+   ``sampleMs`` with each of its parts by the host clock; 100 granted
+   probes, each retired, on the on and off cuda servers in blocks in
+   turns, each block posted to its own server alone, p50 / p99 of each,
+   the samples and drains taken and one ledger drain's time; no probe
+   or drain under the predicate lock and no class-lane
+   failure; ``/slo`` counting the Filters served, ``/lifecycle`` listing
+   the probe apps.  Phases 5 to delta run with both subsystems on too
+   (the reference's defaults);
+10. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -180,8 +201,13 @@ POLICY_KERNEL = {"tightly-pack": "fifo_queue_tightly", "distribute-evenly": "fif
                  "single-az-minimal-fragmentation": "fifo_queue_single_az_min_frag"}
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, stamped with the seconds since the
+    script started (where the time goes, phase by phase)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def gpu_line() -> str:
@@ -353,8 +379,9 @@ class PortServer:
     """The port's server on its own embedded API server, serving HTTP on
     an ephemeral port."""
 
-    def __init__(self, policy: str, device: str, nodes, queue, provenance=None, delta_solve: bool = True):
-        from k8s_spark_scheduler_tpu_torch.config import Install, ProvenanceConfig
+    def __init__(self, policy: str, device: str, nodes, queue, provenance=None, delta_solve: bool = True,
+                 observatories: bool = True):
+        from k8s_spark_scheduler_tpu_torch.config import CapacityConfig, Install, LifecycleConfig, ProvenanceConfig
         from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
         from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
         from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
@@ -362,10 +389,14 @@ class PortServer:
 
         self.api = APIServer()
         self.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
-        # the reference's defaults, resilience and provenance included;
-        # the marker's scan is phase 6's, not a load on the timed probes
+        # the reference's defaults, resilience, provenance, the capacity
+        # observatory and the lifecycle ledger included (`observatories`
+        # False turns the last two off); the marker's scan is phase 6's,
+        # not a load on the timed probes
         install = Install(binpack_algo=policy, fifo=True, provenance=provenance or ProvenanceConfig(),
-                          resilience=server_resilience(device), delta_solve=delta_solve)
+                          resilience=server_resilience(device), delta_solve=delta_solve,
+                          capacity=CapacityConfig(enabled=observatories),
+                          lifecycle=LifecycleConfig(enabled=observatories))
         self.scheduler = init_server_with_clients(
             self.api, install, demand_poll_interval=0.5, unschedulable_polling_interval=3600.0,
             device=device,
@@ -768,6 +799,10 @@ def server_phase(seed: int, smi: str) -> dict:
 # -- phase 6: the server against a cluster over REST ----------------------------
 
 CLUSTER_POLICY = "tpu-batch"
+# the invariant checker runs after every CLUSTER_CHECK_EVERY-th driver
+# Filter of the cuda server (I5 at 10,000 nodes is ~1.5 s a check), and
+# on both servers at the end
+CLUSTER_CHECK_EVERY = 4
 WAIT_S = 60.0
 _PROM_TYPE = re.compile(r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|summary)$")
 _PROM_SERIES = re.compile(
@@ -947,11 +982,11 @@ def cluster_phase(seed: int, smi: str) -> None:
     from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
     from k8s_spark_scheduler_tpu_torch.types import serde
 
-    # the invariant checker after every driver Filter of the cuda server
-    # (the wiring reads SCHED_DEBUG_INVARIANTS when it builds a server),
-    # counting its checks, their time and their violations; "on" is
-    # cleared around the executors' Filters
-    checked = {"checks": 0, "violations": [], "ms": [], "on": True}
+    # the invariant checker after every CLUSTER_CHECK_EVERY-th driver
+    # Filter of the cuda server (the wiring reads SCHED_DEBUG_INVARIANTS
+    # when it builds a server), counting its checks, their time and their
+    # violations; "on" is set for those Filters only
+    checked = {"checks": 0, "violations": [], "ms": [], "on": False}
     real_check = invariants.check
 
     def counting_check(server, raise_on_violation=True):
@@ -1008,13 +1043,17 @@ def cluster_phase(seed: int, smi: str) -> None:
                 server.sees(pods[0])
                 server.settle()
             fast_before, checks_seen = card.fast_lane_count(), checked["checks"]
-            ms, status, body = card.post(pods[0], names)
-            if checked["checks"] != checks_seen + 1:
-                raise SystemExit(f"cluster probe {i}: the invariant checker did not run once in the Filter")
+            checked["on"] = i % CLUSTER_CHECK_EVERY == 0
+            try:
+                ms, status, body = card.post(pods[0], names)
+            finally:
+                checked["on"] = False
+            if checked["checks"] != checks_seen + (i % CLUSTER_CHECK_EVERY == 0):
+                raise SystemExit(f"cluster probe {i}: the invariant checker did not run as planned in the Filter")
             if timed:
                 lat_ms.append(ms)
                 # the request without the checker, which runs inside it
-                check_ms.append(checked["ms"][-1])
+                check_ms.append(checked["ms"][-1] if i % CLUSTER_CHECK_EVERY == 0 else 0.0)
                 net_ms.append(ms - check_ms[-1])
                 traces.append(card.scheduler.tracer.traces(limit=1)[0])
             _, cpu_status, cpu_body = host.post(pods[0], names)
@@ -1038,11 +1077,7 @@ def cluster_phase(seed: int, smi: str) -> None:
                             server.api.create(pod.deepcopy())
                             server.sees(pod)
                             server.settle()
-                        checked["on"] = False
-                        try:
-                            _, e_status, e_body = card.post(pod, names)
-                        finally:
-                            checked["on"] = True
+                        _, e_status, e_body = card.post(pod, names)
                         _, c_status, c_body = host.post(pod, names)
                         e_nodes = json.loads(e_body).get("NodeNames") if e_status == 200 else None
                         if (e_status, e_body) != (c_status, c_body) or not e_nodes:
@@ -1079,9 +1114,9 @@ def cluster_phase(seed: int, smi: str) -> None:
             f"the invariant checker's time: p50 {statistics.median(net_ms):.3f} ms, "
             f"p99 {float(np.percentile(net_ms, 99)):.3f} ms over {len(net_ms)} probes "
             f"(runs {', '.join(f'{x:.1f}' for x in net_ms)}) | {smi}")
-        log(f"phase cluster: the same requests with the checker (I1-I5 after each Filter, median "
-            f"{statistics.median(checked['ms']):.1f} ms a check): p50 {statistics.median(lat_ms):.3f} ms, "
-            f"p99 {float(np.percentile(lat_ms, 99)):.3f} ms | {smi}")
+        log(f"phase cluster: the same requests with the checker (I1-I5 after every {CLUSTER_CHECK_EVERY}th "
+            f"Filter, median {statistics.median(checked['ms']):.1f} ms a check): p50 "
+            f"{statistics.median(lat_ms):.3f} ms, p99 {float(np.percentile(lat_ms, 99)):.3f} ms | {smi}")
         spans = {}
         for trace in traces:
             span_durations(trace["root"], spans)
@@ -1094,9 +1129,10 @@ def cluster_phase(seed: int, smi: str) -> None:
         log("phase cluster: span medians (ms; predicate and http.request without the checker) " + ", ".join(
             f"{name} {statistics.median(spans[name]):.3f}" for name in SERVER_SPANS) + f" | {smi}")
 
-        # the invariant checker ran after every driver Filter of the cuda server
+        # the invariant checker ran after every CLUSTER_CHECK_EVERY-th
+        # driver Filter of the cuda server
         filters = checked["checks"] - checks_before
-        if filters < n_probes or checked["violations"]:
+        if filters < -(-n_probes // CLUSTER_CHECK_EVERY) or checked["violations"]:
             raise SystemExit(f"cluster: {filters} invariant checks, violations {checked['violations'][:5]}")
         for device, server in servers.items():
             if not server.scheduler.tensor_snapshot.snapshot().exact:
@@ -1104,9 +1140,9 @@ def cluster_phase(seed: int, smi: str) -> None:
             found = real_check(server.scheduler, raise_on_violation=False)
             if found:
                 raise SystemExit(f"cluster: {device} invariant violations {found[:5]}")
-        log(f"phase cluster: invariants I1-I5 (I5 over {N_NODES} mirror rows) checked after each of the cuda "
-            f"server's {filters} driver Filters, 0 violations, median {statistics.median(checked['ms']):.1f} ms a "
-            f"check; both servers hold them at the end | {smi}")
+        log(f"phase cluster: invariants I1-I5 (I5 over {N_NODES} mirror rows) checked after {filters} of the "
+            f"cuda server's {n_probes} driver Filters, 0 violations, median {statistics.median(checked['ms']):.1f} "
+            f"ms a check; both servers hold them at the end | {smi}")
 
         # Prometheus text, with the fast-lane counter equal to the probes
         ctype, raw = card.get("/metrics", accept="text/plain")
@@ -1418,13 +1454,16 @@ def resilience_phase(seed: int, smi: str) -> None:
 
 # -- phase delta: the delta-solve engine on against off ---------------------------
 
-DELTA_POLICIES = ("tpu-batch", "tpu-batch-minimal-fragmentation")
+# the policies of phase delta and the segments each runs: segment (a)
+# under distribute-evenly too, so the engine is held on against off and
+# cuda against cpu under every tensor-lane name
+DELTA_POLICIES = {"tpu-batch": "abc", "tpu-batch-minimal-fragmentation": "abc", "tpu-batch-distribute-evenly": "a"}
 DELTA_FILTERS = 200  # Filters a segment
 DELTA_GRANT_EVERY = 10  # segment (c): every 10th Filter is an app that is granted and starts
 # the queued drivers' Filters of segments (a) and (b) the cpu server
 # answers too: its warm passes are the plain versions' suffixes, seconds a
 # Filter on the host under min-frag
-DELTA_CPU_EVERY = {"tpu-batch": 20, "tpu-batch-minimal-fragmentation": 40}
+DELTA_CPU_EVERY = {"tpu-batch": 20, "tpu-batch-minimal-fragmentation": 40, "tpu-batch-distribute-evenly": 20}
 DELTA_CPU_COLD = 2  # segment (c): queued drivers' Filters the cpu server answers, each a cold pass
 DELTA_SEGMENTS = {
     "a": "retries of queued drivers in random order, nothing changes between them",
@@ -1454,8 +1493,14 @@ def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -
     (the 10,240 x 1,024 bucket, 1,000 valid apps), stride 64: a whole-queue
     pass and a suffix pass from the checkpoint at position 384 against
     their plain versions (outputs and every checkpoint), and a pass
-    resumed from every checkpoint against the whole-queue pass.  Returns
-    {kernel name: (ms runs, plain ms, bytes bound ms, operations bound ms)}."""
+    resumed from every checkpoint against the whole-queue pass.  Then the
+    tightly-pack and min-frag launches at 20,480 nodes (the main path's
+    cluster twice over, the same 1,000 apps), whole queue and a 640-app
+    suffix, against their plain versions and timed: the class-compressed
+    stepping question (ROADMAP A.3b) asks what a launch costs at the
+    reference's 20,000-node threshold.  Returns {kernel name: (ms runs,
+    plain ms, bytes bound ms, operations bound ms)} at the main path's
+    inputs."""
     from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
     from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
 
@@ -1510,7 +1555,52 @@ def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -
             f"the suffix of {a_b - r} apps {resume_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations {t_ops:.4f}) | {smi}")
         out[name] = (ms, plain_ms, t_bytes, t_ops)
+    big_args = doubled_cluster(queue_args)
+    n_big = big_args[0].shape[0]
+    for kname, policy in (("fifo_queue_tightly", 0), ("fifo_queue_min_frag", 2)):
+        def kernel(args, base, chk):
+            if policy == 2:
+                return mk.fifo_queue_min_frag(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
+            return qk.fifo_queue(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
+
+        def plain(args, base, chk):
+            if policy == 2:
+                return mk.solve_queue_min_frag_plain(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
+            return qk.solve_queue_plain(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
+
+        name = kname + "_checkpointed"
+        blank = torch.full((k, n_big, 3), -7, dtype=torch.int32, device=big_args[0].device)
+        chk, chk_plain = blank.clone(), blank.clone()
+        got = kernel(big_args, 0, chk)
+        want, plain_ms = timed_once(lambda: plain(big_args, 0, chk_plain))
+        check(name, got + (chk,), want + (chk_plain,), f"N={n_big}, every checkpoint")
+        r = 6 * DELTA_STRIDE
+        suffix = (chk[5].clone(),) + big_args[1:3] + tuple(x[r:] for x in big_args[3:])
+        s_chk, s_chk_plain = blank.clone(), blank.clone()
+        s_want, s_plain_ms = timed_once(lambda: plain(suffix, r, s_chk_plain))
+        check(name, kernel(suffix, r, s_chk) + (s_chk,), s_want + (s_chk_plain,), f"N={n_big}, a suffix from {r}")
+        ms = [time_cuda(lambda: kernel(big_args, 0, chk), 5) for _ in range(3)]
+        suffix_ms = [time_cuda(lambda: kernel(suffix, r, s_chk), 5) for _ in range(3)]
+        n_feasible = int(got[0].sum())
+        per_app = MF_OPS_PER_NODE_FEASIBLE_APP if policy == 2 else OPS_PER_NODE_FEASIBLE_APP
+        ops = n_big * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * per_app)
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        log(f"phase delta: {name} N={n_big} A={a_b} ({n_valid} valid, {n_feasible} feasible, {k} checkpoints): "
+            f"outputs and every checkpoint equal to the plain version, a suffix of {a_b - r} apps from "
+            f"position {r} too; whole queue {statistics.median(ms):.3f} ms (runs "
+            f"{', '.join(f'{x:.3f}' for x in ms)}), suffix {statistics.median(suffix_ms):.3f} ms (runs "
+            f"{', '.join(f'{x:.3f}' for x in suffix_ms)}), plain {plain_ms:.1f} / {s_plain_ms:.1f} ms, "
+            f"operations bound {t_ops:.4f} ms | {smi}")
     return out
+
+
+def doubled_cluster(queue_args):
+    """The main path's queue with its cluster twice over: every node
+    plane repeated, the copies' driver ranks after the originals'."""
+    avail, rank, exec_ok = queue_args[:3]
+    n = avail.shape[0]
+    rank2 = torch.where(rank < BIG, rank + n, rank)
+    return (torch.cat([avail, avail]), torch.cat([rank, rank2]), torch.cat([exec_ok, exec_ok])) + tuple(queue_args[3:])
 
 
 def unrelated_reservation(server, tag: str, created: float, node: str) -> None:
@@ -1582,6 +1672,8 @@ def delta_phase(seed: int, smi: str) -> dict:
                 mk.reset_launch_counts()
                 n_compared = n_granted = 0
                 for seg, what in DELTA_SEGMENTS.items():
+                    if seg not in DELTA_POLICIES[policy]:
+                        continue
                     lat = {"on": [], "off": []}
                     traces = []
                     stats0, depth0 = engine.stats(), len(depths)
@@ -1665,7 +1757,8 @@ def delta_phase(seed: int, smi: str) -> dict:
                         raise SystemExit(f"{policy} segment b: only {digest} of {n} Filters warmed by the digest")
                 counts = {**qk.launch_counts, **mk.launch_counts}
                 launches[kname + "_checkpointed"] = counts[kname + "_checkpointed"]
-                log(f"phase delta: {policy}: {3 * DELTA_FILTERS} Filters on each cuda server ({n_granted} "
+                log(f"phase delta: {policy}: {len(DELTA_POLICIES[policy]) * DELTA_FILTERS} Filters on each cuda "
+                    f"server ({n_granted} "
                     f"granted), {n_compared} of them equal on a cpu server too; launches {counts} (the "
                     f"engine-off server's whole-queue passes count under {kname}, the session's under "
                     f"{kname}_checkpointed; the refusals' explanations under {kname})")
@@ -1700,6 +1793,288 @@ def delta_phase(seed: int, smi: str) -> dict:
     finally:
         logging.disable(logging.NOTSET)
     return launches
+
+
+# -- phase observatory: the capacity observatory and the lifecycle ledger ------
+
+OBSERVATORY_POLICY = "tpu-batch"
+OBSERVATORY_WARM = 4  # probes on all three servers before the cuda and cpu samples
+OBSERVATORY_PROBES = 100  # granted probes, each retired, on each of the on and off servers
+# the probes go in blocks of this many, on and off in turns (on, off, off,
+# on, ...), each block's probes posted to its own server alone: all
+# servers share one process, so a probe of the off server taken while the
+# on server samples would pay the on server's cost, and a probe of the off
+# server between two on probes would give the on server's threads time
+# outside the timed windows; each block starts once the on server's
+# background work has stopped
+OBSERVATORY_BLOCK = 25
+OBSERVATORY_REPS = 5  # CUDA-event timings of each probe program, and samples timed
+# the fields of a capacity sample that name the serving process or the
+# host's clock rather than the cluster: the sample's time source read, its
+# cost, where the probes ran, the mirror's process-local instance number,
+# and the queue entries' ages and forecasts (the host clock's now)
+SAMPLE_HOST_FIELDS = ("t", "sampleMs", "probeLane")
+QUEUE_HOST_FIELDS = ("ageSeconds", "forecastSeconds")
+
+
+def sample_fields(sample: dict) -> dict:
+    out = {k: v for k, v in sample.items() if k not in SAMPLE_HOST_FIELDS}
+    out["contentKey"], out["structureKey"] = sample["contentKey"][1:], sample["structureKey"][1:]
+    out["classes"] = {k: v for k, v in sample["classes"].items() if k != "expandMs"}
+    out["queue"] = [{k: v for k, v in e.items() if k not in QUEUE_HOST_FIELDS} for e in sample["queue"]]
+    return out
+
+
+def probe_programs_ms(server, sample: dict):
+    """The sampler's two device programs as it runs them, on the server's
+    current snapshot and the sample's shapes, each timed by CUDA events
+    (median of OBSERVATORY_REPS after one warmup) and its headroom held
+    to the sample's: the row-level frag report and headroom search over
+    the cluster and its (instance-group, zone) combos, and the class lane
+    (grouping, weighted frag report and search).  Returns (row ms, class
+    ms, segments)."""
+    from k8s_spark_scheduler_tpu_torch.capacity.observatory import CapacitySample
+
+    sampler = server.scheduler.capacity
+    snap = server.scheduler.tensor_snapshot.snapshot()
+    avail, elig = snap.avail, snap.ready & ~snap.unschedulable
+    layout = sampler._layout(snap)
+    shape_list = []
+    for key in sorted(sample["headroom"]):  # d<cpu>.<mem>.<gpu>-e<cpu>.<mem>.<gpu>
+        d, e = key[1:].split("-e")
+        shape_list.append((key, (tuple(int(x) for x in d.split(".")), tuple(int(x) for x in e.split(".")))))
+    shape_rows = np.array([list(d) + list(e) for _, (d, e) in shape_list], dtype=np.int64)
+
+    def row_level():
+        out = CapacitySample(seq=0, content_key=(), structure_key=(), t=0.0, trigger="timed")
+        sampler._row_level(avail, elig, shape_list, shape_rows, layout, True, out)
+        return {key: entry["headroom"] for key, entry in out.headroom.items()}
+
+    def class_lane():
+        out = CapacitySample(seq=0, content_key=(), structure_key=(), t=0.0, trigger="timed")
+        sampler._class_lane(snap, avail, elig, shape_list, shape_rows, out)
+        return out.classes["headroom"]
+
+    out = []
+    for fn, want in ((row_level, {k: v["headroom"] for k, v in sample["headroom"].items()}),
+                     (class_lane, sample["classes"]["headroom"])):
+        if fn() != want:
+            raise SystemExit(f"the timed {fn.__name__} program's headroom differs from the sample's")
+        out.append(statistics.median(time_cuda(fn, 1) for _ in range(OBSERVATORY_REPS)))
+    return out[0], out[1], len(layout.combos) + 1
+
+
+# the parts of one sample, in the order the sampler runs them: the
+# snapshot copy, the pending-driver listing and sort, the gangs' demand
+# parse, the (group, zone) layout (cached per structure), the row-level
+# programs, the class lane, the tenant sums, the forecast; and the gauges,
+# published after sampleMs is taken
+SAMPLE_PARTS = ("_pending_drivers", "_gang_rows", "_layout", "_row_level", "_class_lane", "_tenants",
+                "_forecast", "_publish")
+
+
+def sample_split(sampler, reps: int) -> tuple:
+    """``reps`` whole samples, each part timed by the host clock around
+    the sampler's own method: (sampleMs of each, {part: median ms})."""
+    spent = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t) * 1000.0
+        return wrapper
+
+    class Cache:
+        def __init__(self, cache):
+            self._cache = cache
+            self.snapshot = timed("snapshot", cache.snapshot)
+
+        def __getattr__(self, name):
+            return getattr(self._cache, name)
+
+    cache = sampler._cache
+    sampler._cache = Cache(cache)
+    for name in SAMPLE_PARTS:
+        setattr(sampler, name, timed(name, getattr(sampler, name)))
+    runs, parts = [], {}
+    try:
+        for _ in range(reps):
+            spent.clear()
+            t = time.perf_counter()
+            sample = sampler.sample_now()
+            spent["whole call"] = (time.perf_counter() - t) * 1000.0
+            runs.append(sample.sample_ms)
+            for name, ms in spent.items():
+                parts.setdefault(name, []).append(ms)
+    finally:
+        sampler._cache = cache
+        for name in SAMPLE_PARTS:
+            delattr(sampler, name)
+    return runs, {name: statistics.median(ms) for name, ms in parts.items()}
+
+
+def observatory_phase(seed: int, smi: str) -> None:
+    """Phase observatory (see the module docstring).  Raises SystemExit on
+    any failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    try:
+        t0 = time.perf_counter()
+        names, nodes, queue, rng, base = server_objects(seed)
+        servers = {}
+        try:
+            servers["on"] = PortServer(OBSERVATORY_POLICY, "cuda", nodes, queue)
+            servers["off"] = PortServer(OBSERVATORY_POLICY, "cuda", nodes, queue, observatories=False)
+            servers["cpu"] = PortServer(OBSERVATORY_POLICY, "cpu", nodes, queue)
+            on, off, cpu = servers["on"], servers["off"], servers["cpu"]
+            if off.scheduler.capacity is not None or on.scheduler.capacity is None:
+                raise SystemExit("the observatories' switch did not reach the servers")
+            log(f"phase observatory: {OBSERVATORY_POLICY}: servers with the observatories on (cuda), off (cuda) "
+                f"and on (cpu) ready in {time.perf_counter() - t0:.2f} s")
+            served = {side: 0 for side in servers}
+
+            def probe(tag: str, sides) -> tuple:
+                """A small gang that fits: its Filter on each side in order,
+                bodies equal, then retired everywhere."""
+                pods = Harness.static_allocation_spark_pods(
+                    tag, int(rng.randint(1, 5)), executor_cpu=str(int(rng.randint(1, 5))),
+                    executor_mem=f"{int(rng.randint(2, 9))}Gi", creation_timestamp=base + N_APPS + sum(served.values()))
+                for side in sides:
+                    servers[side].api.create(pods[0].deepcopy())
+                answers, ms = {}, {}
+                for side in sides:
+                    ms[side], status, body = servers[side].post(pods[0], names)
+                    answers[side] = (status, body)
+                    served[side] += 1
+                first = answers[sides[0]]
+                if any(a != first for a in answers.values()) or first[0] != 200:
+                    raise SystemExit(f"observatory probe {tag}: " + ", ".join(
+                        f"{side} {a[0]} {a[1][:200]!r}" for side, a in answers.items()))
+                if not json.loads(first[1]).get("NodeNames"):
+                    raise SystemExit(f"observatory probe {tag} was not granted: {first[1][:300]!r}")
+                for side in sides:
+                    servers[side].retire(pods[:1])
+                return ms
+
+            # 1. the same Filters on all three, then a sample on cuda and cpu
+            for i in range(OBSERVATORY_WARM):
+                probe(f"obs-warm-{i}", ("on", "off", "cpu"))
+            for side in ("on", "cpu"):
+                servers[side].settle_embedded()
+            samples = {side: servers[side].scheduler.capacity.sample_now().to_dict() for side in ("on", "cpu")}
+            if sample_fields(samples["on"]) != sample_fields(samples["cpu"]):
+                diff = [k for k in samples["on"] if sample_fields(samples["on"]).get(k)
+                        != sample_fields(samples["cpu"]).get(k)]
+                raise SystemExit(f"phase observatory: the cuda and cpu samples differ in {diff}")
+            s = samples["on"]
+            if s["probeLane"] != "cuda" or samples["cpu"]["probeLane"] != "torch" or s["nodes"] != N_NODES:
+                raise SystemExit(f"phase observatory: lanes {s['probeLane']} / {samples['cpu']['probeLane']}, "
+                                 f"{s['nodes']} nodes")
+            log(f"phase observatory: after {OBSERVATORY_WARM} Filters on each server, the cuda and cpu samples "
+                f"are equal (less {', '.join(SAMPLE_HOST_FIELDS)}, classes.expandMs, the mirror's instance "
+                f"number and the queue's {', '.join(QUEUE_HOST_FIELDS)}): seq {s['seq']}, {s['nodes']} nodes, "
+                f"{len(s['headroom'])} shapes ({s['shapesDropped']} dropped), {len(s['groups'])} groups, "
+                f"{s['classes']['count']} classes, {s['queuedGangs']} queued gangs, pressure {s['pressure']}, "
+                f"{s['probeSolves']} probe solves; sampleMs cuda {s['sampleMs']}, cpu "
+                f"{samples['cpu']['sampleMs']} (expandMs {s['classes']['expandMs']} / "
+                f"{samples['cpu']['classes']['expandMs']})")
+
+            # 2. the probe programs by CUDA events, and whole samples
+            row_ms, class_ms, n_segments = probe_programs_ms(on, s)
+            sample_ms, parts = sample_split(on.scheduler.capacity, OBSERVATORY_REPS)
+            log(f"phase observatory: the sampler's programs at {N_NODES} nodes x {len(s['headroom'])} shapes "
+                f"(upload, program, one copy out), CUDA events, median of {OBSERVATORY_REPS}: row-level (frag "
+                f"report and headroom search over {n_segments} segments: the cluster and its (group, zone) "
+                f"combos) {row_ms:.3f} ms, class lane ({s['classes']['count']} classes: grouping, frag report "
+                f"and search) {class_ms:.3f} ms; a whole sample (host clock) median "
+                f"{statistics.median(sample_ms):.3f} ms (runs {', '.join(f'{x:.1f}' for x in sample_ms)}) | {smi}")
+            inside = sum(parts.get(name, 0.0) for name in ("snapshot",) + SAMPLE_PARTS[:-1])
+            log(f"phase observatory: one sample's parts, host clock, median of {OBSERVATORY_REPS} ms: "
+                + ", ".join(f"{name.strip('_')} {parts.get(name, 0.0):.3f}" for name in ("snapshot",) + SAMPLE_PARTS)
+                + f"; the rest of sampleMs {statistics.median(sample_ms) - inside:.3f}, the whole call "
+                f"{parts['whole call']:.3f} | {smi}")
+
+            # 3. granted probes on the on and off cuda servers, in blocks in turns
+            def quiet(server) -> None:
+                """Until the server's sampler and ledger stop counting."""
+                last, deadline = None, time.monotonic() + WAIT_S
+                while time.monotonic() < deadline:
+                    now = (server.scheduler.capacity.stats()["samples"], server.scheduler.lifecycle.stats()["drains"])
+                    if now == last:
+                        return
+                    last = now
+                    time.sleep(0.6)
+                raise SystemExit("phase observatory: the on server's background work did not stop")
+
+            cap0, led0 = on.scheduler.capacity.stats(), on.scheduler.lifecycle.stats()
+            lat = {"on": [], "off": []}
+            blocks = ["on", "off", "off", "on"] * (OBSERVATORY_PROBES // (2 * OBSERVATORY_BLOCK))
+            for b, side in enumerate(blocks):
+                quiet(on)
+                for j in range(OBSERVATORY_BLOCK):
+                    lat[side].append(probe(f"obs-probe-{b}-{j:02d}", (side,))[side])
+            cap1, led1 = on.scheduler.capacity.stats(), on.scheduler.lifecycle.stats()
+            quiet(on)
+            ledger = on.scheduler.lifecycle
+            drain_ms = []
+            for _ in range(OBSERVATORY_REPS):
+                t = time.perf_counter()
+                ledger.drain(trigger="timed")
+                drain_ms.append((time.perf_counter() - t) * 1000.0)
+            for side in ("on", "off"):
+                log(f"phase observatory: {OBSERVATORY_POLICY} observatories {side}: /predicates p50 "
+                    f"{statistics.median(lat[side]):.3f} ms, p99 {float(np.percentile(lat[side], 99)):.3f} ms over "
+                    f"{len(lat[side])} granted probes, each retired, in blocks of {OBSERVATORY_BLOCK} in turns "
+                    f"({', '.join(blocks)}; the 3 slowest "
+                    f"{', '.join(f'{x:.1f}' for x in sorted(lat[side])[-3:])}) | {smi}")
+            log(f"phase observatory: over those probes the on server took {cap1['samples'] - cap0['samples']} "
+                f"samples ({cap1['skipped_unchanged'] - cap0['skipped_unchanged']} skipped unchanged, "
+                f"{cap1['probe_solves'] - cap0['probe_solves']} probe solves) and {led1['drains'] - led0['drains']} "
+                f"ledger drains ({led1['skipped_unchanged'] - led0['skipped_unchanged']} skipped); a ledger drain "
+                f"with nothing new (host clock, median of {OBSERVATORY_REPS}) "
+                f"{statistics.median(drain_ms):.3f} ms | {smi}")
+
+            # 4. no probe or drain under the predicate lock, no class-lane failure
+            for side in ("on", "cpu"):
+                sched = servers[side].scheduler
+                bad = (sched.capacity.lock_violations, sched.lifecycle.lock_violations,
+                       sched.capacity.stats()["class_lane_failures"])
+                if any(bad):
+                    raise SystemExit(f"phase observatory: {side} server lock violations (sampler, ledger) and "
+                                     f"class-lane failures {bad}")
+
+            # 5. what an operator reads
+            _, body = on.get("/slo")
+            card = json.loads(body)
+            counted = card["objectives"]["filter_latency"]["total"]
+            if counted < served["on"]:
+                raise SystemExit(f"/slo counted {counted} Filters, the server served {served['on']}")
+            _, body = on.get("/lifecycle")
+            listed = {g["app"] for g in json.loads(body)["gangs"]}
+            apps = {f"obs-warm-{i}" for i in range(OBSERVATORY_WARM)} | {
+                f"obs-probe-{b}-{j:02d}" for b, side in enumerate(blocks) if side == "on"
+                for j in range(OBSERVATORY_BLOCK)}
+            if apps - listed:
+                raise SystemExit(f"/lifecycle lacks {sorted(apps - listed)[:5]}")
+            _, body = on.get("/state/capacity")
+            latest = json.loads(body)
+            if latest["nodes"] != N_NODES or latest["probeLane"] != "cuda":
+                raise SystemExit(f"/state/capacity: {body[:300]!r}")
+            log(f"phase observatory: /slo filter_latency counted {counted} of the {served['on']} Filters served "
+                f"(state {card['objectives']['filter_latency']['state']}), /lifecycle lists all "
+                f"{len(apps)} probe apps among {len(listed)} gangs, /state/capacity seq {latest['seq']}; lock "
+                f"violations 0 and class-lane failures 0 on the cuda and cpu servers")
+        finally:
+            for server in servers.values():
+                server.stop()
+    finally:
+        logging.disable(logging.NOTSET)
 
 
 def session_stream(problem, n_earlier: int, smi: str) -> None:
@@ -2397,7 +2772,13 @@ def main() -> int:
     log(f"phase delta: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 9: results
+    # ---- phase observatory: the capacity observatory and the lifecycle ledger
+    t = time.perf_counter()
+    observatory_phase(args.seed, smi)
+    log(f"phase observatory: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 10: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,13 +9,14 @@ its configs load unchanged.  Subsystems this package does not have yet
 enables one raises ``ValueError`` naming the ROADMAP item, a key that
 leaves it off is accepted, and an unknown key raises too — no key is
 dropped without a word.  A config that omits a key gets the reference's
-default, and several of those defaults turn a subsystem ON in the
-reference (capacity, contention and lifecycle default to enabled):
-``Install.reference_only`` names each such subsystem, and the server
-logs one warning for each at start.  Resilience (always on, as in the
-reference), provenance (on by default), delta-solve (default true) and
-class aggregation (``classes``, enabled by default) are this package's
-own: they load with the reference's keys and defaults.
+default, and one of those defaults turns a subsystem ON that this
+package lacks (contention defaults to enabled): ``Install.reference_only``
+names each such subsystem, and the server logs one warning for each at
+start.  Resilience (always on, as in the reference), provenance (on by
+default), delta-solve (default true), class aggregation (``classes``),
+the capacity observatory (``capacity``) and the lifecycle ledger with
+its SLO engine (``lifecycle``), all enabled by default, are this
+package's own: they load with the reference's keys and defaults.
 """
 
 from __future__ import annotations
@@ -181,6 +182,100 @@ class ClassesConfig:
         )
 
 
+_CAPACITY_KEYS = {
+    "enabled",
+    "ring-size",
+    "debounce-seconds",
+    "interval-seconds",
+    "max-shapes",
+    "max-group-zones",
+    "max-queue",
+}
+
+
+@dataclass
+class CapacityConfig:
+    """Capacity observatory (capacity/): fragmentation/headroom
+    analytics, queue-pressure forecasts, and the ``/state/capacity``
+    timeline.  Diagnostic only — no scheduling decision consumes an
+    observatory output.
+
+    Sampling is change-triggered (the state layer's ChangeFeed wakes
+    the sampler thread, debounced) with ``interval_seconds`` as the
+    idle-heartbeat fallback.  Cardinality caps bound both the probe
+    cost and the label sets the headroom gauge can emit."""
+
+    enabled: bool = True
+    ring_size: int = 256
+    debounce_seconds: float = 0.25
+    interval_seconds: float = 15.0
+    max_shapes: int = 16
+    max_group_zones: int = 16
+    max_queue: int = 64
+
+    @staticmethod
+    def from_dict(d: dict) -> "CapacityConfig":
+        _check_keys(d, _CAPACITY_KEYS, "capacity")
+        return CapacityConfig(
+            enabled=d.get("enabled", True),
+            ring_size=d.get("ring-size", 256),
+            debounce_seconds=d.get("debounce-seconds", 0.25),
+            interval_seconds=d.get("interval-seconds", 15.0),
+            max_shapes=d.get("max-shapes", 16),
+            max_group_zones=d.get("max-group-zones", 16),
+            max_queue=d.get("max-queue", 64),
+        )
+
+
+_LIFECYCLE_KEYS = {
+    "enabled",
+    "ring-size",
+    "debounce-seconds",
+    "interval-seconds",
+    "window-scale",
+    "sample-cap",
+    "objectives",
+}
+
+
+@dataclass
+class LifecycleConfig:
+    """Gang lifecycle ledger + SLO engine (lifecycle/): per-application
+    state machine, burn-rate objectives, and the ``/slo`` +
+    ``/lifecycle`` scorecard endpoints.  Diagnostic only — no
+    scheduling decision consumes a ledger or SLO output.
+
+    Draining is change-triggered (EventLog emits and the state layer's
+    ChangeFeed wake the ledger thread, debounced) with
+    ``interval_seconds`` as the idle-heartbeat fallback.
+    ``window_scale`` multiplies every SLO alert window (1 h/5 m and
+    6 h/30 m) so short virtual-clock timelines can compress the policy
+    without changing the algebra; ``objectives`` overrides
+    per-objective ``target``/``threshold`` (keys: time_to_admit,
+    filter_latency, eviction_waste, fairness_gap)."""
+
+    enabled: bool = True
+    ring_size: int = 2048
+    debounce_seconds: float = 0.05
+    interval_seconds: float = 5.0
+    window_scale: float = 1.0
+    sample_cap: int = 4096
+    objectives: Dict[str, Dict[str, float]] = field(default_factory=dict)
+
+    @staticmethod
+    def from_dict(d: dict) -> "LifecycleConfig":
+        _check_keys(d, _LIFECYCLE_KEYS, "lifecycle")
+        return LifecycleConfig(
+            enabled=d.get("enabled", True),
+            ring_size=d.get("ring-size", 2048),
+            debounce_seconds=d.get("debounce-seconds", 0.05),
+            interval_seconds=d.get("interval-seconds", 5.0),
+            window_scale=d.get("window-scale", 1.0),
+            sample_cap=d.get("sample-cap", 4096),
+            objectives=d.get("objectives", {}),
+        )
+
+
 @dataclass
 class ConversionWebhookConfig:
     """Where the apiserver would reach the CRD conversion webhook
@@ -200,11 +295,9 @@ class ConversionWebhookConfig:
 # section turns its subsystem on when its "enabled" (or that default)
 # is true.
 _UNPORTED_SECTIONS = {
-    "capacity": (True, "ROADMAP A.6.3 (capacity observatory)"),
     "contention": (True, "ROADMAP A.6.7 (contention observatory)"),
     "policy": (False, "ROADMAP A.6.5 (scheduling policy)"),
     "ha": (False, "ROADMAP A.6.6 (HA failover)"),
-    "lifecycle": (True, "ROADMAP A.6.4 (lifecycle ledger and SLO engine)"),
     "concurrent": (False, "ROADMAP A.4 (concurrent admission)"),
 }
 # what the reference runs on a config that omits every key and this
@@ -233,6 +326,8 @@ _KNOWN_KEYS = {
     "resilience",
     "provenance",
     "classes",
+    "capacity",
+    "lifecycle",
     *_UNPORTED_SECTIONS,
 }
 _FIFO_KEYS = {"default-enforce-after-pod-age-seconds", "enforce-after-pod-age-by-instance-group"}
@@ -302,6 +397,12 @@ class Install:
     provenance: ProvenanceConfig = field(default_factory=ProvenanceConfig)
     # class-digest warm tier (state/classindex.py, ops/deltasolve.py)
     classes: ClassesConfig = field(default_factory=ClassesConfig)
+    # capacity observatory: fragmentation/headroom analytics and the
+    # /state/capacity timeline (capacity/) — diagnostic only
+    capacity: CapacityConfig = field(default_factory=CapacityConfig)
+    # gang lifecycle ledger + SLO burn-rate engine (lifecycle/) —
+    # diagnostic only
+    lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
     # subsystems the reference would run on this config and this package
     # lacks, as (subsystem, ROADMAP item); from_dict derives it from the
     # keys given, a directly built Install has the reference's defaults
@@ -367,5 +468,7 @@ class Install:
             resilience=ResilienceConfig.from_dict(d.get("resilience") or {}),
             provenance=ProvenanceConfig.from_dict(d.get("provenance") or {}),
             classes=ClassesConfig.from_dict(d.get("classes") or {}),
+            capacity=CapacityConfig.from_dict(d.get("capacity") or {}),
+            lifecycle=LifecycleConfig.from_dict(d.get("lifecycle") or {}),
             reference_only=_reference_only(d),
         )

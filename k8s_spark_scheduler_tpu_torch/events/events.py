@@ -5,9 +5,10 @@ demand_deleted.  Events are appended to a bounded in-memory ring (for
 tests/inspection) and emitted to the standard logger (the reference's
 evt2log analog).
 
-Per-key secondary indexes (name, trace id) are evicted in lockstep with
-the ring so ``by_name``/``by_trace_id`` are O(matches) instead of a full
-scan.
+The ring carries a monotonic sequence so cursor-based consumers (the
+lifecycle ledger) can drain incrementally off-thread, and per-key
+secondary indexes (name, trace id) evicted in lockstep with the ring so
+``by_name``/``by_trace_id`` are O(matches) instead of a full scan.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import logging
 import threading
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 from .. import timesource
 
@@ -44,11 +45,18 @@ class EventLog:
         self._capacity = capacity
         self._events: deque[Event] = deque(maxlen=capacity)
         self._lock = threading.Lock()
+        # total appends ever — the ring holds events with sequence in
+        # (_seq - len(_events), _seq]; consumers cursor on this
+        self._seq = 0
         # secondary indexes, evicted in lockstep with the ring: each
         # bucket is a deque in insertion order, so the ring's oldest
         # event is also the leftmost entry of its buckets
         self._by_name: Dict[str, deque] = {}
         self._by_trace: Dict[str, deque] = {}
+        # optional wakeup Events set on every emit (outside the lock),
+        # so the lifecycle ledger drains on activity instead of polling
+        self._wakeups: Tuple[Any, ...] = ()
+
     def emit(self, name: str, **values: Any) -> None:
         from ..tracing import current_trace_id
 
@@ -57,11 +65,15 @@ class EventLog:
             if len(self._events) == self._capacity:
                 self._unindex_oldest()
             self._events.append(event)
+            self._seq += 1
             self._by_name.setdefault(event.name, deque()).append(event)
             if event.trace_id:
                 self._by_trace.setdefault(event.trace_id, deque()).append(
                     event
                 )
+            wakeups = self._wakeups
+        for wakeup in wakeups:
+            wakeup.set()
         if event.trace_id:
             logger.info("%s traceId=%s %s", name, event.trace_id, values)
         else:
@@ -83,6 +95,17 @@ class EventLog:
                 if not bucket:
                     del self._by_trace[old.trace_id]
 
+    def attach_wakeup(self, event) -> None:
+        """Add a wakeup Event set on every emit.  Multi-listener:
+        appends rather than replaces (wiring-time call)."""
+        with self._lock:
+            self._wakeups = self._wakeups + (event,)
+
+    @property
+    def seq(self) -> int:
+        with self._lock:
+            return self._seq
+
     def all(self) -> List[Event]:
         with self._lock:
             return list(self._events)
@@ -98,6 +121,21 @@ class EventLog:
         with self._lock:
             bucket = self._by_trace.get(trace_id)
             return list(bucket) if bucket else []
+
+    def events_since(self, seq: int) -> Tuple[List[Event], int]:
+        """Events appended after ``seq`` (oldest first, truncated to
+        the ring's reach) and the current sequence to cursor on."""
+        with self._lock:
+            total = self._seq
+            fresh = total - seq
+            if fresh <= 0:
+                return [], total
+            n = min(fresh, len(self._events))
+            if n == 0:
+                return [], total
+            events = list(self._events)[-n:]
+        return events, total
+
 
 # module-level default sink (swappable for tests)
 default_event_log = EventLog()

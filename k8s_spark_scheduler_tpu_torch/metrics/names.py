@@ -152,7 +152,69 @@ CLASSES_REBUILD_COUNT = "foundry.spark.scheduler.tpu.classes.rebuild.count"
 # (milliseconds; histogram)
 CLASSES_EXPAND_MS = "foundry.spark.scheduler.tpu.classes.expand.ms"
 
+# capacity observatory (capacity/): fragmentation/headroom analytics,
+# queue-pressure forecasts, and the /state/capacity timeline
+# per-dim total free capacity over schedulable nodes (base units)
+CAPACITY_FREE = "foundry.spark.scheduler.tpu.capacity.free"
+# per-dim largest single-node free chunk (base units)
+CAPACITY_LARGEST_CHUNK = "foundry.spark.scheduler.tpu.capacity.largest.chunk"
+# per-dim fragmentation index: 1 − largest-chunk/total-free
+CAPACITY_FRAGMENTATION = "foundry.spark.scheduler.tpu.capacity.fragmentation"
+# largest admissible gang per (shape, instance-group, zone); empty
+# group/zone tags = cluster-wide
+CAPACITY_HEADROOM = "foundry.spark.scheduler.tpu.capacity.headroom"
+# per-instance-group max-dimension reserved/allocatable ratio
+CAPACITY_UTILIZATION = "foundry.spark.scheduler.tpu.capacity.utilization"
+# pending driver gangs / the subset that does not fit right now
+CAPACITY_QUEUED_GANGS = "foundry.spark.scheduler.tpu.capacity.queued.gangs"
+CAPACITY_QUEUE_PRESSURE = (
+    "foundry.spark.scheduler.tpu.capacity.queue.pressure"
+)
+# forecast seconds until a fitting queued gang admits
+CAPACITY_TIME_TO_ADMIT = "foundry.spark.scheduler.tpu.capacity.time.to.admit"
+# sampler self-observability
+CAPACITY_SAMPLE_COUNT = "foundry.spark.scheduler.tpu.capacity.sample.count"
+CAPACITY_SAMPLE_TIME = "foundry.spark.scheduler.tpu.capacity.sample.time"
+CAPACITY_PROBE_SOLVES = "foundry.spark.scheduler.tpu.capacity.probe.solves"
+
+# gang lifecycle ledger (lifecycle/ledger.py)
+# phase transitions (counter, tagged phase=)
+LIFECYCLE_TRANSITIONS = (
+    "foundry.spark.scheduler.tpu.lifecycle.transitions.count"
+)
+# gangs currently in each phase (gauge, tagged phase=)
+LIFECYCLE_GANGS = "foundry.spark.scheduler.tpu.lifecycle.gangs"
+# gang queue wait submitted→bound (seconds; histogram)
+LIFECYCLE_QUEUE_WAIT = (
+    "foundry.spark.scheduler.tpu.lifecycle.queue.wait.time"
+)
+# per-request solver tenure attributed to a gang (seconds; histogram)
+LIFECYCLE_SOLVE_TENURE = (
+    "foundry.spark.scheduler.tpu.lifecycle.solve.tenure.time"
+)
+# gangs evicted, by coarse cause bucket (counter, tagged cause=)
+LIFECYCLE_EVICTIONS = (
+    "foundry.spark.scheduler.tpu.lifecycle.evictions.count"
+)
+
+# SLO engine (lifecycle/slo.py)
+# good/bad samples per objective (counter, tagged objective=, outcome=)
+SLO_EVENTS = "foundry.spark.scheduler.tpu.slo.events.count"
+# burn rate per objective and alert window (gauge, tagged objective=,
+# window=page-long|page-short|warn-long|warn-short)
+SLO_BURN_RATE = "foundry.spark.scheduler.tpu.slo.burn.rate"
+# error budget remaining over the long ticket window (gauge, 0..1)
+SLO_BUDGET_REMAINING = "foundry.spark.scheduler.tpu.slo.budget.remaining"
+# alert state per objective (gauge: 0 ok, 1 warn, 2 page)
+SLO_STATE = "foundry.spark.scheduler.tpu.slo.state"
+
+TAG_OUTCOME = "outcome"
 TAG_INSTANCE_GROUP = "instance-group"
+TAG_ZONE = "zone"
+TAG_PHASE = "phase"
+TAG_OBJECTIVE = "objective"
+TAG_WINDOW = "window"
+TAG_CAUSE = "cause"
 TAG_HOST = "nodename"
 TAG_LIFECYCLE = "lifecycle"
 TAG_QUEUE_INDEX = "queueIndex"

@@ -10,9 +10,9 @@ fulfillment, so autoscaler-induced delays are visible:
   failed scheduling attempts after fulfillment
 
 Best-effort in-memory state, cleaned up after 6h (waste.go:33-35).
-The reference package's SLO hook (``slo_sink``) and its capacity
-forecast read-out (``scheduling_info``) belong to the lifecycle and
-capacity subsystems, which this package does not have (ROADMAP A.6).
+``slo_sink`` forwards every waste sample to the SLO engine's
+eviction_waste objective (lifecycle/slo.py); ``scheduling_info`` is the
+capacity observatory's read-out of a pod's demand phase boundaries.
 """
 
 from __future__ import annotations
@@ -51,6 +51,11 @@ class WasteMetricsReporter:
         self._instance_group_label = instance_group_label
         self._lock = threading.Lock()
         self._info: Dict[Tuple[str, str], _PodSchedulingInfo] = {}
+        # SLO hook (server/wiring.py): ``slo_sink(waste_type, duration)``
+        # forwards every waste sample to the eviction_waste objective —
+        # this reporter is the single source of truth for waste, so the
+        # SLO engine never re-derives it from raw informer events
+        self.slo_sink = None
 
     # -- wiring (waste.go:88-120) -------------------------------------------
 
@@ -187,6 +192,11 @@ class WasteMetricsReporter:
                 waste_type,
                 duration,
             )
+        if self.slo_sink is not None:
+            try:
+                self.slo_sink(waste_type, duration)
+            except Exception:  # the sink must never break pod handling
+                logger.exception("slo waste sink failed")
 
     def _get_or_create(self, namespace: str, pod_name: str) -> _PodSchedulingInfo:
         info = self._info.get((namespace, pod_name))
@@ -207,3 +217,18 @@ class WasteMetricsReporter:
                     k[1],
                 )
                 del self._info[k]
+
+    def scheduling_info(self, namespace: str, pod_name: str):
+        """Read-only view of a pod's demand phase boundaries for the
+        capacity observatory's time-to-admit forecast (None when the
+        reporter has never seen the pod)."""
+        with self._lock:
+            info = self._info.get((namespace, pod_name))
+            if info is None:
+                return None
+            return {
+                "createdAt": info.created_at,
+                "demandCreatedAt": info.demand_created_at,
+                "demandFulfilledAt": info.demand_fulfilled_at,
+                "lastFailureOutcome": info.last_failure_outcome or None,
+            }

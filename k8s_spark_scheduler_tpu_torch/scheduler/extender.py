@@ -28,12 +28,13 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
 from .. import compat
 from .. import timesource
+from ..capacity import enter_predicate_lock, exit_predicate_lock
 from ..config import FifoConfig
 from ..tracing import spans as tracing
 from ..demands.manager import DemandManager
@@ -178,33 +179,52 @@ class SparkSchedulerExtender:
         self._last_request = 0.0
         # diagnostics: which lane served the last executor reschedule
         self.last_reschedule_path: Optional[str] = None
+        # SLO engine hook (server/wiring.py): reads the precomputed
+        # alert-tag string (e.g. "eviction_waste:page") so decision
+        # traces made during an SLO burn carry that context.  The value
+        # is computed at ledger drain time, never on this path.
+        self.slo_alert_source: Optional[Callable[[], str]] = None
 
     # -- entry point ---------------------------------------------------------
 
     def predicate(self, args: ExtenderArgs) -> ExtenderFilterResult:
         """resource.go:128-183."""
         with self._predicate_lock:
-            # one span per scheduling decision; role/instanceGroup/
-            # outcome/node tags land via add_tag as they are computed.
-            # Becomes the trace root when called outside the HTTP layer.
-            with self._tracer.span(
-                "predicate",
-                {"pod": args.pod.name, "namespace": args.pod.namespace},
-            ):
-                # the request may have queued behind slow decisions for
-                # its whole deadline; answer fail-fast rather than spend
-                # the lock on a caller that already hung up
-                try:
-                    self._check_deadline("lock-acquired")
-                except SchedulingFailure as err:
-                    tracing.add_tag("outcome", err.outcome)
-                    if self._provenance is not None and self._provenance.enabled:
-                        self._provenance.on_trigger(
-                            "deadline-exceeded",
-                            f"{args.pod.namespace}/{args.pod.name} at lock-acquired",
-                        )
-                    return self._fail_with_message(err.outcome, args, str(err))
-                return self._predicate_locked(args)
+            # mark lock tenure in the thread-local the capacity sampler
+            # and the lifecycle ledger check: a probe or a drain invoked
+            # from inside a decision would stretch lock hold time, so
+            # they refuse it
+            enter_predicate_lock()
+            try:
+                # one span per scheduling decision; role/instanceGroup/
+                # outcome/node tags land via add_tag as they are
+                # computed.  Becomes the trace root when called outside
+                # the HTTP layer.
+                with self._tracer.span(
+                    "predicate",
+                    {"pod": args.pod.name, "namespace": args.pod.namespace},
+                ):
+                    if self.slo_alert_source is not None:
+                        alert = self.slo_alert_source()
+                        if alert:
+                            tracing.add_tag("sloAlert", alert)
+                    # the request may have queued behind slow decisions
+                    # for its whole deadline; answer fail-fast rather
+                    # than spend the lock on a caller that already hung
+                    # up
+                    try:
+                        self._check_deadline("lock-acquired")
+                    except SchedulingFailure as err:
+                        tracing.add_tag("outcome", err.outcome)
+                        if self._provenance is not None and self._provenance.enabled:
+                            self._provenance.on_trigger(
+                                "deadline-exceeded",
+                                f"{args.pod.namespace}/{args.pod.name} at lock-acquired",
+                            )
+                        return self._fail_with_message(err.outcome, args, str(err))
+                    return self._predicate_locked(args)
+            finally:
+                exit_predicate_lock()
 
     def _check_deadline(self, phase: str) -> None:
         """Phase-boundary deadline check (resilience/deadline.py): one

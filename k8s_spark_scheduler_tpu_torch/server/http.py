@@ -27,6 +27,14 @@
   queue slice, verdicts and, for a refusal, the shortfall and blockers
 - ``GET /debug/schedule/<pod>`` — the pod's last decision trace as a text
   span tree, its events, and the provenance summary
+- ``GET /state/capacity`` (``?group=``, ``?zone=``, ``?ns=``),
+  ``/state/capacity/history?limit=N`` and ``/state/capacity/diff?from=&to=``
+  — the capacity observatory's cluster-state timeline (capacity/)
+- ``GET /slo`` — the scorecard: per-objective multi-window burn-rate
+  status + lifecycle summary (lifecycle/scorecard.py)
+- ``GET /lifecycle`` / ``GET /lifecycle/<app>`` — the gang lifecycle
+  ledger: per-application phase machine with queue-wait / solve-tenure
+  durations and eviction causes (lifecycle/)
 """
 
 from __future__ import annotations
@@ -158,8 +166,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._finish_trace()
 
     def _handle_get(self):
-        split = urlsplit(self.path)
-        path, query = split.path, parse_qs(split.query)
+        path, query = self._split_path()
         if path == "/status/liveness":
             self._send_json(200, {"status": "up"})
         elif path == "/status/readiness":
@@ -205,6 +212,130 @@ class _Handler(BaseHTTPRequestHandler):
             self._handle_debug_schedule(unquote(path[len("/debug/schedule/"):]))
         elif path.startswith("/explain/") and self.scheduler is not None:
             self._handle_explain(unquote(path[len("/explain/"):]))
+        elif path.startswith("/state/capacity") and self.scheduler is not None:
+            self._handle_capacity(path, query)
+        elif path == "/slo" and self.scheduler is not None:
+            self._handle_slo()
+        elif (path == "/lifecycle" or path.startswith("/lifecycle/")) and self.scheduler is not None:
+            self._handle_lifecycle(unquote(path[len("/lifecycle"):]).lstrip("/"))
+        else:
+            self._send_json(404, {"error": "not found"})
+
+    def _split_path(self):
+        parts = urlsplit(self.path)
+        return parts.path, parse_qs(parts.query)
+
+    def _handle_slo(self) -> None:
+        """The live scorecard: burn-rate status per objective plus the
+        lifecycle summary, in the reference's scorecard schema
+        (lifecycle/scorecard.py)."""
+        slo = self.scheduler.slo
+        ledger = self.scheduler.lifecycle
+        if slo is None:
+            self._send_json(404, {"error": "slo engine not enabled"})
+            return
+        if ledger is not None:
+            # freshen: pull any pending cursor work before reporting
+            # (same on-demand pattern as /state/capacity)
+            ledger.maybe_drain(trigger="http")
+        from ..lifecycle import build_scorecard
+
+        self._send_json(200, build_scorecard(ledger, slo, meta={"source": "server"}))
+
+    def _handle_lifecycle(self, app_id: str) -> None:
+        """``/lifecycle`` — ledger summary + per-gang brief list;
+        ``/lifecycle/<app>`` — one gang's full record (phase
+        timestamps, queue wait, solve tenure, eviction cause, epochs,
+        correlated trace ids)."""
+        ledger = self.scheduler.lifecycle
+        if ledger is None:
+            self._send_json(404, {"error": "lifecycle ledger not enabled"})
+            return
+        ledger.maybe_drain(trigger="http")
+        if not app_id:
+            self._send_json(200, {"summary": ledger.summary(), "gangs": ledger.records_brief()})
+            return
+        record = ledger.record(app_id)
+        if record is None:
+            self._send_json(404, {"error": f"no lifecycle record for app {app_id!r}"})
+            return
+        self._send_json(200, record)
+
+    def _handle_capacity(self, path: str, query) -> None:
+        """Capacity observatory (capacity/observatory.py):
+
+        - ``GET /state/capacity`` — the latest cluster-state sample
+          (sampled on demand when the feed moved since the last one).
+          ``?group=`` / ``?zone=`` filter the per-group entries,
+          ``?ns=`` filters the queued-driver forecasts.
+        - ``GET /state/capacity/history?limit=N`` — the timeline ring,
+          newest first.
+        - ``GET /state/capacity/diff?from=&to=`` — what changed between
+          two timeline sequences (exact keys; history lists them)."""
+        sampler = self.scheduler.capacity
+        if sampler is None:
+            self._send_json(404, {"error": "capacity observatory not enabled"})
+            return
+
+        def q1(key):
+            vals = query.get(key)
+            return vals[0] if vals else None
+
+        if path == "/state/capacity":
+            # serve fresh state without waiting for the background
+            # debounce: O(1) when the feed hasn't moved
+            sampler.maybe_sample(trigger="http")
+            latest = sampler.latest()
+            if latest is None:
+                self._send_json(200, {"samples": 0, "capacity": None})
+                return
+            out = latest.to_dict()
+            group, zone, ns = q1("group"), q1("zone"), q1("ns")
+            if group is not None or zone is not None:
+                out["groups"] = {
+                    combo: entry
+                    for combo, entry in out["groups"].items()
+                    if (group is None or combo.split("|")[0] == group)
+                    and (zone is None or combo.split("|", 1)[1] == zone)
+                }
+                if group is not None:
+                    out["tenants"] = {g: t for g, t in out["tenants"].items() if g == group}
+            if ns is not None:
+                out["queue"] = [e for e in out["queue"] if e.get("namespace") == ns]
+            self._send_json(200, out)
+        elif path == "/state/capacity/history":
+            limit = None
+            try:
+                limit = int(q1("limit") or "")
+            except ValueError:
+                pass
+            history = sampler.history(limit=limit)
+            self._send_json(
+                200,
+                {
+                    "samples": [s.to_dict() for s in history],
+                    "ring": sampler.stats()["ring"],
+                    "ringCapacity": sampler.stats()["ring_capacity"],
+                },
+            )
+        elif path == "/state/capacity/diff":
+            try:
+                from_seq = int(q1("from") or "")
+                to_seq = int(q1("to") or "")
+            except ValueError:
+                self._send_json(400, {"error": "usage: /state/capacity/diff?from=<seq>&to=<seq>"})
+                return
+            diff = sampler.diff(from_seq, to_seq)
+            if diff is None:
+                self._send_json(
+                    404,
+                    {
+                        "error": "sequence not in the timeline ring",
+                        "available": [s.seq for s in sampler.history()],
+                    },
+                )
+                return
+            self._send_json(200, diff)
         else:
             self._send_json(404, {"error": "not found"})
 
@@ -392,10 +523,14 @@ class _Handler(BaseHTTPRequestHandler):
                 span.tag("outcome", "shed")
             # a shed is a real terminal verdict for this Filter attempt:
             # it leaves a provenance DecisionRecord (`/explain` answers
-            # "why did my app not start?" for sheds too)
+            # "why did my app not start?" for sheds too) and a lifecycle
+            # `shed` phase mark
             tracker = self.scheduler.provenance
             if tracker is not None:
                 tracker.record_shed(args.pod)
+            ledger = self.scheduler.lifecycle
+            if ledger is not None:
+                ledger.mark_shed(args.pod)
             message = "scheduler overloaded; retry"
             return ExtenderFilterResult(
                 failed_nodes={n: message for n in args.node_names},

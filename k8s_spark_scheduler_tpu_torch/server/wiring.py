@@ -7,8 +7,10 @@ reservations, the reservation manager, the tensor mirror of the
 cluster, the extender around the configured binpacker, the waste and
 periodic metric reporters, the unschedulable-pod marker, the resilience
 kit (admission gate, write-back breaker and intent journal, tri-state
-health) and decision provenance (the record ring, the refusal explainer
-and the flight recorder).  The
+health), decision provenance (the record ring, the refusal explainer
+and the flight recorder), the capacity observatory (a sampler thread
+probing headroom on ``device``) and the lifecycle ledger with its SLO
+engine.  The
 ``tpu-batch*`` binpackers run their queue solvers on ``device`` (None =
 CUDA, which raises on a host without CUDA); ``start_background`` also
 starts the kernel warmup, which builds the binpacker's CUDA library and
@@ -147,6 +149,9 @@ class Server:
     reporters: Optional[ReporterSet] = None
     resilience: Optional[ResilienceKit] = None
     provenance: object = None  # ProvenanceTracker (provenance/tracker.py)
+    capacity: object = None  # CapacitySampler (capacity/observatory.py)
+    lifecycle: object = None  # LifecycleLedger (lifecycle/ledger.py)
+    slo: object = None  # SloEngine (lifecycle/slo.py)
     _warm_done: threading.Event = field(default_factory=threading.Event)
     _warm_stop: threading.Event = field(default_factory=threading.Event)
     _warm_error: Optional[BaseException] = None
@@ -160,6 +165,10 @@ class Server:
         self.unschedulable_marker.start()
         if self.reporters is not None:
             self.reporters.start()
+        if self.capacity is not None:
+            self.capacity.start()
+        if self.lifecycle is not None:
+            self.lifecycle.start()
         self._start_warmup()
 
     def warmup_complete(self) -> bool:
@@ -200,6 +209,10 @@ class Server:
         self._warm_stop.set()
         if self.reporters is not None:
             self.reporters.stop()
+        if self.capacity is not None:
+            self.capacity.stop()
+        if self.lifecycle is not None:
+            self.lifecycle.stop()
         self.unschedulable_marker.stop()
         self.resource_reservation_cache.stop()
         self.demand_cache.stop()
@@ -338,6 +351,58 @@ def init_server_with_clients(
             "breaker-open", f"breaker {name} opened"
         )
 
+    # capacity observatory: fragmentation/headroom analytics + the
+    # /state/capacity timeline, sampled off-lock on ChangeFeed triggers,
+    # its probes on this server's device
+    capacity_sampler = None
+    if install.capacity.enabled:
+        from ..capacity import CapacitySampler
+
+        capacity_sampler = CapacitySampler(
+            tensor_snapshot,
+            pod_lister=pod_lister,
+            waste_reporter=waste_reporter,
+            metrics=metrics,
+            instance_group_label=install.instance_group_label,
+            ring_size=install.capacity.ring_size,
+            debounce_seconds=install.capacity.debounce_seconds,
+            interval_seconds=install.capacity.interval_seconds,
+            max_shapes=install.capacity.max_shapes,
+            max_group_zones=install.capacity.max_group_zones,
+            max_queue=install.capacity.max_queue,
+            device=device,
+        )
+
+    # gang lifecycle ledger + SLO engine (lifecycle/): per-application
+    # state machine fed off informer threads and drain cursors — never
+    # under the predicate lock.  The waste reporter's slo_sink makes
+    # WasteMetricsReporter the single source of truth for the
+    # eviction_waste objective.  No policy engine (its evictions and
+    # DRF probe) and no HA epoch source exist here yet.
+    lifecycle_ledger = None
+    slo_engine = None
+    if install.lifecycle.enabled:
+        from ..lifecycle import LifecycleLedger, SloEngine
+
+        slo_engine = SloEngine(
+            metrics=metrics,
+            window_scale=install.lifecycle.window_scale,
+            sample_cap=install.lifecycle.sample_cap,
+            overrides=install.lifecycle.objectives,
+        )
+        waste_reporter.slo_sink = slo_engine.waste_sample
+        lifecycle_ledger = LifecycleLedger(
+            event_log=event_log,
+            tracer=tracer,
+            feed=tensor_snapshot.feed,
+            slo=slo_engine,
+            metrics=metrics,
+            ring_size=install.lifecycle.ring_size,
+            debounce_seconds=install.lifecycle.debounce_seconds,
+            interval_seconds=install.lifecycle.interval_seconds,
+        )
+        lifecycle_ledger.wire_informers(pod_informer=pod_informer, rr_informer=rr_informer)
+
     # extender (cmd/server.go:171-191)
     node_sorter = NodeSorter(
         install.driver_prioritized_node_label, install.executor_prioritized_node_label
@@ -367,6 +432,11 @@ def init_server_with_clients(
         delta_solve=install.delta_solve,
         provenance=provenance_tracker,
     )
+    if slo_engine is not None:
+        # decision traces carry the active SLO alert states (one
+        # precomputed-attribute read; never a burn-rate computation on
+        # the Filter path — evaluate() runs at ledger drain time)
+        extender.slo_alert_source = lambda: slo_engine.alert_tag
     if provenance_tracker is not None and extender.delta_engine is not None:
         # warm≠cold parity guard: every Nth warm hit re-proves the
         # session verdicts against the stateless cold pass and fires
@@ -417,6 +487,9 @@ def init_server_with_clients(
         waste_reporter=waste_reporter,
         resilience=resilience_kit,
         provenance=provenance_tracker,
+        capacity=capacity_sampler,
+        lifecycle=lifecycle_ledger,
+        slo=slo_engine,
     )
     server.reporters = ReporterSet(server)
 

@@ -15,7 +15,7 @@ import queue as _queue
 import threading
 from collections import deque
 from dataclasses import dataclass
-from typing import Callable, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from ..types.objects import APIObject
 
@@ -195,16 +195,32 @@ class ChangeFeed:
         self._ring: Deque[Tuple[int, str, Optional[str]]] = deque(
             maxlen=capacity
         )
+        # optional wakeup Events set on every publish: the capacity
+        # sampler and lifecycle ledger park on them so work happens
+        # only on state change (Event.set is lock-free and idempotent
+        # — safe under the publisher's mirror lock)
+        self._wakeups: Tuple[Any, ...] = ()
+
     @property
     def seq(self) -> int:
         with self._lock:
             return self._seq
 
+    def attach_wakeup(self, event) -> None:
+        """Add a wakeup Event set on every publish.  Multi-listener:
+        appends rather than replaces (wiring-time call)."""
+        with self._lock:
+            self._wakeups = self._wakeups + (event,)
+
     def publish(self, kind: str, key: Optional[str] = None) -> int:
         with self._lock:
             self._seq += 1
             self._ring.append((self._seq, kind, key))
-            return self._seq
+            seq = self._seq
+            wakeups = self._wakeups
+        for wakeup in wakeups:
+            wakeup.set()
+        return seq
 
     def kinds_since(self, seq: int):
         """frozenset of delta kinds with sequence > seq, or None when

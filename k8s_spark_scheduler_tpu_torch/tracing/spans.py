@@ -177,8 +177,8 @@ class Tracer:
     ):
         self.enabled = enabled
         self._ring: deque = deque(maxlen=capacity)
-        # total completed traces ever; the ring holds the most recent
-        # len(_ring) of them
+        # total completed traces ever — cursor for completed_since();
+        # the ring holds the most recent len(_ring) of them
         self._finished = 0
         self._lock = threading.Lock()
         self._metrics = metrics
@@ -232,6 +232,30 @@ class Tracer:
                 )
                 stack.extend(span.children)
 
+    @property
+    def completed_total(self) -> int:
+        """Total traces ever completed (monotonic drain cursor)."""
+        with self._lock:
+            return self._finished
+
+    def completed_since(self, cursor: int) -> Tuple[List[dict], int]:
+        """Traces completed after ``cursor`` (oldest first, truncated
+        to the ring's reach) and the new cursor value.  Pull-based, for
+        consumers that must never run inside a request: the lifecycle
+        ledger drains here off-thread, because for direct predicate
+        calls the root span closes while the predicate lock is still
+        held."""
+        with self._lock:
+            total = self._finished
+            fresh = total - cursor
+            if fresh <= 0:
+                return [], total
+            n = min(fresh, len(self._ring))
+            if n == 0:
+                return [], total
+            out = list(self._ring)[-n:]
+        return out, total
+
     def traces(self, limit: Optional[int] = None) -> List[dict]:
         """Completed traces, newest first."""
         with self._lock:
@@ -246,6 +270,12 @@ class Tracer:
         span in the tree."""
         for trace in self.traces():
             if _tree_has_tag(trace["root"], key, value):
+                return trace
+        return None
+
+    def find_by_trace_id(self, trace_id: str) -> Optional[dict]:
+        for trace in self.traces():
+            if trace["traceId"] == trace_id:
                 return trace
         return None
 

@@ -12,14 +12,29 @@ tests/test_class_compression.py, and the port against the reference:
   servers through the Twin, decisions byte-equal, and equal to a port
   server without the tier and one without the engine.
 
-The reference's class-compressed stepping tests (``group_rows``, the
-stateless and session class solves) wait for ROADMAP A.3b.
+- the exact grouping on the device (``ops/classes.group_rows``) against
+  the JAX package's ``group_rows``, class ids element for element, and
+  the capacity observatory's multiplicity-weighted class probes and
+  frag reports against the row-level programs and the JAX package's
+  (the reference's analytics-parity cases).
+
+The reference's class-compressed stepping tests (the stateless and
+session class solves) wait for ROADMAP A.3b.
 """
 
 import numpy as np
 import pytest
+import torch
 
+from k8s_spark_scheduler_tpu.capacity.probe import INT32_SAFE
+from k8s_spark_scheduler_tpu.capacity.probe import frag_report as jax_frag_report
+from k8s_spark_scheduler_tpu.capacity.probe import frag_report_classes as jax_frag_report_classes
+from k8s_spark_scheduler_tpu.capacity.probe import probe_headroom_classes as jax_probe_headroom_classes
+from k8s_spark_scheduler_tpu.capacity.probe import probe_headroom_numpy as jax_probe_headroom
+from k8s_spark_scheduler_tpu.native import group_rows as jax_group_rows
 from k8s_spark_scheduler_tpu.state.classindex import ClassIndex as JaxClassIndex
+from k8s_spark_scheduler_tpu_torch.capacity.probe import frag_segments, probe_segments
+from k8s_spark_scheduler_tpu_torch.ops.classes import group_rows
 from k8s_spark_scheduler_tpu_torch.state.classindex import ClassIndex
 from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
 
@@ -232,3 +247,94 @@ def test_classes_enabled_or_not_gives_identical_verdicts():
             h.close()
     assert outs[0] == outs[1]
     assert outs[0]["fit_driver"] and not outs[0]["big_nodes"]
+
+
+# -- the exact grouping and the class analytics -------------------------------
+
+SEEDS = [101, 102, 103, 104, 105]
+
+
+def _fleet(rng, n, n_shapes=12):
+    """Fleet-shaped availability (the reference's generator): ~n_shapes
+    repeated machine shapes salted with near-duplicates (one resource
+    off by exactly ONE unit, which must split the class) and unique
+    single-node classes."""
+    shapes = rng.randint(10, 120, size=(n_shapes, 3)).astype(np.int64)
+    avail = shapes[rng.randint(0, n_shapes, size=n)].copy()
+    near = rng.choice(n, size=max(1, n // 10), replace=False)
+    avail[near, rng.randint(0, 3, size=len(near))] += 1
+    singles = rng.choice(n, size=max(1, n // 20), replace=False)
+    avail[singles] = rng.randint(1000, 2000, size=(len(singles), 3))
+    return avail
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_class_probe_and_frag_match_row_level(seed):
+    """The reference's analytics parity case: class ids equal the JAX
+    package's ``group_rows`` element for element, and the weighted class
+    frag report and headroom search equal the row-level programs on the
+    grouped rows and the JAX package's, probes per shape included."""
+    rng = np.random.RandomState(seed)
+    n = int(rng.randint(150, 500))
+    avail = _fleet(rng, n)
+    elig = rng.rand(n) > 0.15
+
+    n_classes, cls, reps = group_rows(_t(avail), _t(elig))
+    want_n, want_cls = jax_group_rows(avail, np.asarray(elig, dtype=np.uint8))
+    assert n_classes == want_n < n  # fleet-shaped input must compress
+    np.testing.assert_array_equal(cls.numpy(), want_cls)
+    mult = np.bincount(want_cls, minlength=want_n).astype(np.int64)
+    _, want_reps = np.unique(want_cls, return_index=True)
+    np.testing.assert_array_equal(reps.numpy(), want_reps)
+    class_avail, class_elig = avail[want_reps], elig[want_reps]
+
+    def one_segment(out):
+        return tuple(x[0] for x in out)
+
+    ones = np.ones(n, dtype=np.int64)
+    row_frag = one_segment(frag_segments(_t(avail), _t(ones), _t(elig), [0, n]))
+    cls_frag = one_segment(frag_segments(_t(class_avail), _t(mult), _t(class_elig), [0, want_n]))
+    want = jax_frag_report(avail, elig)
+    for got in (row_frag, cls_frag):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b)
+    np.testing.assert_array_equal(cls_frag[4].numpy(), jax_frag_report_classes(class_avail, class_elig, mult)[4])
+
+    shapes = np.hstack([rng.randint(0, 3, size=(3, 3)), rng.randint(1, 6, size=(3, 3))]).astype(np.int64)
+    rank = np.where(elig, 0, INT32_SAFE).astype(np.int64)
+    want_h, want_u, want_p = jax_probe_headroom(avail, rank, elig, shapes)
+    row_h, row_u, row_p = one_segment(
+        probe_segments(_t(avail), _t(ones), _t(elig), _t(rank < INT32_SAFE), [0, n], _t(shapes))
+    )
+    cls_h, cls_u, cls_p = one_segment(
+        probe_segments(_t(class_avail), _t(mult), _t(class_elig), _t(class_elig), [0, want_n], _t(shapes))
+    )
+    ref_cls = jax_probe_headroom_classes(class_avail, mult, class_elig, shapes)
+    for got in ((row_h, row_u, row_p), (cls_h, cls_u, cls_p)):
+        np.testing.assert_array_equal(got[0].numpy(), want_h)
+        np.testing.assert_array_equal(got[1].numpy(), want_u)
+        np.testing.assert_array_equal(got[2].numpy(), want_p)
+    for a, b in zip((cls_h, cls_u, cls_p), ref_cls):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_group_rows_splits_near_duplicates_and_flags():
+    rows = np.array([[10, 20, 30], [10, 20, 30], [10, 20, 31], [10, 20, 30]], dtype=np.int64)
+    flags = np.array([1, 1, 1, 0], dtype=np.uint8)
+    n_classes, cls, reps = group_rows(_t(rows), _t(flags))
+    # one unit off in one dimension => different class; a different
+    # eligibility flag on identical rows => different class too
+    assert n_classes == 3
+    assert cls[0] == cls[1] and cls[2] != cls[0] and cls[3] != cls[0]
+    want_n, want_cls = jax_group_rows(rows, flags)
+    assert n_classes == want_n
+    np.testing.assert_array_equal(cls.numpy(), want_cls)
+    np.testing.assert_array_equal(reps.numpy(), [0, 2, 3])
+    # no rows, and no flag
+    assert group_rows(torch.zeros((0, 3), dtype=torch.int64))[0] == 0
+    n_classes, cls, _ = group_rows(_t(rows))
+    assert n_classes == 2 and cls.tolist() == [0, 0, 1, 0]

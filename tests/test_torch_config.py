@@ -1,13 +1,16 @@
 """The port's config against the reference's on the subsystems a config
 turns on: ``Install.reference_only`` names exactly the subsystems the
 JAX package runs on the same config and the port does not have (all but
-resilience, provenance, delta-solve and class aggregation, which the
-port has), and the server logs one warning for each at start (on
-examples/install.json among others).  ``delta-solve`` (default true, as
-in the reference) and ``classes`` load and reach the engine, with
-``provenance.parity-check-interval``.  Also the two settings that now
-configure something: ``conversion-webhook`` (the CRD's conversion
-stanza) and ``unschedulable-pod-timeout-seconds`` (the marker)."""
+resilience, provenance, delta-solve, class aggregation, the capacity
+observatory and the lifecycle ledger, which the port has), and the
+server logs one warning for each at start (on examples/install.json
+among others).  ``delta-solve`` (default true, as in the reference) and
+``classes`` load and reach the engine, with
+``provenance.parity-check-interval``; ``capacity`` and ``lifecycle``
+load with the reference's keys and defaults and reach the sampler and
+the ledger.  Also the two settings that now configure something:
+``conversion-webhook`` (the CRD's conversion stanza) and
+``unschedulable-pod-timeout-seconds`` (the marker)."""
 
 import json
 import logging
@@ -25,7 +28,7 @@ from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("provenance", "capacity", "contention", "policy", "ha", "lifecycle", "concurrent", "classes")
 # the reference's subsystems the port has too
-PORTED = {"resilience", "provenance", "delta-solve", "classes"}
+PORTED = {"resilience", "provenance", "delta-solve", "classes", "capacity", "lifecycle"}
 
 
 def _example() -> dict:
@@ -70,7 +73,7 @@ def test_example_config_warns_once_per_missing_subsystem(tmp_path, caplog):
         server = init_server_with_clients(APIServer(), install, start_background=False, device="cpu")
     warned = [r.getMessage() for r in caplog.records if "the reference package runs" in r.getMessage()]
     expected = _reference_runs(_example()) - PORTED
-    assert len(warned) == len(expected) == 3  # capacity, contention, lifecycle
+    assert len(warned) == len(expected) == 1  # contention
     for name in expected:
         assert sum(f" runs {name} on this config" in w for w in warned) == 1, name
     # the two settings configure something now: the marker's timeout,
@@ -104,10 +107,13 @@ def test_background_loops_start_and_stop():
     try:
         assert server.unschedulable_marker._thread.is_alive()
         assert server.reporters._thread.is_alive()
+        sampler, ledger = server.capacity._thread, server.lifecycle._thread
+        assert sampler.is_alive() and ledger.is_alive()
     finally:
         server.stop()
     assert not server.unschedulable_marker._thread.is_alive()
     assert not server.reporters._thread.is_alive()
+    assert not sampler.is_alive() and not ledger.is_alive()
 
 
 @pytest.mark.parametrize(
@@ -145,3 +151,53 @@ def test_delta_solve_and_classes_load_as_in_the_reference(d, delta, classes, par
 def test_classes_section_refuses_unknown_keys():
     with pytest.raises(ValueError):
         Install.from_dict({"classes": {"enabled": True, "min_nodes": 5}})
+
+
+@pytest.mark.parametrize(
+    "d",
+    [
+        {},
+        {"capacity": {"enabled": False}, "lifecycle": {"enabled": False}},
+        {"capacity": {"ring-size": 8, "debounce-seconds": 0.5, "interval-seconds": 3.0, "max-shapes": 4,
+                      "max-group-zones": 2, "max-queue": 7}},
+        {"lifecycle": {"ring-size": 16, "debounce-seconds": 0.2, "interval-seconds": 1.0, "window-scale": 0.01,
+                       "sample-cap": 64, "objectives": {"filter_latency": {"threshold": 0.05}}}},
+    ],
+)
+def test_capacity_and_lifecycle_load_as_in_the_reference(d):
+    """The reference's keys and defaults, on when a config omits them, and
+    the values reach the sampler, the SLO engine and the ledger."""
+    from dataclasses import asdict
+
+    ours, theirs = Install.from_dict(d), JaxInstall.from_dict(d)
+    assert asdict(ours.capacity) == asdict(theirs.capacity)
+    assert asdict(ours.lifecycle) == asdict(theirs.lifecycle)
+    server = init_server_with_clients(APIServer(), Install(
+        binpack_algo="tpu-batch", capacity=ours.capacity, lifecycle=ours.lifecycle,
+    ), start_background=False, device="cpu")
+    try:
+        if not ours.capacity.enabled:
+            assert server.capacity is None and server.lifecycle is None and server.slo is None
+            assert server.waste_reporter.slo_sink is None
+            return
+        sampler, ledger, slo = server.capacity, server.lifecycle, server.slo
+        assert (sampler._ring.maxlen, sampler.debounce_seconds, sampler.interval_seconds, sampler.max_shapes,
+                sampler.max_group_zones, sampler.max_queue) == (
+            ours.capacity.ring_size, ours.capacity.debounce_seconds, ours.capacity.interval_seconds,
+            ours.capacity.max_shapes, ours.capacity.max_group_zones, ours.capacity.max_queue)
+        assert sampler.device.type == "cpu"
+        assert (ledger.ring_size, ledger.debounce_seconds, ledger.interval_seconds, slo.window_scale) == (
+            ours.lifecycle.ring_size, ours.lifecycle.debounce_seconds, ours.lifecycle.interval_seconds,
+            ours.lifecycle.window_scale)
+        threshold = ours.lifecycle.objectives.get("filter_latency", {}).get("threshold", 0.1)
+        assert slo.status(now=0.0)["filter_latency"]["threshold"] == threshold
+        assert server.waste_reporter.slo_sink == slo.waste_sample
+        assert server.extender.slo_alert_source() == ""
+    finally:
+        server.stop()
+
+
+@pytest.mark.parametrize("section", ["capacity", "lifecycle"])
+def test_capacity_and_lifecycle_sections_refuse_unknown_keys(section):
+    with pytest.raises(ValueError, match=section):
+        Install.from_dict({section: {"enabled": True, "ring_size": 5}})

@@ -305,13 +305,12 @@ def test_cli_serves_the_example_config_on_cpu(tmp_path):
 # ROADMAP numbered these items A.5 and A.8; the items are ROADMAP's
 # current numbers.  The provenance and resilience sections (config1,
 # config2, config10) load since both subsystems were ported, and so do
-# delta-solve and classes (config0, config9; tests/test_torch_config.py).
+# delta-solve and classes (config0, config9), and lifecycle and capacity
+# (config4, config7; tests/test_torch_config.py).
 _REFUSED = [
     ("config3-A.8", {"policy": {"enabled": True}}, r"A\.6\.5 \(scheduling policy\)"),
-    ("config4-A.8", {"lifecycle": {"enabled": True}}, r"A\.6\.4 \(lifecycle"),
     ("config5-A.8", {"ha": {"enabled": True}}, r"A\.6\.6 \(HA failover\)"),
     ("config6-A.5", {"concurrent": {"enabled": True}}, r"A\.4 \(concurrent admission\)"),
-    ("config7-A.8", {"capacity": {}}, r"A\.6\.3 \(capacity observatory\)"),
     ("config8-A.8", {"contention": {"enabled": True}}, r"A\.6\.7 \(contention observatory\)"),
 ]
 
@@ -339,6 +338,8 @@ def test_install_reads_the_reference_keys():
     assert ours.conversion_webhook.__dict__ == theirs.conversion_webhook.__dict__
     assert ours.delta_solve is theirs.delta_solve is True
     assert ours.classes.__dict__ == theirs.classes.__dict__
+    assert ours.capacity.__dict__ == theirs.capacity.__dict__
+    assert ours.lifecycle.__dict__ == theirs.lifecycle.__dict__
     # keys that leave an unported subsystem off are accepted
     off = {k: {"enabled": False} for k in ("provenance", "policy", "lifecycle", "ha",
                                             "concurrent", "capacity", "contention", "classes")}

@@ -469,3 +469,67 @@ def test_delta_solve_runs_with_jax_and_reference_package_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "DELTA-OK" in proc.stdout
+
+
+_BLOCKED_OBSERVATORY = textwrap.dedent(
+    """
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    # the modules of the observatory slice, each by name
+    from k8s_spark_scheduler_tpu_torch.capacity import CapacitySampler, in_predicate_lock
+    from k8s_spark_scheduler_tpu_torch.capacity.probe import frag_segments, probe_segments
+    from k8s_spark_scheduler_tpu_torch.capacity.observatory import CapacitySample
+    from k8s_spark_scheduler_tpu_torch.ops.classes import group_rows
+    from k8s_spark_scheduler_tpu_torch.lifecycle import LifecycleLedger, SloEngine, build_scorecard
+    from k8s_spark_scheduler_tpu_torch.lifecycle.ledger import GangRecord
+    from k8s_spark_scheduler_tpu_torch.lifecycle.slo import Objective
+    from k8s_spark_scheduler_tpu_torch.lifecycle.scorecard import scorecard_digest
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    h = Harness(binpack_algo="tpu-batch", is_fifo=True, device="cpu")
+    try:
+        names = [f"n{i}" for i in range(4)]
+        for i, name in enumerate(names):
+            h.new_node(name, cpu="16", memory="32Gi", zone=f"z{i % 2}")
+        pods = h.static_allocation_spark_pods("app", 2)
+        for pod in pods:
+            assert h.schedule(pod, names).node_names
+        h.create_pod(h.static_allocation_spark_pods("queued", 500)[0])
+        h.wait_quiesced()
+        sample = h.server.capacity.sample_now(trigger="t")
+        assert sample.probe_lane == "torch" and sample.pressure == 1 and len(sample.groups) == 2, sample
+        assert sample.classes["count"] >= 1
+        h.server.lifecycle.drain(trigger="t")
+        card = build_scorecard(h.server.lifecycle, h.server.slo)
+        assert card["lifecycle"]["gangs"] == 2 and card["digest"] == scorecard_digest(card)
+        assert h.server.capacity.stats()["class_lane_failures"] == 0
+    finally:
+        h.close()
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("OBSERVATORY-OK")
+    """
+)
+
+
+def test_observatory_and_lifecycle_run_with_jax_and_reference_package_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_OBSERVATORY],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "OBSERVATORY-OK" in proc.stdout

@@ -14,7 +14,11 @@ JAX server's native session, the port's device-resident one; a driver
 Filter is served warm wherever the engine can).  ``Twin.schedule``
 holds every ``ExtenderFilterResult`` equal (failure messages included),
 ``Twin.assert_state_equal`` the reservations and demands in both API
-servers, and ``Twin.delta_stats`` reads both engines' counters.
+servers, and ``Twin.delta_stats`` reads both engines' counters.  Both
+run the capacity observatory and the lifecycle ledger too:
+``Twin.get`` reads an endpoint of each over HTTP, and
+``Twin.quiet_observatories`` stops their background threads so that a
+read's sample and drain are the ones it asks for.
 
 Both servers write reservations and demands back on worker threads, and
 a Filter or a delete that overtakes a pending write can decide
@@ -27,12 +31,16 @@ on settled state.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import json
+import urllib.error
+import urllib.request
+from typing import List, Optional, Sequence, Tuple
 
 from k8s_spark_scheduler_tpu import timesource as jax_timesource
 from k8s_spark_scheduler_tpu.config import FifoConfig as JaxFifoConfig
 from k8s_spark_scheduler_tpu.config import Install as JaxInstall
 from k8s_spark_scheduler_tpu.scheduler import invariants as jax_invariants
+from k8s_spark_scheduler_tpu.server.http import ExtenderHTTPServer as JaxHTTPServer
 from k8s_spark_scheduler_tpu.testing.harness import Harness as JaxHarness
 from k8s_spark_scheduler_tpu.types import serde as jax_serde
 from k8s_spark_scheduler_tpu.types.extenderapi import ExtenderArgs as JaxArgs
@@ -43,6 +51,7 @@ from k8s_spark_scheduler_tpu_torch.config import FifoConfig as PortFifoConfig
 from k8s_spark_scheduler_tpu_torch.convert import object_from_wire
 from k8s_spark_scheduler_tpu_torch.metrics import names as port_names
 from k8s_spark_scheduler_tpu_torch.scheduler import invariants as port_invariants
+from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer as PortHTTPServer
 from k8s_spark_scheduler_tpu_torch.testing.harness import Harness as PortHarness
 from k8s_spark_scheduler_tpu_torch.types import serde as port_serde
 from k8s_spark_scheduler_tpu_torch.types.extenderapi import ExtenderArgs as PortArgs
@@ -75,6 +84,9 @@ def static_pod_wires(app_id: str, executors: int, created: float = T0, **kw) -> 
 class Twin:
     """The JAX harness and the port harness (``device="cpu"``) on the
     same install, driven in lockstep."""
+
+    # HTTP servers over both sides, started by the first ``get``
+    _http: tuple = ()
 
     def __init__(
         self,
@@ -133,6 +145,8 @@ class Twin:
 
     def close(self) -> None:
         try:
+            for http in self._http:
+                http.stop()
             for h in (self.jax, self.port):
                 if h is not None:
                     h.close()
@@ -296,6 +310,33 @@ class Twin:
         return tuple(
             {k: h.extender.delta_engine.stats()[k] for k in keys} for h in (self.jax, self.port)
         )
+
+    def quiet_observatories(self) -> None:
+        """Stop both sides' capacity-sampler and lifecycle-ledger
+        threads: every later sample and drain is the one an HTTP read
+        asks for (the subsystems stay wired and on)."""
+        for h in (self.jax, self.port):
+            h.server.capacity.stop()
+            h.server.lifecycle.stop()
+
+    def get(self, path: str) -> Tuple[Tuple[int, dict], Tuple[int, dict]]:
+        """GET ``path`` from each server over HTTP (settled first):
+        ((status, body) of the JAX server, (status, body) of the
+        port's)."""
+        self.settle()
+        if not self._http:
+            self._http = tuple(cls(h.server, port=0, host="127.0.0.1")
+                               for cls, h in ((JaxHTTPServer, self.jax), (PortHTTPServer, self.port)))
+            for http in self._http:
+                http.start()
+        out = []
+        for http in self._http:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{http.port}{path}", timeout=30) as resp:
+                    out.append((resp.status, json.loads(resp.read())))
+            except urllib.error.HTTPError as err:
+                out.append((err.code, json.loads(err.read() or b"{}")))
+        return out[0], out[1]
 
     def port_fast_lane_count(self) -> float:
         return self.port.server.metrics.get_counter(
