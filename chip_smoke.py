@@ -135,7 +135,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    failure; ``/slo`` counting the Filters served, ``/lifecycle`` listing
    the probe apps.  Phases 5 to delta run with both subsystems on too
    (the reference's defaults);
-10. the kernels line (times, bounds, launches) and the device result line.
+10. contention: the contention observatory (contention/: every
+   ``@guarded_by`` lock and the predicate lock a ``TimedLock``, each
+   request's span tree decomposed into gate-queue / lock-wait / serde /
+   solve / write-back / other) and the race detector (analysis/) on
+   phase 5's snapshot under ``tpu-batch``: a cuda server on the
+   reference's defaults, a cuda server with ``{"contention": {"enabled":
+   false}}`` and a cpu server; 4 probes on all three, bodies equal; 100
+   granted probes, each retired, on the on and off cuda servers in blocks
+   of 25 in turns, the process-wide timekeeper enabled for the on blocks
+   and disabled for the off blocks, p50 / p99 of each;
+   ``/debug/criticalpath`` counting the on server's Filters, every record's
+   segments within 10 % of its total, the segments' p50 / p99 and shares
+   and the slowest Filter's decomposition; ``/debug/contention``: the
+   predicate lock's acquires, waits, holds and holding phases, the five
+   locks with the most wait and their top blockers (the on server's
+   samples and drains labelled by phase), the Prometheus series; a fourth
+   cuda server built under the race detector, 40 granted probes with the
+   sampler, ledger and write-back live, 0 races and 0 lock-order cycles;
+   the disabled path's ns per acquire and per ``note_access``; the
+   checkpointed queue kernel launched on the phase's path.  Every phase's
+   servers run the contention observatory (the reference's default);
+11. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -380,8 +401,9 @@ class PortServer:
     an ephemeral port."""
 
     def __init__(self, policy: str, device: str, nodes, queue, provenance=None, delta_solve: bool = True,
-                 observatories: bool = True):
-        from k8s_spark_scheduler_tpu_torch.config import CapacityConfig, Install, LifecycleConfig, ProvenanceConfig
+                 observatories: bool = True, contention: bool = True):
+        from k8s_spark_scheduler_tpu_torch.config import (CapacityConfig, ContentionConfig, Install,
+                                                          LifecycleConfig, ProvenanceConfig)
         from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
         from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
         from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
@@ -390,13 +412,15 @@ class PortServer:
         self.api = APIServer()
         self.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
         # the reference's defaults, resilience, provenance, the capacity
-        # observatory and the lifecycle ledger included (`observatories`
-        # False turns the last two off); the marker's scan is phase 6's,
-        # not a load on the timed probes
+        # observatory, the lifecycle ledger and the contention observatory
+        # included (`observatories` False turns the capacity observatory
+        # and the ledger off, `contention` False the last); the marker's
+        # scan is phase 6's, not a load on the timed probes
         install = Install(binpack_algo=policy, fifo=True, provenance=provenance or ProvenanceConfig(),
                           resilience=server_resilience(device), delta_solve=delta_solve,
                           capacity=CapacityConfig(enabled=observatories),
-                          lifecycle=LifecycleConfig(enabled=observatories))
+                          lifecycle=LifecycleConfig(enabled=observatories),
+                          contention=ContentionConfig(enabled=contention))
         self.scheduler = init_server_with_clients(
             self.api, install, demand_poll_interval=0.5, unschedulable_polling_interval=3600.0,
             device=device,
@@ -1916,6 +1940,18 @@ def sample_split(sampler, reps: int) -> tuple:
     return runs, {name: statistics.median(ms) for name, ms in parts.items()}
 
 
+def quiet(server, phase: str) -> None:
+    """Until the server's sampler and ledger stop counting."""
+    last, deadline = None, time.monotonic() + WAIT_S
+    while time.monotonic() < deadline:
+        now = (server.scheduler.capacity.stats()["samples"], server.scheduler.lifecycle.stats()["drains"])
+        if now == last:
+            return
+        last = now
+        time.sleep(0.6)
+    raise SystemExit(f"phase {phase}: the on server's background work did not stop")
+
+
 def observatory_phase(seed: int, smi: str) -> None:
     """Phase observatory (see the module docstring).  Raises SystemExit on
     any failure."""
@@ -2001,26 +2037,15 @@ def observatory_phase(seed: int, smi: str) -> None:
                 f"{parts['whole call']:.3f} | {smi}")
 
             # 3. granted probes on the on and off cuda servers, in blocks in turns
-            def quiet(server) -> None:
-                """Until the server's sampler and ledger stop counting."""
-                last, deadline = None, time.monotonic() + WAIT_S
-                while time.monotonic() < deadline:
-                    now = (server.scheduler.capacity.stats()["samples"], server.scheduler.lifecycle.stats()["drains"])
-                    if now == last:
-                        return
-                    last = now
-                    time.sleep(0.6)
-                raise SystemExit("phase observatory: the on server's background work did not stop")
-
             cap0, led0 = on.scheduler.capacity.stats(), on.scheduler.lifecycle.stats()
             lat = {"on": [], "off": []}
             blocks = ["on", "off", "off", "on"] * (OBSERVATORY_PROBES // (2 * OBSERVATORY_BLOCK))
             for b, side in enumerate(blocks):
-                quiet(on)
+                quiet(on, "observatory")
                 for j in range(OBSERVATORY_BLOCK):
                     lat[side].append(probe(f"obs-probe-{b}-{j:02d}", (side,))[side])
             cap1, led1 = on.scheduler.capacity.stats(), on.scheduler.lifecycle.stats()
-            quiet(on)
+            quiet(on, "observatory")
             ledger = on.scheduler.lifecycle
             drain_ms = []
             for _ in range(OBSERVATORY_REPS):
@@ -2074,6 +2099,308 @@ def observatory_phase(seed: int, smi: str) -> None:
             for server in servers.values():
                 server.stop()
     finally:
+        logging.disable(logging.NOTSET)
+
+
+# -- phase contention: lock telemetry, the critical path, the race detector ---
+
+CONTENTION_POLICY = "tpu-batch"
+CONTENTION_WARM = 4  # probes on the on, off and cpu servers, bodies equal
+CONTENTION_PROBES = 100  # granted probes, each retired, on each of the on and off servers
+CONTENTION_BLOCK = 25  # in blocks in turns, each block to its own server alone (as phase observatory)
+RACE_PROBES = 40  # granted probes through the server built under the race detector
+TOP_LOCKS = 5
+DISABLED_PATH_REPS = 200_000
+# what the script labels the on server's background work with, so that a
+# Filter's wait on a lock the sampler or the ledger holds is charged to
+# them (their threads run outside any request span)
+BACKGROUND_PHASES = {"capacity": ("sample_now", "capacity.sample"), "lifecycle": ("drain", "lifecycle.drain")}
+
+
+def label_background(scheduler) -> None:
+    """Run the sampler's samples and the ledger's drains under a span of
+    their own name (a span of no tracer: the locks' holder attribution
+    reads it, no trace records it)."""
+    from k8s_spark_scheduler_tpu_torch.tracing.spans import _CURRENT, Span
+
+    for attr, (method, phase) in BACKGROUND_PHASES.items():
+        owner = getattr(scheduler, attr)
+        fn = getattr(owner, method)
+
+        def labelled(*a, fn=fn, phase=phase, **kw):
+            token = _CURRENT.set(Span(phase, "background", None))
+            try:
+                return fn(*a, **kw)
+            finally:
+                _CURRENT.reset(token)
+
+        setattr(owner, method, labelled)
+
+
+def self_times(span: dict, out: dict) -> dict:
+    """Each span name's exclusive time (its duration less its
+    children's) in a trace's span tree, summed into ``out``."""
+    children = span.get("children", ())
+    own = span["durationMs"] - sum(c["durationMs"] for c in children)
+    out[span["name"]] = out.get(span["name"], 0.0) + own
+    for child in children:
+        self_times(child, out)
+    return out
+
+
+def total_wait_ms(lock: dict) -> float:
+    return sum(b["totalWaitMs"] for b in lock["topBlockers"])
+
+
+def disabled_path_ns() -> dict:
+    """ns per uncontended acquire + release of a raw lock and of a
+    TimedLock with the keeper off and on (the stride of @guarded_by
+    locks), and per note_access with the race detector off, each the
+    median of 3 loops of DISABLED_PATH_REPS (host clock, loop included)."""
+    import threading
+
+    from k8s_spark_scheduler_tpu_torch.analysis import racecheck
+    from k8s_spark_scheduler_tpu_torch.contention import locktime
+
+    def per_op(body) -> float:
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter_ns()
+            body()
+            runs.append((time.perf_counter_ns() - t) / DISABLED_PATH_REPS)
+        return statistics.median(runs)
+
+    def lock_loop(lock):
+        def body():
+            for _ in range(DISABLED_PATH_REPS):
+                lock.acquire()
+                lock.release()
+        return body
+
+    owner = object()
+
+    def note_loop():
+        for _ in range(DISABLED_PATH_REPS):
+            racecheck.note_access(owner, "f")
+
+    if racecheck.active():
+        raise SystemExit("phase contention: the race detector is still on")
+    keeper = locktime.get()
+    timed = locktime.TimedLock(threading.Lock(), "contention.disabled-path",
+                               sample_every=locktime.DEFAULT_SAMPLE_EVERY)
+    out = {"raw lock": per_op(lock_loop(threading.Lock()))}
+    locktime.disable()
+    try:
+        out["TimedLock, keeper off"] = per_op(lock_loop(timed))
+    finally:
+        locktime.enable(keeper)
+    out["TimedLock, keeper on"] = per_op(lock_loop(timed))
+    out["note_access, detector off"] = per_op(note_loop)
+    return out
+
+
+def contention_phase(seed: int, smi: str) -> dict:
+    """Phase contention (see the module docstring).  Returns the queue
+    kernels' launches on the phase's path; raises SystemExit on any
+    failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.analysis import racecheck
+    from k8s_spark_scheduler_tpu_torch.contention import locktime
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    keeper = locktime.enable()  # on since phase 5's first server: every server here records by default
+    try:
+        t0 = time.perf_counter()
+        names, nodes, queue, rng, base = server_objects(seed)
+        servers = {}
+        served = {}
+
+        def probe(tag: str, sides) -> dict:
+            """A small gang that fits: its Filter on each side in order,
+            bodies equal, then retired everywhere."""
+            pods = Harness.static_allocation_spark_pods(
+                tag, int(rng.randint(1, 5)), executor_cpu=str(int(rng.randint(1, 5))),
+                executor_mem=f"{int(rng.randint(2, 9))}Gi", creation_timestamp=base + N_APPS + sum(served.values()))
+            for side in sides:
+                servers[side].api.create(pods[0].deepcopy())
+            answers, ms = {}, {}
+            for side in sides:
+                ms[side], status, body = servers[side].post(pods[0], names)
+                answers[side] = (status, body)
+                served[side] = served.get(side, 0) + 1
+            first = answers[sides[0]]
+            if any(a != first for a in answers.values()) or first[0] != 200:
+                raise SystemExit(f"contention probe {tag}: " + ", ".join(
+                    f"{side} {a[0]} {a[1][:200]!r}" for side, a in answers.items()))
+            if not json.loads(first[1]).get("NodeNames"):
+                raise SystemExit(f"contention probe {tag} was not granted: {first[1][:300]!r}")
+            for side in sides:
+                servers[side].retire(pods[:1])
+            return ms
+
+        try:
+            servers["on"] = PortServer(CONTENTION_POLICY, "cuda", nodes, queue)
+            servers["off"] = PortServer(CONTENTION_POLICY, "cuda", nodes, queue, contention=False)
+            servers["cpu"] = PortServer(CONTENTION_POLICY, "cpu", nodes, queue)
+            on, off = servers["on"], servers["off"]
+            if off.scheduler.criticalpath is not None or on.scheduler.criticalpath is None:
+                raise SystemExit("the contention switch did not reach the servers")
+            label_background(on.scheduler)
+            log(f"phase contention: {CONTENTION_POLICY}: servers with contention on (cuda), off (cuda) and on "
+                f"(cpu) ready in {time.perf_counter() - t0:.2f} s")
+
+            # 1. the same Filters on all three, then on against off in blocks
+            qk.reset_launch_counts()  # the path's run starts here
+            for i in range(CONTENTION_WARM):
+                probe(f"cont-warm-{i}", ("on", "off", "cpu"))
+            lat = {"on": [], "off": []}
+            blocks = ["on", "off", "off", "on"] * (CONTENTION_PROBES // (2 * CONTENTION_BLOCK))
+            for b, side in enumerate(blocks):
+                quiet(on, "contention")
+                if side == "on":
+                    locktime.enable(keeper)
+                else:
+                    locktime.disable()
+                for j in range(CONTENTION_BLOCK):
+                    lat[side].append(probe(f"cont-probe-{b}-{j:02d}", (side,))[side])
+            locktime.enable(keeper)
+            for side in ("on", "off"):
+                log(f"phase contention: {CONTENTION_POLICY} contention {side}: /predicates p50 "
+                    f"{statistics.median(lat[side]):.3f} ms, p99 {float(np.percentile(lat[side], 99)):.3f} ms over "
+                    f"{len(lat[side])} granted probes, each retired, in blocks of {CONTENTION_BLOCK} in turns "
+                    f"({', '.join(blocks)}; the 3 slowest {', '.join(f'{x:.1f}' for x in sorted(lat[side])[-3:])}); "
+                    f"bodies of the {CONTENTION_WARM} probes sent to all three servers equal on, off and cpu | {smi}")
+
+            # 2. the decomposition of the on server's Filters
+            limit = min(100, served["on"])
+            _, body = on.get(f"/debug/criticalpath?limit={limit}")
+            cp = json.loads(body)
+            if not cp["enabled"] or cp["requests"] != served["on"] or len(cp["recent"]) != limit:
+                raise SystemExit(f"/debug/criticalpath: requests {cp.get('requests')} of {served['on']} Filters, "
+                                 f"{len(cp.get('recent', []))} records")
+            _, body = on.get(f"/debug/criticalpath?limit={served['on']}")
+            records = json.loads(body)["recent"]
+            for record in records:
+                total = record["totalMs"]
+                if total <= 0 or abs(sum(record["segments"].values()) - total) / total >= 0.10:
+                    raise SystemExit(f"a critical-path record does not sum to its request: {record}")
+            all_ms = sum(r["totalMs"] for r in records)
+            share = {seg: sum(r["segments"][seg] for r in records) / all_ms for seg in cp["segments"]}
+            log(f"phase contention: /debug/criticalpath over the on server's {cp['requests']} Filters (every "
+                f"record's segments within 10 % of its totalMs): totalMs p50 {cp['totalMs']['p50']} p99 "
+                f"{cp['totalMs']['p99']}, coverage p50 {cp['coverage']['p50']} min {cp['coverage']['min']}; "
+                + "; ".join(f"{seg} p50 {v['p50Ms']} p99 {v['p99Ms']} ({100 * share[seg]:.1f} %)"
+                            for seg, v in cp["segments"].items())
+                + f"; dominant {cp['dominant']} | {smi}")
+            # under the solve segment: each span's exclusive time in the
+            # on server's traces of its timed Filters (0 where a trace
+            # lacks the span); records are newest first, the warm probes
+            # the oldest
+            timed = records[:-CONTENTION_WARM]
+            wanted = {r["traceId"] for r in timed}
+            traces = [t for t in on.scheduler.tracer.traces() if t["traceId"] in wanted]
+            per_span = {}
+            for trace in traces:
+                for name, ms in self_times(trace["root"], {}).items():
+                    per_span.setdefault(name, []).append(ms)
+            per_span = {name: ms + [0.0] * (len(traces) - len(ms)) for name, ms in per_span.items()}
+            top = sorted(per_span.items(), key=lambda kv: -statistics.median(kv[1]))[:10]
+            log(f"phase contention: exclusive time by span over the on server's {len(traces)} timed Filters' "
+                f"traces, median (p99) ms: " + ", ".join(
+                    f"{name} {statistics.median(ms):.3f} ({float(np.percentile(ms, 99)):.3f})" for name, ms in top)
+                + f" | {smi}")
+            for what, record in (("the slowest timed Filter", max(timed, key=lambda r: r["totalMs"])),
+                                 ("the on server's first (cold) Filter", records[-1])):
+                trace = on.scheduler.tracer.find_by_trace_id(record["traceId"])
+                spans = sorted(self_times(trace["root"], {}).items(), key=lambda kv: -kv[1])[:6]
+                log(f"phase contention: {what} (trace {record['traceId']}): {record['totalMs']} ms = "
+                    + ", ".join(f"{seg} {ms}" for seg, ms in record["segments"].items() if ms)
+                    + f" (coverage {record['coverage']}); its spans by exclusive time: "
+                    + ", ".join(f"{name} {ms:.3f}" for name, ms in spans) + f" | {smi}")
+
+            # 3. the locks
+            _, body = on.get("/debug/contention?lock=extender.predicate")
+            (merged,) = json.loads(body)["locks"]
+            # the on server's own predicate lock (the body merges every
+            # server's of the process, keeping the worst percentiles)
+            plock = on.scheduler.extender._predicate_lock.snapshot()
+            if merged["acquisitions"] < plock["acquisitions"] or plock["acquisitions"] != served["on"]:
+                raise SystemExit(f"extender.predicate: {plock['acquisitions']} acquires on the on server "
+                                 f"({merged['acquisitions']} in the process), {served['on']} Filters")
+            log(f"phase contention: the on server's extender.predicate (/debug/contention?lock= merges "
+                f"{merged['instances']} instances, {merged['acquisitions']} acquires): "
+                f"{plock['acquisitions']} acquires, {plock['contended']} contended, wait p50 "
+                f"{plock['waitMs']['p50']} p99 {plock['waitMs']['p99']} ms, hold p50 {plock['holdMs']['p50']} "
+                f"p99 {plock['holdMs']['p99']} max {plock['holdMs']['max']} ms; by phase "
+                + ", ".join(f"{ph or '-'} {v['holds']} holds {v['totalMs']} ms" for ph, v in plock["byPhase"].items())
+                + f" | {smi}")
+            _, body = on.get("/debug/contention")
+            locks = sorted(json.loads(body)["locks"], key=total_wait_ms, reverse=True)
+            log(f"phase contention: the {TOP_LOCKS} locks with the most total wait of {len(locks)} (every server "
+                f"of the process): " + "; ".join(
+                    f"{lk['name']} ({lk['instances']}) {total_wait_ms(lk):.3f} ms over {lk['contended']} of "
+                    f"{lk['acquisitions']} acquires, wait p99 {lk['waitMs']['p99']}, top blocker "
+                    + (f"{lk['topBlockers'][0]['holderPhase']} {lk['topBlockers'][0]['totalWaitMs']} ms"
+                       if lk["topBlockers"] else "none")
+                    for lk in locks[:TOP_LOCKS]) + f" | {smi}")
+            by_holder = {}
+            for lk in locks:
+                for blocker in lk["topBlockers"]:
+                    by_holder[blocker["holderPhase"]] = by_holder.get(blocker["holderPhase"], 0.0) + blocker[
+                        "totalWaitMs"]
+            log("phase contention: wait charged to each holder's phase, every lock: " + ", ".join(
+                f"{ph} {ms:.3f} ms" for ph, ms in sorted(by_holder.items(), key=lambda kv: -kv[1]))
+                + f" (the on server's samples run as {BACKGROUND_PHASES['capacity'][1]}, its drains as "
+                f"{BACKGROUND_PHASES['lifecycle'][1]}; other threads outside a request are 'unknown')")
+            _, text = on.get("/metrics", accept="text/plain")
+            text = text.decode()
+            for series in ("foundry_spark_scheduler_tpu_lock_acquire_count", "foundry_spark_scheduler_tpu_lock_hold_time",
+                           "foundry_spark_scheduler_tpu_criticalpath_segment_time",
+                           "foundry_spark_scheduler_tpu_criticalpath_coverage"):
+                if series not in text:
+                    raise SystemExit(f"/metrics (Prometheus text) lacks {series}")
+        finally:
+            for server in servers.values():
+                server.stop()
+            servers.clear()
+
+        # 4. the race detector on the card
+        t = time.perf_counter()
+        detector = racecheck.enable(racecheck.RaceDetector())
+        try:
+            servers["race"] = PortServer(CONTENTION_POLICY, "cuda", nodes, queue)
+            boot_s = time.perf_counter() - t
+            tracked = len(detector._instances)
+            race_ms = [probe(f"race-probe-{i:02d}", ("race",))["race"] for i in range(RACE_PROBES)]
+            servers["race"].settle_embedded()
+            servers["race"].scheduler.capacity.sample_now(trigger="race")
+            servers["race"].scheduler.lifecycle.drain(trigger="race")
+        finally:
+            for server in servers.values():
+                server.stop()
+            racecheck.disable()
+        counts = (len(detector.races), len(detector.hb_races), len(detector.lock_order_violations))
+        log(f"phase contention: race detector on a cuda server built under it ({tracked} guarded instances "
+            f"tracked, boot {boot_s:.2f} s), {RACE_PROBES} granted probes (p50 "
+            f"{statistics.median(race_ms):.3f} ms), the sampler, ledger and write-back live, a sample and a "
+            f"drain: lockset races {counts[0]}, happens-before races {counts[1]}, lock-order cycles {counts[2]}")
+        if any(counts):
+            raise SystemExit("phase contention: the race detector found:\n" + "\n".join(detector.report_lines()))
+        launches = {k: v for k, v in qk.launch_counts.items() if v}
+        if launches.get("fifo_queue_tightly_checkpointed", 0) < 1:
+            raise SystemExit(f"phase contention: the checkpointed fifo_queue was not launched ({launches})")
+
+        # 5. the disabled path
+        cost = disabled_path_ns()
+        log("phase contention: ns per uncontended acquire + release (or call), host clock, loop included: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in cost.items()) + f" | {smi}")
+        log(f"phase contention: queue-kernel launches on the phase's path {launches}")
+        return launches
+    finally:
+        locktime.enable(keeper)
         logging.disable(logging.NOTSET)
 
 
@@ -2778,7 +3105,13 @@ def main() -> int:
     log(f"phase observatory: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 10: results
+    # ---- phase contention: lock telemetry, the critical path, the race detector
+    t = time.perf_counter()
+    contention_phase(args.seed, smi)
+    log(f"phase contention: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 11: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -45,6 +45,8 @@ import numpy as np
 import torch
 
 from .. import timesource
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from ..device import DeviceLike, lane_of, resolve_device
 from ..metrics import names as mnames
 from ..ops.classes import group_rows
@@ -200,6 +202,15 @@ def _fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     return out
 
 
+@guarded_by(
+    "_lock",
+    "_ring",
+    "_stats",
+    "_last_seq",
+    "_prev_pending",
+    "_departures",
+    "_last_forecast_t",
+)
 class CapacitySampler:
     """See module docstring.  Thread model: ``maybe_sample`` /
     ``sample_now`` may be called from the background thread or an HTTP
@@ -297,11 +308,15 @@ class CapacitySampler:
             thread.join(timeout=5.0)
 
     def _loop(self) -> None:
+        feed = getattr(self._cache, "feed", None)
         while not self._stop.is_set():
             fired = self._wake.wait(timeout=self.interval_seconds)
             if self._stop.is_set():
                 return
             if fired:
+                if feed is not None and hasattr(feed, "hb_channel"):
+                    # the observe side of the feed's publish→wakeup edge
+                    racecheck.hb_observe(feed.hb_channel())
                 self._wake.clear()
                 # debounce: let the burst (one gang = many deltas) land
                 # before paying one sample for all of it
@@ -331,6 +346,7 @@ class CapacitySampler:
         seq = self._cache.feed.seq
         rev = self._queue_rev()
         with self._lock:
+            racecheck.note_access(self, "_stats")
             if seq == self._last_seq and rev == self._last_queue_rev:
                 self._stats["skipped_unchanged"] += 1
                 return None
@@ -343,6 +359,7 @@ class CapacitySampler:
             # NEVER probe while holding the extender lock: refuse,
             # count, and let the next off-lock trigger pick it up
             with self._lock:
+                racecheck.note_access(self, "_stats")
                 self._stats["lock_violations"] += 1
             return None
         with self._sample_mutex:
@@ -352,6 +369,7 @@ class CapacitySampler:
             sample = self._build_sample(snap, trigger)
             sample.sample_ms = (time.perf_counter() - t0) * 1000.0
             with self._lock:
+                racecheck.note_access(self, "_ring")
                 if self._ring and self._ring[-1].seq == sample.seq:
                     # an unconditional (HTTP/forced) re-sample of
                     # unchanged state replaces rather than duplicates
@@ -669,6 +687,7 @@ class CapacitySampler:
         demand fulfillment state × the observed departure rate."""
         current_keys = {(p.namespace, p.name) for p in pending}
         with self._lock:
+            racecheck.note_access(self, "_prev_pending")
             departed = len(self._prev_pending - current_keys)
             prev_t = self._last_forecast_t
             if self._prev_pending and departed and prev_t is not None:

@@ -9,14 +9,16 @@ its configs load unchanged.  Subsystems this package does not have yet
 enables one raises ``ValueError`` naming the ROADMAP item, a key that
 leaves it off is accepted, and an unknown key raises too — no key is
 dropped without a word.  A config that omits a key gets the reference's
-default, and one of those defaults turns a subsystem ON that this
-package lacks (contention defaults to enabled): ``Install.reference_only``
-names each such subsystem, and the server logs one warning for each at
-start.  Resilience (always on, as in the reference), provenance (on by
-default), delta-solve (default true), class aggregation (``classes``),
-the capacity observatory (``capacity``) and the lifecycle ledger with
-its SLO engine (``lifecycle``), all enabled by default, are this
-package's own: they load with the reference's keys and defaults.
+default; ``Install.reference_only`` names each subsystem such a default
+would turn on in the reference that this package lacks, and the server
+logs one warning for each at start (none today: every subsystem the
+reference runs by default is here).  Resilience (always on, as in the
+reference), provenance (on by default), delta-solve (default true),
+class aggregation (``classes``), the capacity observatory
+(``capacity``), the lifecycle ledger with its SLO engine
+(``lifecycle``) and the contention observatory (``contention``), all
+enabled by default, are this package's own: they load with the
+reference's keys and defaults.
 """
 
 from __future__ import annotations
@@ -277,6 +279,32 @@ class LifecycleConfig:
 
 
 @dataclass
+class ContentionConfig:
+    """Contention observatory (contention/): lock wait/hold telemetry
+    and per-request critical-path decomposition behind
+    ``/debug/contention`` + ``/debug/criticalpath``.  Diagnostic only;
+    on by default, as in the reference.
+
+    ``enabled`` turns the process-wide timekeeper on (TimedLock
+    wrappers exist regardless; disabled they cost one attribute read
+    per acquire).  ``ring_size`` bounds the per-request decomposition
+    ring; ``sample_every`` is the uncontended-acquire sampling stride
+    for ``@guarded_by`` locks (contended acquires always record)."""
+
+    enabled: bool = True
+    ring_size: int = 256
+    sample_every: int = 64
+
+    @staticmethod
+    def from_dict(d: dict) -> "ContentionConfig":
+        return ContentionConfig(
+            enabled=d.get("enabled", True),
+            ring_size=d.get("ring-size", 256),
+            sample_every=d.get("sample-every", 64),
+        )
+
+
+@dataclass
 class ConversionWebhookConfig:
     """Where the apiserver would reach the CRD conversion webhook
     (conversionwebhook/resource_reservation.go:44-98): the
@@ -295,7 +323,6 @@ class ConversionWebhookConfig:
 # section turns its subsystem on when its "enabled" (or that default)
 # is true.
 _UNPORTED_SECTIONS = {
-    "contention": (True, "ROADMAP A.6.7 (contention observatory)"),
     "policy": (False, "ROADMAP A.6.5 (scheduling policy)"),
     "ha": (False, "ROADMAP A.6.6 (HA failover)"),
     "concurrent": (False, "ROADMAP A.4 (concurrent admission)"),
@@ -328,6 +355,7 @@ _KNOWN_KEYS = {
     "classes",
     "capacity",
     "lifecycle",
+    "contention",
     *_UNPORTED_SECTIONS,
 }
 _FIFO_KEYS = {"default-enforce-after-pod-age-seconds", "enforce-after-pod-age-by-instance-group"}
@@ -403,6 +431,9 @@ class Install:
     # gang lifecycle ledger + SLO burn-rate engine (lifecycle/) —
     # diagnostic only
     lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
+    # contention observatory: lock wait/hold telemetry + critical-path
+    # decomposition (contention/) — diagnostic only
+    contention: ContentionConfig = field(default_factory=ContentionConfig)
     # subsystems the reference would run on this config and this package
     # lacks, as (subsystem, ROADMAP item); from_dict derives it from the
     # keys given, a directly built Install has the reference's defaults
@@ -470,5 +501,6 @@ class Install:
             classes=ClassesConfig.from_dict(d.get("classes") or {}),
             capacity=CapacityConfig.from_dict(d.get("capacity") or {}),
             lifecycle=LifecycleConfig.from_dict(d.get("lifecycle") or {}),
+            contention=ContentionConfig.from_dict(d.get("contention") or {}),
             reference_only=_reference_only(d),
         )

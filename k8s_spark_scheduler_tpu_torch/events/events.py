@@ -20,6 +20,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Tuple
 
 from .. import timesource
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 
 logger = logging.getLogger(__name__)
 
@@ -40,6 +42,7 @@ class Event:
     trace_id: str = ""
 
 
+@guarded_by("_lock", "_events", "_seq", "_by_name", "_by_trace")
 class EventLog:
     def __init__(self, capacity: int = 4096):
         self._capacity = capacity
@@ -56,12 +59,17 @@ class EventLog:
         # optional wakeup Events set on every emit (outside the lock),
         # so the lifecycle ledger drains on activity instead of polling
         self._wakeups: Tuple[Any, ...] = ()
+        # happens-before channel for the emit→wakeup edge (the waiter
+        # calls hb_observe on this channel after its Event.wait)
+        self._hb_key = ("eventlog", racecheck.channel_token())
 
     def emit(self, name: str, **values: Any) -> None:
         from ..tracing import current_trace_id
 
         event = Event(name, values, trace_id=current_trace_id() or "")
         with self._lock:
+            racecheck.note_access(self, "_events")
+            racecheck.note_access(self, "_seq")
             if len(self._events) == self._capacity:
                 self._unindex_oldest()
             self._events.append(event)
@@ -72,8 +80,12 @@ class EventLog:
                     event
                 )
             wakeups = self._wakeups
-        for wakeup in wakeups:
-            wakeup.set()
+        if wakeups:
+            # Event.set is synchronization the lock tracker can't see:
+            # record the emit→wakeup happens-before edge explicitly
+            racecheck.hb_publish(self.hb_channel())
+            for wakeup in wakeups:
+                wakeup.set()
         if event.trace_id:
             logger.info("%s traceId=%s %s", name, event.trace_id, values)
         else:
@@ -82,6 +94,8 @@ class EventLog:
     def _unindex_oldest(self) -> None:
         """Drop the about-to-be-evicted ring head from its index
         buckets (insertion order makes it each bucket's leftmost)."""
+        racecheck.note_access(self, "_by_name")
+        racecheck.note_access(self, "_by_trace")
         old = self._events[0]
         bucket = self._by_name.get(old.name)
         if bucket:
@@ -94,6 +108,9 @@ class EventLog:
                 bucket.popleft()
                 if not bucket:
                     del self._by_trace[old.trace_id]
+
+    def hb_channel(self) -> tuple:
+        return self._hb_key
 
     def attach_wakeup(self, event) -> None:
         """Add a wakeup Event set on every emit.  Multi-listener:

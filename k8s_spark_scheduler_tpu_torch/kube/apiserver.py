@@ -26,6 +26,7 @@ from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..types.objects import APIObject
+from ..analysis.guarded import guarded_by
 from .errors import (
     AlreadyExistsError,
     ConflictError,
@@ -40,6 +41,7 @@ MODIFIED = "MODIFIED"
 DELETED = "DELETED"
 
 
+@guarded_by("_lock", "_objects", "_uid_counts", "_owner_index", "_watchers", "_terminating_namespaces", "_crds")
 class APIServer:
     """In-memory resource-versioned object store with watch fan-out."""
 

@@ -20,11 +20,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from ..types.objects import APIObject
 from .apiserver import ADDED, APIServer, DELETED, MODIFIED
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 
 Handler = Callable[[APIObject], None]
 UpdateHandler = Callable[[APIObject, APIObject], None]
 
 
+@guarded_by("_lock", "_store", "_indexes", "_last_rv", "_selector_revs")
 class Informer:
     """A shared informer for one kind."""
 
@@ -81,6 +84,7 @@ class Informer:
     def _on_event(self, event: str, obj: APIObject) -> None:
         key = (obj.namespace, obj.name)
         with self._lock:
+            racecheck.note_access(self, "_store")
             # drop out-of-order deliveries: the server's rv is a global
             # monotonic commit order, so a lower rv is a stale event
             rv = obj.meta.resource_version
@@ -230,6 +234,7 @@ class Informer:
             return [o for o in self._store.values() if predicate(o)]
 
 
+@guarded_by("_lock", "_informers")
 class InformerFactory:
     """Shared-informer factory: one informer per kind."""
 

@@ -16,6 +16,7 @@ import time
 from typing import Optional
 
 from .errors import APIError
+from ..analysis.guarded import guarded_by
 
 
 class RateLimitTimeoutError(APIError):
@@ -25,6 +26,7 @@ class RateLimitTimeoutError(APIError):
     reason = "RateLimitTimeout"
 
 
+@guarded_by("_lock", "_tokens", "_last")
 class TokenBucket:
     def __init__(self, qps: float, burst: int):
         self.qps = qps

@@ -38,6 +38,7 @@ from ..types.objects import APIObject, Demand, Node, Pod, ResourceReservation
 from .apiserver import ADDED, DELETED, MODIFIED
 from .errors import NotFoundError
 from .restclient import ClusterConfig, GoneError, RestClient
+from ..analysis.guarded import guarded_by
 
 logger = logging.getLogger(__name__)
 
@@ -144,6 +145,7 @@ def _k8s_wire(obj_dict: dict) -> dict:
     return obj_dict
 
 
+@guarded_by("lock", "handlers", "mirror")
 class _KindWatch:
     """One reflector: list → replay → stream, shared by all handlers of
     a kind."""
@@ -266,6 +268,7 @@ class _KindWatch:
         self.stop_event.set()
 
 
+@guarded_by("_lock", "_watches")
 class RestAPIServer:
     """APIServer-interface adapter over a real Kubernetes API server."""
 

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Optional, Tuple
 from urllib.parse import urlencode, urlsplit
 
+from ..analysis.guarded import guarded_by
 from .errors import (
     AlreadyExistsError,
     APIError,
@@ -195,6 +196,7 @@ class GoneError(APIError):
     reason = "Gone"
 
 
+@guarded_by("_token_lock", "_token")
 class RestClient:
     """Thin requester with per-host connection reuse and a write-side
     token bucket (QPS/Burst, ratelimit.py — reads are unthrottled, like

@@ -37,6 +37,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import timesource
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from ..capacity import in_predicate_lock
 
 logger = logging.getLogger(__name__)
@@ -104,6 +106,15 @@ class GangRecord:
         }
 
 
+@guarded_by(
+    "_lock",
+    "_records",
+    "_order",
+    "_by_driver",
+    "_stats",
+    "_queue_waits",
+    "_transitions",
+)
 class LifecycleLedger:
     """See module docstring.  Thread model: informer handlers and the
     drain path both take the ledger lock per transition; whole drains
@@ -200,6 +211,10 @@ class LifecycleLedger:
             if self._stop.is_set():
                 return
             if fired:
+                for source in (self._event_log, self._feed):
+                    if source is not None and hasattr(source, "hb_channel"):
+                        # observe side of the emit/publish→wakeup edge
+                        racecheck.hb_observe(source.hb_channel())
                 self._wake.clear()
                 # debounce: one drain for a burst of emits
                 if self.debounce_seconds > 0:
@@ -225,6 +240,7 @@ class LifecycleLedger:
                 record = self._record_locked(app_id, now)
                 record.namespace = pod.namespace
                 record.driver_pod = pod.name
+                racecheck.note_access(self, "_by_driver")
                 self._by_driver[pod.name] = app_id
                 self._advance_locked(record, "queued", now)
             if pod.node_name:
@@ -287,6 +303,8 @@ class LifecycleLedger:
         record = self._records.get(app_id)
         if record is not None:
             return record
+        racecheck.note_access(self, "_records")
+        racecheck.note_access(self, "_order")
         record = GangRecord(app_id=app_id)
         record.phase_times["submitted"] = now
         self._records[app_id] = record
@@ -315,6 +333,7 @@ class LifecycleLedger:
         """Move ``record`` to ``phase`` if that is forward progress.
         Stamps first-arrival time; returns True when a transition
         happened."""
+        racecheck.note_access(self, "_transitions")
         current = record.phase
         if phase == current:
             return False
@@ -351,6 +370,7 @@ class LifecycleLedger:
             if self._advance_locked(record, "bound", now):
                 submitted = record.phase_times.get("submitted", now)
                 record.queue_wait_s = max(0.0, now - submitted)
+                racecheck.note_access(self, "_queue_waits")
                 self._queue_waits.append(record.queue_wait_s)
                 queue_wait = record.queue_wait_s
             else:
@@ -377,6 +397,7 @@ class LifecycleLedger:
             record = self._records.get(app_id)
             if record is None:
                 return
+            racecheck.note_access(self, "_records")
             record.executors_bound += 1
             if (
                 record.phase == "bound"
@@ -405,6 +426,7 @@ class LifecycleLedger:
                 and not record.driver_pod
             ):
                 record.driver_pod = pod.name
+                racecheck.note_access(self, "_by_driver")
                 self._by_driver[pod.name] = app_id
             self._advance_locked(record, "shed", now)
 
@@ -428,6 +450,7 @@ class LifecycleLedger:
         gate = self._gate()
         if gate == self._last_gate:
             with self._lock:
+                racecheck.note_access(self, "_stats")
                 self._stats["skipped_unchanged"] += 1
             return None
         return self.drain(trigger=trigger)
@@ -438,6 +461,7 @@ class LifecycleLedger:
         held — the ledger must add zero work there."""
         if in_predicate_lock():
             with self._lock:
+                racecheck.note_access(self, "_stats")
                 self._stats["lock_violations"] += 1
             return None
         with self._drain_mutex:
@@ -449,6 +473,7 @@ class LifecycleLedger:
                 self._slo.evaluate(now=now)
             self._last_gate = gate
             with self._lock:
+                racecheck.note_access(self, "_stats")
                 self._stats["drains"] += 1
             if self._metrics is not None:
                 self._publish_gauges()
@@ -480,6 +505,7 @@ class LifecycleLedger:
                 )
                 record.min_executors = int(values.get("minExecutorCount", 0))
                 record.max_executors = int(values.get("maxExecutorCount", 0))
+                racecheck.note_access(self, "_by_driver")
                 if record.driver_pod:
                     self._by_driver[record.driver_pod] = app_id
                 self._advance_locked(record, "solving", event.timestamp)
@@ -513,6 +539,7 @@ class LifecycleLedger:
                 )
                 if record is None:
                     continue
+                racecheck.note_access(self, "_records")
                 record.solve_count += 1
                 record.solve_tenure_s += duration_s
                 trace_id = trace.get("traceId", "")

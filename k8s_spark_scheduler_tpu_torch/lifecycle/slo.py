@@ -32,6 +32,8 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .. import timesource
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 
 # (state, long_window_s, short_window_s, burn_threshold) — evaluated in
 # order, first match wins (page dominates warn)
@@ -146,6 +148,7 @@ class Objective:
         return frac / budget
 
 
+@guarded_by("_lock", "_objectives", "_alert_tag", "_evaluations")
 class SloEngine:
     """Objective registry + burn-rate evaluator + alert-tag source.
 
@@ -196,6 +199,7 @@ class SloEngine:
             obj = self._objectives.get(objective)
             if obj is None:
                 return
+            racecheck.note_access(self, "_objectives")
             if good is None:
                 good = value <= obj.threshold
             obj.observe(timesource.now() if t is None else t, good)
@@ -269,6 +273,8 @@ class SloEngine:
         the precomputed alert tag, and return the status dict."""
         now = timesource.now() if now is None else now
         with self._lock:
+            racecheck.note_access(self, "_evaluations")
+            racecheck.note_access(self, "_alert_tag")
             status = self._status_locked(now)
             self._evaluations += 1
             alerting = [

@@ -177,6 +177,26 @@ CAPACITY_SAMPLE_COUNT = "foundry.spark.scheduler.tpu.capacity.sample.count"
 CAPACITY_SAMPLE_TIME = "foundry.spark.scheduler.tpu.capacity.sample.time"
 CAPACITY_PROBE_SOLVES = "foundry.spark.scheduler.tpu.capacity.probe.solves"
 
+# contention observatory (contention/): lock wait/hold telemetry and
+# per-request critical-path decomposition
+# time blocked in acquire, per lock site (seconds; histogram)
+LOCK_WAIT_TIME = "foundry.spark.scheduler.tpu.lock.wait.time"
+# time the lock was held, tagged with the holder's span phase
+LOCK_HOLD_TIME = "foundry.spark.scheduler.tpu.lock.hold.time"
+# cumulative acquires / contended acquires per lock site (gauges)
+LOCK_ACQUIRE_COUNT = "foundry.spark.scheduler.tpu.lock.acquire.count"
+LOCK_CONTENDED_COUNT = "foundry.spark.scheduler.tpu.lock.contended.count"
+# cumulative wait seconds charged to the phase that HELD the lock
+# (tagged lock=, holder=): the top-blocker table as a metric
+LOCK_BLOCKED_SECONDS = "foundry.spark.scheduler.tpu.lock.blocked.seconds"
+# per-request latency attributed to one named segment (seconds, tagged
+# segment=gate-queue|lock-wait|serde|solve|speculate|write-back|other)
+CRITICALPATH_SEGMENT_TIME = "foundry.spark.scheduler.tpu.criticalpath.segment.time"
+# fraction of each request attributed to a named (non-other) segment
+CRITICALPATH_COVERAGE = "foundry.spark.scheduler.tpu.criticalpath.coverage"
+# requests whose largest segment was <segment>
+CRITICALPATH_DOMINANT_COUNT = "foundry.spark.scheduler.tpu.criticalpath.dominant.count"
+
 # gang lifecycle ledger (lifecycle/ledger.py)
 # phase transitions (counter, tagged phase=)
 LIFECYCLE_TRANSITIONS = (
@@ -222,6 +242,10 @@ TAG_WASTE_TYPE = "wastetype"
 TAG_KERNEL = "kernel"
 TAG_LANE = "lane"
 TAG_SPAN = "span"
+TAG_LOCK = "lock"
+# the span phase that held a lock while another thread waited on it
+TAG_HOLDER = "holder"
+TAG_SEGMENT = "segment"
 
 TICK_INTERVAL_SECONDS = 30.0
 SLOW_LOG_THRESHOLD_SECONDS = 45.0

@@ -16,6 +16,7 @@ from collections import defaultdict
 from typing import Dict, List, Tuple
 
 from ..tracing.spans import current_trace_id
+from ..analysis.guarded import guarded_by
 
 TagSet = Tuple[Tuple[str, str], ...]
 
@@ -84,6 +85,7 @@ class Histogram:
         }
 
 
+@guarded_by("_lock", "_counters", "_gauges", "_histograms")
 class MetricsRegistry:
     def __init__(self):
         self._lock = threading.RLock()

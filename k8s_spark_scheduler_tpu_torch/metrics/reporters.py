@@ -12,10 +12,12 @@ metrics.go:89) and reports:
   (softreservations.go:50-104)
 - async write queue depths (inflight counts)
 - the registry's own per-name label-set cardinality
+- the resilience kit's journal depth and write-back recovery nudge
+- the contention observatory's lock telemetry, drained into histograms
 
-The reference package's kernel jit-cache, resilience and contention
-reporters have no counterpart here: this package has no jit cache, and
-its resilience and contention subsystems are not ported (ROADMAP A.6).
+The reference package's kernel jit-cache reporter has no counterpart
+here: this package has no jit cache, and builds each kernel once per
+process.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..scheduler import labels as L
 from ..types.resources import Resources
 from . import names
 from .registry import MetricsRegistry
+from ..analysis.guarded import guarded_by
 
 logger = logging.getLogger(__name__)
 
@@ -40,6 +43,7 @@ def _percentile(sorted_values: List[float], q: float) -> float:
     return sorted_values[idx]
 
 
+@guarded_by("_delay_lock", "_delays")
 class ReporterSet:
     def __init__(self, server, tick_seconds: float = names.TICK_INTERVAL_SECONDS):
         self._server = server
@@ -97,6 +101,7 @@ class ReporterSet:
             self.report_informer_delay,
             self.report_registry_series,
             self.report_resilience,
+            self.report_contention,
         ):
             try:
                 fn()
@@ -276,3 +281,15 @@ class ReporterSet:
         kit.health.state(serving=serving)
         if not timesource.is_virtual():
             self._server.resource_reservation_cache.nudge_recovery()
+
+    # -- contention -----------------------------------------------------------
+
+    def report_contention(self) -> None:
+        """Drain the lock-telemetry pending buffers into wait/hold
+        histograms.  TimedLock never publishes from the lock path (the
+        registry's own lock is a TimedLock — publishing there would
+        recurse), so the reporter tick is the drain point."""
+        from ..contention import locktime
+
+        if locktime.active():
+            locktime.publish(self.metrics)

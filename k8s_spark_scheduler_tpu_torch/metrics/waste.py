@@ -28,6 +28,7 @@ from ..scheduler import labels as L
 from ..types.objects import Demand, Pod
 from . import names
 from .registry import MetricsRegistry
+from ..analysis.guarded import guarded_by
 
 logger = logging.getLogger(__name__)
 
@@ -45,6 +46,7 @@ class _PodSchedulingInfo:
     created_at: float = field(default_factory=timesource.now)
 
 
+@guarded_by("_lock", "_info")
 class WasteMetricsReporter:
     def __init__(self, metrics: MetricsRegistry, instance_group_label: str):
         self._metrics = metrics

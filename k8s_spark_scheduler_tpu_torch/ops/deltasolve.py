@@ -72,6 +72,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from ..device import lane_of
 from ..metrics import names as mnames
 from ..tracing import spans as tracing
@@ -111,6 +113,7 @@ class _Session:
     class_rev: int = -1
 
 
+@guarded_by("_lock", "_sessions", "_stats", "_resume_depths", "_parity_count")
 class DeltaSolveEngine:
     """Serves the whole FIFO driver decision from resident device state
     when it can, declining (``solve`` → None) to the per-request build +
@@ -164,12 +167,14 @@ class DeltaSolveEngine:
 
     def _miss(self, reason: str) -> None:
         with self._lock:
+            racecheck.note_access(self, "_stats")
             self._stats["misses"][reason] = self._stats["misses"].get(reason, 0) + 1
         if self._metrics is not None:
             self._metrics.counter(mnames.DELTASOLVE_WARM_MISSES, {"reason": reason})
 
     def _record_warm(self, resume: int) -> None:
         with self._lock:
+            racecheck.note_access(self, "_stats")
             self._stats["warm_hits"] += 1
             self._resume_depths.append(int(resume))
         if self._metrics is not None:
@@ -178,6 +183,7 @@ class DeltaSolveEngine:
 
     def _record_cold(self) -> None:
         with self._lock:
+            racecheck.note_access(self, "_stats")
             self._stats["cold_solves"] += 1
 
     def stats(self) -> dict:
@@ -206,6 +212,7 @@ class DeltaSolveEngine:
         driver_rank [N] int64) of the most recently used session's
         cluster view, or None when no session is resident."""
         with self._lock:
+            racecheck.note_access(self, "_sessions")
             if not self._sessions:
                 return None
             sess = next(reversed(self._sessions.values()))
@@ -224,6 +231,7 @@ class DeltaSolveEngine:
         runs outside the engine lock); its tensors free once the last
         reference drops."""
         with self._lock:
+            racecheck.note_access(self, "_sessions")
             self._sessions.clear()
 
     def _publish_gauges(self) -> None:
@@ -285,6 +293,7 @@ class DeltaSolveEngine:
             n_earlier = len(earlier_apps)
 
             with self._lock:
+                racecheck.note_access(self, "_sessions")
                 sess = self._sessions.get(skey)
                 if sess is not None:
                     self._sessions.move_to_end(skey)
@@ -311,6 +320,7 @@ class DeltaSolveEngine:
                     sess.content_key = snap.content_key
                     sess.class_rev = getattr(snap, "class_rev", -1)
                     with self._lock:
+                        racecheck.note_access(self, "_stats")
                         self._stats["digest_hits"] = self._stats.get("digest_hits", 0) + 1
                 elif np.array_equal(snap.avail[prep.idx], sess.avail64) and np.array_equal(
                     snap.schedulable[prep.idx], sess.sched64
@@ -362,6 +372,7 @@ class DeltaSolveEngine:
                 self._record_warm(resume)
                 if self.parity_interval:
                     with self._lock:
+                        racecheck.note_access(self, "_parity_count")
                         self._parity_count += 1
                         parity_due = self._parity_count % self.parity_interval == 0
                     if parity_due:
@@ -567,6 +578,7 @@ class DeltaSolveEngine:
         # disagrees with the basis now resident (the next request
         # cold-builds).
         with self._lock:
+            racecheck.note_access(self, "_sessions")
             prior = self._sessions.pop(skey, None)
         native = prior.native if prior is not None else FifoSession(device=device)
         with tracing.child_span("deltasolve.load"):
@@ -601,6 +613,7 @@ class DeltaSolveEngine:
             class_rev=getattr(snap, "class_rev", -1),
         )
         with self._lock:
+            racecheck.note_access(self, "_sessions")
             self._sessions[skey] = sess  # stale entry already popped above
             while len(self._sessions) > self.MAX_SESSIONS:
                 # evictees are dropped, not closed: another thread's

@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from .. import timesource
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from ..device import DeviceLike, lane_of, resolve_device
 
 BUNDLE_SCHEMA = 1
@@ -101,6 +103,8 @@ class DecisionBundle:
         }
 
 
+@guarded_by("_lock", "_ring", "_seq", "_persist_seq", "skipped_oversize",
+            "persisted_paths")
 class FlightRecorder:
     """Bounded ring of recent decision bundles + trigger-driven persist.
 
@@ -133,10 +137,12 @@ class FlightRecorder:
         trigger (see DecisionBundle)."""
         if artifacts.basis.shape[0] > self.max_nodes:
             with self._lock:
+                racecheck.note_access(self, "skipped_oversize")
                 self.skipped_oversize += 1
             return None
         t = float(timesource.now())
         with self._lock:
+            racecheck.note_access(self, "_ring")
             seq = self._seq
             self._seq += 1
             self._ring.append((seq, artifacts, pod, outcome, t))
@@ -149,10 +155,12 @@ class FlightRecorder:
         returns the path, or None when the ring is empty or no out_dir
         is configured."""
         with self._lock:
+            racecheck.note_access(self, "_ring")
             entries = list(self._ring)
         if not entries or not self.out_dir:
             return None
         with self._lock:
+            racecheck.note_access(self, "_persist_seq")
             # numbered only when a file will actually be written, so the
             # on-disk sequence has no gaps an operator could mistake for
             # lost bundles
@@ -184,6 +192,7 @@ class FlightRecorder:
                 f.write(json.dumps(b, sort_keys=True, separators=(",", ":")) + "\n")
         os.replace(tmp, path)
         with self._lock:
+            racecheck.note_access(self, "persisted_paths")
             self.persisted_paths.append(path)
         if self._metrics is not None:
             from ..metrics import names as mnames

@@ -13,6 +13,8 @@ from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from .explain import ShortfallInfo
 
 
@@ -66,6 +68,7 @@ class DecisionRecord:
         return out
 
 
+@guarded_by("_lock", "_ring", "_by_pod")
 class ProvenanceRing:
     """Bounded decision-record ring with a latest-per-pod index.
 
@@ -88,6 +91,7 @@ class ProvenanceRing:
     def record(self, rec: DecisionRecord) -> None:
         key = self._key(rec.namespace, rec.pod)
         with self._lock:
+            racecheck.note_access(self, "_ring")
             self._ring.append(rec)
             self._by_pod[key] = rec
             self._by_pod.move_to_end(key)
@@ -104,6 +108,7 @@ class ProvenanceRing:
         ``/explain/<pod>`` endpoint serves; pass ``ns/pod`` to
         disambiguate same-named pods in a multi-tenant cluster)."""
         with self._lock:
+            racecheck.note_access(self, "_by_pod")
             if "/" in pod:
                 return self._by_pod.get(pod)
             suffix = "/" + pod
@@ -114,6 +119,7 @@ class ProvenanceRing:
 
     def recent(self, limit: int = 20) -> List[DecisionRecord]:
         with self._lock:
+            racecheck.note_access(self, "_ring")
             items = list(self._ring)
         return items[-max(0, int(limit)):][::-1]
 

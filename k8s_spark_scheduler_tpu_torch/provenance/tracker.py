@@ -26,6 +26,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from .. import timesource
 from ..metrics import names as mnames
 from ..tracing import spans as tracing
@@ -118,6 +120,7 @@ class SolveArtifacts:
         return None
 
 
+@guarded_by("_pending_lock", "_pending", "_explain_cache", "_last_trigger")
 class ProvenanceTracker:
     """See module docstring.  Thread model: lifecycle methods run under
     the extender's predicate lock (one decision at a time); the pending
@@ -174,6 +177,7 @@ class ProvenanceTracker:
         feed_seq: Optional[int] = None,
     ) -> None:
         with self._pending_lock:
+            racecheck.note_access(self, "_pending")
             self._pending = {
                 "pod": pod.name,
                 "namespace": pod.namespace,
@@ -195,6 +199,7 @@ class ProvenanceTracker:
         """Attach request context discovered after begin_decision (the
         earlier-driver queue slice, the snapshot keys)."""
         with self._pending_lock:
+            racecheck.note_access(self, "_pending")
             p = self._pending
             if p is None:
                 return
@@ -210,12 +215,14 @@ class ProvenanceTracker:
         until a refusal has been explained) — the policy engine reads
         its ``blockers`` list as the victim-candidate seed."""
         with self._pending_lock:
+            racecheck.note_access(self, "_pending")
             p = self._pending
             return p.get("shortfall") if p else None
 
     def capture(self, artifacts: SolveArtifacts) -> None:
         """The solver lanes' capture sink (engine + solve_tensor)."""
         with self._pending_lock:
+            racecheck.note_access(self, "_pending")
             p = self._pending
             if p is None:
                 return
@@ -254,6 +261,7 @@ class ProvenanceTracker:
                 art.memo_sig(),
             )
             with self._pending_lock:
+                racecheck.note_access(self, "_explain_cache")
                 hit = self._explain_cache.get(cache_key)
                 if hit is not None:
                     self._explain_cache.move_to_end(cache_key)
@@ -262,6 +270,7 @@ class ProvenanceTracker:
                 self._count_explain("refusal-cached")
                 if info is not None:
                     with self._pending_lock:
+                        racecheck.note_access(self, "_pending")
                         if self._pending is p:
                             p["shortfall"] = info
                     self._publish_shortfall(info)
@@ -281,12 +290,14 @@ class ProvenanceTracker:
         msg = shortfall_message(info) if info is not None else ""
         if cache_key is not None:
             with self._pending_lock:
+                racecheck.note_access(self, "_explain_cache")
                 self._explain_cache[cache_key] = (info, msg)
                 while len(self._explain_cache) > self.EXPLAIN_CACHE_SIZE:
                     self._explain_cache.popitem(last=False)
         if info is None:
             return ""
         with self._pending_lock:
+            racecheck.note_access(self, "_pending")
             if self._pending is p and p is not None:
                 p["shortfall"] = info
         self._publish_shortfall(info)
@@ -302,6 +313,7 @@ class ProvenanceTracker:
         message: str = "",
     ) -> None:
         with self._pending_lock:
+            racecheck.note_access(self, "_pending")
             p = self._pending
             self._pending = None
         if p is None:
@@ -395,6 +407,7 @@ class ProvenanceTracker:
         forensic evidence."""
         now = timesource.now()
         with self._pending_lock:
+            racecheck.note_access(self, "_last_trigger")
             last = self._last_trigger.get(trigger)
             if last is not None and now - last < self.trigger_min_interval:
                 self.triggers_suppressed += 1
@@ -411,6 +424,7 @@ class ProvenanceTracker:
             # concurrent same-type triggers may both persist in the
             # window — an extra file beats a missing forensic bundle.
             with self._pending_lock:
+                racecheck.note_access(self, "_last_trigger")
                 self._last_trigger[trigger] = now
             logger.warning(
                 "flight recorder persisted %s (trigger %s: %s)",

@@ -24,6 +24,8 @@ from __future__ import annotations
 import threading
 
 from .. import timesource
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 
 CLOSED = "closed"
 OPEN = "open"
@@ -32,6 +34,7 @@ HALF_OPEN = "half-open"
 _STATE_VALUE = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
 
 
+@guarded_by("_lock", "_state", "_consecutive_failures", "_opened_at", "_probe_in_flight")
 class CircuitBreaker:
     def __init__(
         self,
@@ -98,6 +101,7 @@ class CircuitBreaker:
     def record_failure(self) -> None:
         opened = False
         with self._lock:
+            racecheck.note_access(self, "_state")
             self._consecutive_failures += 1
             self._probe_in_flight = False
             if self._state == HALF_OPEN or (

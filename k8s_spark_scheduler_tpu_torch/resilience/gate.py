@@ -18,12 +18,15 @@ import threading
 import time
 from typing import Optional
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 
 
 class AdmissionShed(Exception):
     """Request shed by the admission gate; immediately retriable."""
 
 
+@guarded_by("_lock", "_in_flight", "_shed_total", "_last_shed_monotonic")
 class AdmissionGate:
     def __init__(self, max_waiters: int = 16, metrics=None):
         # max_waiters counts every admitted-but-unfinished request: the
@@ -41,6 +44,7 @@ class AdmissionGate:
         """Admit the caller, or return False (shed) when the wait queue
         is full.  Never blocks."""
         with self._lock:
+            racecheck.note_access(self, "_in_flight")
             if self._in_flight >= self.max_waiters:
                 self._shed_total += 1
                 self._last_shed_monotonic = time.monotonic()
@@ -54,6 +58,7 @@ class AdmissionGate:
 
     def leave(self) -> None:
         with self._lock:
+            racecheck.note_access(self, "_in_flight")
             self._in_flight = max(self._in_flight - 1, 0)
 
     def admit(self) -> "_Admission":

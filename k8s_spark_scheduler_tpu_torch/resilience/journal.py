@@ -45,6 +45,8 @@ import threading
 import zlib
 from typing import Dict, List, Optional, Set, Tuple
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 
 logger = logging.getLogger(__name__)
 
@@ -92,6 +94,7 @@ def _unframe(line: str) -> Optional[dict]:
     return None
 
 
+@guarded_by("_lock", "_pending", "_seq", "_fh", "_file_records")
 class IntentJournal:
     def __init__(
         self,
@@ -105,6 +108,9 @@ class IntentJournal:
         self._compact_fraction = compact_fraction
         self._compact_min_records = compact_min_records
         self._lock = threading.Lock()
+        # persist→replay happens-before channel; a process-unique token
+        # so a recycled object id can never alias journals
+        self._hb_key = ("journal", racecheck.channel_token())
         self._seq = 0
         # key → intent dict (latest wins)
         self._pending: Dict[Key, dict] = {}
@@ -214,6 +220,7 @@ class IntentJournal:
     ) -> None:
         """Divert one write intent (latest-wins per key)."""
         with self._lock:
+            racecheck.note_access(self, "_pending")
             self._seq += 1
             rec = {
                 "a": "put",
@@ -226,6 +233,7 @@ class IntentJournal:
             }
             self._pending[(namespace, name)] = rec
             self._append_line(rec)
+            racecheck.hb_publish(self._hb_key)
             self._report_depth()
             if self._metrics is not None:
                 from ..metrics import names as mnames
@@ -239,6 +247,7 @@ class IntentJournal:
         the landed operation's class matches the pending intent's (an
         upsert landing must not ack a newer pending delete)."""
         with self._lock:
+            racecheck.note_access(self, "_pending")
             key = (namespace, name)
             rec = self._pending.get(key)
             if rec is None or _op_class(rec["op"]) != _op_class(op):
@@ -265,6 +274,7 @@ class IntentJournal:
 
     def pending(self) -> List[dict]:
         """Copies of pending intents in seq order."""
+        racecheck.hb_observe(self._hb_key)
         with self._lock:
             return sorted((dict(r) for r in self._pending.values()), key=lambda r: r["seq"])
 

@@ -36,6 +36,7 @@ from .. import compat
 from .. import timesource
 from ..capacity import enter_predicate_lock, exit_predicate_lock
 from ..config import FifoConfig
+from ..contention.locktime import TimedLock
 from ..tracing import spans as tracing
 from ..demands.manager import DemandManager
 from ..events import events as ev
@@ -151,8 +152,14 @@ class SparkSchedulerExtender:
         # kube-scheduler serializes Filter calls per scheduler instance
         # (SURVEY §2.10); the reference's state (lastRequest, the
         # reconcile-then-pack flow) relies on that — enforce it here so a
-        # threaded HTTP front end can't interleave predicates
-        self._predicate_lock = threading.Lock()
+        # threaded HTTP front end can't interleave predicates.  The
+        # TimedLock wrapper (contention/locktime.py) measures every
+        # acquire — the one lock every Filter takes — so it records
+        # unsampled and stamps lockWaitMs on the request span for the
+        # critical-path decomposition.
+        self._predicate_lock = TimedLock(
+            threading.Lock(), "extender.predicate", sample_every=1, tag_waits=True
+        )
         self._fast_path_ok = tensor_snapshot_cache is not None
         # incremental delta-solve engine (ops/deltasolve.py):
         # device-resident solver sessions + prefix-feasibility reuse for

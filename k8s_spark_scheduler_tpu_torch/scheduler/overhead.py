@@ -16,6 +16,7 @@ from ..kube.informer import Informer
 from ..types.objects import Node, Pod
 from ..types.resources import NodeGroupResources, Resources
 from . import labels as L
+from ..analysis.guarded import guarded_by
 
 
 def pod_to_resources(pod: Pod) -> Resources:
@@ -35,6 +36,7 @@ class _PodRequestInfo:
     requests: Resources
 
 
+@guarded_by("_lock", "_requests")
 class OverheadComputer:
     """overhead.go:33-209."""
 

@@ -11,6 +11,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .. import timesource
 from ..kube.informer import Informer
+from ..analysis.guarded import guarded_by
 from ..state.softreservations import SoftReservation, SoftReservationStore
 from ..state.typed_caches import ResourceReservationCache
 from ..types.objects import (
@@ -69,6 +70,7 @@ def new_resource_reservation(
     )
 
 
+@guarded_by("_da_compaction_lock", "_da_compaction_apps")
 class ResourceReservationManager:
     """resourcereservations.go:68-102."""
 

@@ -35,6 +35,12 @@
 - ``GET /lifecycle`` / ``GET /lifecycle/<app>`` — the gang lifecycle
   ledger: per-application phase machine with queue-wait / solve-tenure
   durations and eviction causes (lifecycle/)
+- ``GET /debug/contention`` (``?lock=``) — per-lock wait/hold
+  percentiles, holder attribution, and top blockers
+  (contention/locktime.py)
+- ``GET /debug/criticalpath`` (``?limit=N``) — per-request latency
+  decomposition: gate-queue / lock-wait / serde / solve / write-back
+  (contention/criticalpath.py)
 """
 
 from __future__ import annotations
@@ -214,6 +220,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._handle_explain(unquote(path[len("/explain/"):]))
         elif path.startswith("/state/capacity") and self.scheduler is not None:
             self._handle_capacity(path, query)
+        elif path == "/debug/contention" and self.scheduler is not None:
+            self._handle_debug_contention(query)
+        elif path == "/debug/criticalpath" and self.scheduler is not None:
+            self._handle_debug_criticalpath(query)
         elif path == "/slo" and self.scheduler is not None:
             self._handle_slo()
         elif (path == "/lifecycle" or path.startswith("/lifecycle/")) and self.scheduler is not None:
@@ -224,6 +234,40 @@ class _Handler(BaseHTTPRequestHandler):
     def _split_path(self):
         parts = urlsplit(self.path)
         return parts.path, parse_qs(parts.query)
+
+    def _handle_debug_contention(self, query) -> None:
+        """Lock wait/hold telemetry (contention/locktime.py): per-lock
+        reservoir percentiles, holder-phase attribution, and the
+        top-blocker table.  ``?lock=<name>`` filters to one lock site.
+        Reading also drains pending samples into the metrics registry
+        so a scrape right after stays fresh."""
+        keeper = self.scheduler.contention
+        if keeper is None:
+            self._send_json(200, {"enabled": False, "locks": []})
+            return
+        name = query.get("lock", [None])[0] if query.get("lock") else None
+        keeper.publish(self.scheduler.metrics)
+        self._send_json(200, {"enabled": True, "locks": keeper.snapshot(name_filter=name)})
+
+    def _handle_debug_criticalpath(self, query) -> None:
+        """Per-request latency decomposition (contention/
+        criticalpath.py): which segment — gate-queue, lock-wait, serde,
+        solve, write-back — the milliseconds went to, summarized over
+        the recent-request ring.  ``?limit=N`` appends the N newest
+        per-request records."""
+        analyzer = self.scheduler.criticalpath
+        if analyzer is None:
+            self._send_json(200, {"enabled": False, "requests": 0})
+            return
+        out = {"enabled": True}
+        out.update(analyzer.summary())
+        try:
+            limit = int(query.get("limit", [""])[0])
+        except (ValueError, IndexError):
+            limit = 0
+        if limit:
+            out["recent"] = analyzer.recent(limit=limit)
+        self._send_json(200, out)
 
     def _handle_slo(self) -> None:
         """The live scorecard: burn-rate status per objective plus the

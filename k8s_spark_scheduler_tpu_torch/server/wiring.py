@@ -9,8 +9,10 @@ periodic metric reporters, the unschedulable-pod marker, the resilience
 kit (admission gate, write-back breaker and intent journal, tri-state
 health), decision provenance (the record ring, the refusal explainer
 and the flight recorder), the capacity observatory (a sampler thread
-probing headroom on ``device``) and the lifecycle ledger with its SLO
-engine.  The
+probing headroom on ``device``), the lifecycle ledger with its SLO
+engine, and the contention observatory (every ``@guarded_by`` lock and
+the predicate lock timed, each request's trace decomposed into its
+critical-path segments).  The
 ``tpu-batch*`` binpackers run their queue solvers on ``device`` (None =
 CUDA, which raises on a host without CUDA); ``start_background`` also
 starts the kernel warmup, which builds the binpacker's CUDA library and
@@ -152,6 +154,8 @@ class Server:
     capacity: object = None  # CapacitySampler (capacity/observatory.py)
     lifecycle: object = None  # LifecycleLedger (lifecycle/ledger.py)
     slo: object = None  # SloEngine (lifecycle/slo.py)
+    contention: object = None  # LockTimekeeper (contention/locktime.py)
+    criticalpath: object = None  # CriticalPathAnalyzer (contention/criticalpath.py)
     _warm_done: threading.Event = field(default_factory=threading.Event)
     _warm_stop: threading.Event = field(default_factory=threading.Event)
     _warm_error: Optional[BaseException] = None
@@ -252,6 +256,17 @@ def init_server_with_clients(
             "never demotes a kernel lane (a kernel fault answers 500)",
             ", ".join(install.resilience.lane_keys),
         )
+    # contention observatory switchboard FIRST: the guarded singletons
+    # constructed below get their sampling stride from it, and enabling
+    # before construction means their very first acquires record.  The
+    # switchboard is process-wide: a server built with it off does not
+    # turn off another server's (disable() is the caller's to call)
+    contention_keeper = None
+    if install.contention.enabled:
+        from ..contention import locktime
+
+        locktime.set_default_sample_every(install.contention.sample_every)
+        contention_keeper = locktime.enable()
     metrics = MetricsRegistry()
     event_log = EventLog()
     # request tracing + kernel profiling sinks.  The profiler is a
@@ -260,6 +275,17 @@ def init_server_with_clients(
     # correct for the one-server-per-process production shape.
     tracer = Tracer(capacity=256, metrics=metrics)
     kernel_profiling.default_profiler.configure(metrics=metrics, tracer=tracer, enabled=True)
+    # critical-path extraction rides trace completion: every finished
+    # request tree decomposes into gate-queue / lock-wait / serde /
+    # solve / write-back segments (contention/criticalpath.py)
+    criticalpath_analyzer = None
+    if install.contention.enabled:
+        from ..contention import CriticalPathAnalyzer
+
+        criticalpath_analyzer = CriticalPathAnalyzer(
+            metrics=metrics, capacity=install.contention.ring_size
+        )
+        tracer.add_observer(criticalpath_analyzer.on_trace)
     # node-name interning counters land in THIS server's registry (the
     # interner is module-level for the same reason the profiler is)
     serde.names_interner.metrics = metrics
@@ -490,6 +516,8 @@ def init_server_with_clients(
         capacity=capacity_sampler,
         lifecycle=lifecycle_ledger,
         slo=slo_engine,
+        contention=contention_keeper,
+        criticalpath=criticalpath_analyzer,
     )
     server.reporters = ReporterSet(server)
 

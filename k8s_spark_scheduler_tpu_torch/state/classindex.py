@@ -41,6 +41,9 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional, Tuple
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
+
 # class-key capacity rounding: quantities inside one bucket are the
 # same machine shape for analytics purposes (base units are cpu milli /
 # mem bytes / gpu milli — see ops/tensorize.py)
@@ -54,6 +57,7 @@ def labels_signature(labels: Dict[str, str]) -> int:
     return hash(tuple(sorted(labels.items())))
 
 
+@guarded_by("_lock", "_slots")
 class ClassIndex:
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -101,6 +105,7 @@ class ClassIndex:
         label signature (usage/overhead deltas never change labels, and
         recomputing the signature would make them O(labels))."""
         with self._lock:
+            racecheck.note_access(self, "_slots")
             prev = self._slots.get(slot)
             if labels is not None:
                 sig = labels_signature(labels)
@@ -126,6 +131,7 @@ class ClassIndex:
 
     def drop_node(self, slot: int) -> None:
         with self._lock:
+            racecheck.note_access(self, "_slots")
             prev = self._slots.pop(slot, None)
             if prev is None:
                 return

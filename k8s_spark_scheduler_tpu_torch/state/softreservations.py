@@ -14,6 +14,8 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from ..kube.informer import Informer
 from ..scheduler.labels import SPARK_APP_ID_LABEL, SPARK_ROLE_LABEL, DRIVER, EXECUTOR, is_spark_scheduler_pod
 from ..types.objects import Pod, Reservation
@@ -31,6 +33,7 @@ class SoftReservation:
     status: Dict[str, bool] = field(default_factory=dict)
 
 
+@guarded_by("_lock", "_store", "_observers")
 class SoftReservationStore:
     def __init__(self, pod_informer: Optional[Informer] = None):
         self._lock = threading.RLock()
@@ -56,6 +59,7 @@ class SoftReservationStore:
 
     def create_soft_reservation_if_not_exists(self, app_id: str) -> None:
         with self._lock:
+            racecheck.note_access(self, "_store")
             if app_id not in self._store:
                 self._store[app_id] = SoftReservation()
 
@@ -63,6 +67,7 @@ class SoftReservationStore:
         """No-op if the pod was ever seen (incl. tombstoned)
         (softreservations.go:110-131)."""
         with self._lock:
+            racecheck.note_access(self, "_store")
             sr = self._store.get(app_id)
             if sr is None:
                 raise KeyError(f"no soft reservation store entry for app {app_id}")
@@ -103,6 +108,7 @@ class SoftReservationStore:
         """Drop the reservation but tombstone the name
         (softreservations.go:204-216)."""
         with self._lock:
+            racecheck.note_access(self, "_store")
             sr = self._store.get(app_id)
             if sr is None:
                 return
@@ -113,6 +119,7 @@ class SoftReservationStore:
 
     def remove_driver_reservation(self, app_id: str) -> None:
         with self._lock:
+            racecheck.note_access(self, "_store")
             sr = self._store.pop(app_id, None)
             if sr is not None:
                 for pod_name, reservation in sr.reservations.items():
@@ -132,6 +139,7 @@ class SoftReservationStore:
         # under the lock: registration must not race a concurrent
         # _notify iteration over the same list
         with self._lock:
+            racecheck.note_access(self, "_observers")
             self._observers.append(fn)
 
     def _notify(self, node: str, resources: Resources, sign: int, pod_name: str) -> None:

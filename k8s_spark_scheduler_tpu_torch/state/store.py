@@ -17,6 +17,8 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from ..types.objects import APIObject
 
 Key = Tuple[str, str]  # (namespace, name)
@@ -55,6 +57,7 @@ def delete_request(key: Key) -> Request:
     return Request(key, DELETE)
 
 
+@guarded_by("_lock", "_store", "_observers")
 class ObjectStore:
     """Thread-safe map[(ns,name)] → object (store.go:27-130).
 
@@ -76,6 +79,7 @@ class ObjectStore:
         seeded before they existed (e.g. lister-seeded reservations on
         restart)."""
         with self._lock:
+            racecheck.note_access(self, "_observers")
             self._observers.append(fn)
             snapshot = list(self._store.values())
         for obj in snapshot:
@@ -100,6 +104,7 @@ class ObjectStore:
         process is the sole writer, so local RV is authoritative
         (store.go:51-59)."""
         with self._lock:
+            racecheck.note_access(self, "_store")
             key = key_of(obj)
             current = self._store.get(key)
             if current is not None:
@@ -111,6 +116,7 @@ class ObjectStore:
         """Fold an externally-observed object in: only bump our RV if the
         external one is numerically newer (store.go:62-76)."""
         with self._lock:
+            racecheck.note_access(self, "_store")
             key = key_of(obj)
             current = self._store.get(key)
             if current is None:
@@ -124,6 +130,7 @@ class ObjectStore:
 
     def put_if_absent(self, obj: APIObject) -> bool:
         with self._lock:
+            racecheck.note_access(self, "_store")
             key = key_of(obj)
             if key in self._store:
                 return False
@@ -151,6 +158,7 @@ class ObjectStore:
 
     def delete(self, key: Key) -> None:
         with self._lock:
+            racecheck.note_access(self, "_store")
             old = self._store.pop(key, None)
             if old is not None:
                 self._notify(old, None)
@@ -175,6 +183,7 @@ DELTA_NODE_STRUCTURE = "node-structure"
 DELTA_POD = "pod"
 
 
+@guarded_by("_lock", "_seq", "_ring")
 class ChangeFeed:
     """Monotonic, bounded feed of typed state deltas.
 
@@ -200,6 +209,10 @@ class ChangeFeed:
         # only on state change (Event.set is lock-free and idempotent
         # — safe under the publisher's mirror lock)
         self._wakeups: Tuple[Any, ...] = ()
+        # happens-before channel key for the publish→wakeup edge; a
+        # process-unique token, captured once, so a recycled object id
+        # can never alias this feed's clock to another feed's
+        self._hb_key = ("changefeed", racecheck.channel_token())
 
     @property
     def seq(self) -> int:
@@ -214,13 +227,24 @@ class ChangeFeed:
 
     def publish(self, kind: str, key: Optional[str] = None) -> int:
         with self._lock:
+            racecheck.note_access(self, "_seq")
             self._seq += 1
             self._ring.append((self._seq, kind, key))
             seq = self._seq
             wakeups = self._wakeups
-        for wakeup in wakeups:
-            wakeup.set()
+        if wakeups:
+            # Event.set is synchronization the lock tracker can't see:
+            # record the publish→wakeup happens-before edge explicitly
+            # (each waiter calls hb_observe on this channel)
+            racecheck.hb_publish(self.hb_channel())
+            for wakeup in wakeups:
+                wakeup.set()
         return seq
+
+    def hb_channel(self) -> tuple:
+        """The happens-before channel key for this feed's publish →
+        wakeup edge (racecheck.hb_observe after a wakeup-event wait)."""
+        return self._hb_key
 
     def kinds_since(self, seq: int):
         """frozenset of delta kinds with sequence > seq, or None when
@@ -248,6 +272,7 @@ def fnv32a(data: bytes) -> int:
 ASYNC_REQUEST_BUFFER_SIZE = 100
 
 
+@guarded_by("_lock", "_inflight")
 class ShardedUniqueQueue:
     """queue.go:34-128.
 
@@ -291,7 +316,14 @@ class ShardedUniqueQueue:
         return self._queues[self._bucket(r.key)]
 
     def _release_func(self, r: Request) -> Callable[[], Request]:
+        # queue-handoff happens-before edge, carried INSIDE the item:
+        # the consumer inherits the producer's clock exactly when the
+        # enqueue succeeded (a Full shard drops the closure, so a failed
+        # handoff can neither order nor hide anything)
+        snapshot = racecheck.hb_snapshot()
+
         def release() -> Request:
+            racecheck.hb_join(snapshot)
             self._delete_from_inflight(r.key)
             return r
 
@@ -302,6 +334,7 @@ class ShardedUniqueQueue:
 
     def _add_to_inflight_if_absent(self, key: Key) -> bool:
         with self._lock:
+            racecheck.note_access(self, "_inflight")
             if key in self._inflight:
                 return False
             self._inflight.add(key)
@@ -309,4 +342,5 @@ class ShardedUniqueQueue:
 
     def _delete_from_inflight(self, key: Key) -> None:
         with self._lock:
+            racecheck.note_access(self, "_inflight")
             self._inflight.discard(key)

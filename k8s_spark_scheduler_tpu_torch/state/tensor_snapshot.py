@@ -38,6 +38,8 @@ from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from ..ops.tensorize import _resources_to_base
 from ..scheduler import labels as L
 from ..scheduler.overhead import pod_to_resources
@@ -127,6 +129,7 @@ class TensorSnapshot:
 _INSTANCE_SEQ = itertools.count()
 
 
+@guarded_by("_lock", "_node_slot", "_pod_slot")
 class TensorSnapshotCache:
     def __init__(self, node_informer, pod_informer, rr_cache, soft_store):
         self._lock = threading.RLock()
@@ -228,6 +231,7 @@ class TensorSnapshotCache:
 
     def _on_node(self, node: Node) -> None:
         with self._lock:
+            racecheck.note_access(self, "_node_slot")
             slot = self._node_slot.get(node.name)
             new_zone = self._zone_of(node.labels)
             if slot is None or (
@@ -262,6 +266,7 @@ class TensorSnapshotCache:
 
     def _on_node_delete(self, node: Node) -> None:
         with self._lock:
+            racecheck.note_access(self, "_node_slot")
             self._structure_rev += 1
             self.feed.publish(DELTA_NODE_STRUCTURE, node.name)
             slot = self._node_slot.pop(node.name, None)
@@ -397,6 +402,7 @@ class TensorSnapshotCache:
 
     def _on_pod(self, pod: Pod) -> None:
         with self._lock:
+            racecheck.note_access(self, "_pod_slot")
             key = (pod.namespace, pod.name)
             slot = self._pod_slot.get(key)
             if pod.node_name == "":
@@ -429,6 +435,7 @@ class TensorSnapshotCache:
 
     def _on_pod_delete(self, pod: Pod) -> None:
         with self._lock:
+            racecheck.note_access(self, "_pod_slot")
             slot = self._pod_slot.pop((pod.namespace, pod.name), None)
             if slot is not None:
                 self._pod_active[slot] = False

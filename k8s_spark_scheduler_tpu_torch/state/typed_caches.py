@@ -11,6 +11,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, List, Optional
 
+from ..analysis.guarded import guarded_by
 from ..kube.apiserver import APIServer
 from ..kube.crd import DEMAND_CRD_NAME
 from ..kube.informer import Informer, InformerFactory
@@ -215,6 +216,7 @@ class DemandCache:
         return self._queue.queue_lengths()
 
 
+@guarded_by("_callback_lock", "_callbacks")
 class LazyDemandInformer:
     """internal/crd/demand_informer.go:40-138: polls for the Demand CRD to
     become Established, then starts the informer and signals ready."""
@@ -294,6 +296,7 @@ class LazyDemandInformer:
                 callback()
 
 
+@guarded_by("_lock", "_delegate")
 class SafeDemandCache:
     """internal/cache/safedemands.go:31-127: degrades to a no-op until the
     Demand CRD exists."""

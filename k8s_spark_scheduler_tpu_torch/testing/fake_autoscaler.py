@@ -37,6 +37,7 @@ from ..kube.errors import NotFoundError
 from ..kube.informer import Informer
 from ..types.objects import Demand, DemandPhase, Node, ObjectMeta
 from ..types.resources import ZONE_LABEL, Resources
+from ..analysis.guarded import guarded_by
 
 
 @dataclass(eq=False)  # identity equality: two queued demands may carry equal payloads
@@ -50,6 +51,7 @@ class _PendingDemand:
     units: List = field(default_factory=list)
 
 
+@guarded_by("_lock", "pending", "fulfilled", "created_nodes", "capped")
 class FakeAutoscaler:
     def __init__(
         self,

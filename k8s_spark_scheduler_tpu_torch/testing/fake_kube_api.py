@@ -40,6 +40,7 @@ from ..kube.errors import (
     NotFoundError,
 )
 from ..kube.restbackend import _RESOURCES, RestAPIServer
+from ..analysis.guarded import guarded_by
 
 _PATHS = {
     ("", "v1", "pods"): "Pod",
@@ -87,6 +88,7 @@ def _error_to_status(err: Exception) -> Tuple[int, dict]:
     return 500, _status(500, "InternalError", str(err))
 
 
+@guarded_by("_lock", "_history", "_oldest", "_subscribers")
 class FakeKubeAPI:
     """HTTP facade over an embedded APIServer store."""
 

@@ -14,6 +14,7 @@ import time
 from typing import List, Optional, Sequence
 
 from .. import timesource
+from ..analysis import racecheck
 from ..config import FifoConfig, Install
 from ..device import DeviceLike
 from ..kube.apiserver import APIServer
@@ -44,7 +45,11 @@ class Harness:
     ):
         """`device` is where the tpu-batch* solvers run (None = CUDA);
         `delta_solve` turns the delta-solve engine on (the default, as in
-        the reference) or off, unless `extra_install` is given."""
+        the reference) or off, unless `extra_install` is given.  With
+        SCHEDLINT_RACECHECK=1 the race detectors are enabled before any
+        guarded state is built, so every lock the server wires up is
+        tracked from birth (``racecheck.disable()`` returns the report)."""
+        racecheck.enable_if_env()
         self.api = APIServer()
         if with_demand_crd:
             self.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())

@@ -33,6 +33,7 @@ import torch
 
 from ..metrics import names as mnames
 from .spans import NOOP_SPAN, Tracer, current_span, default_tracer
+from ..analysis.guarded import guarded_by
 
 
 class _KernelRecord:
@@ -130,6 +131,7 @@ class _Profile:
         self._span.tag("cacheHit", not miss)
 
 
+@guarded_by("_seen_lock", "_seen")
 class KernelProfiler:
     """Profiling sink: records into a metrics registry and the active
     trace.  One module-level instance (``default_profiler``), disabled

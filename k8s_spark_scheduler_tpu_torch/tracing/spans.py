@@ -22,6 +22,7 @@ from contextvars import ContextVar
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import timesource
+from ..analysis.guarded import guarded_by
 
 # the single active-span slot shared by every Tracer (see module doc)
 _CURRENT: ContextVar[Optional["Span"]] = ContextVar(
@@ -158,6 +159,7 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+@guarded_by("_lock", "_ring", "_finished")
 class Tracer:
     """Span factory + bounded ring of completed traces.
 
@@ -183,6 +185,10 @@ class Tracer:
         self._lock = threading.Lock()
         self._metrics = metrics
         self._record_span_metrics = record_span_metrics
+        # trace-completion observers (the critical-path analyzer):
+        # called with the live root Span after the tree lands in the
+        # ring, outside the ring lock.  Wiring-time append only.
+        self._observers: list = []
 
     # -- span creation --------------------------------------------------------
 
@@ -231,6 +237,16 @@ class Tracer:
                     {mnames.TAG_SPAN: span.name},
                 )
                 stack.extend(span.children)
+        for observer in self._observers:
+            try:
+                observer(root)
+            except Exception:  # an observer must never break a request
+                pass
+
+    def add_observer(self, fn) -> None:
+        """Register a trace-completion callback ``fn(root_span)``.
+        Call at wiring time only — the list is read unlocked."""
+        self._observers.append(fn)
 
     @property
     def completed_total(self) -> int:
@@ -240,8 +256,9 @@ class Tracer:
 
     def completed_since(self, cursor: int) -> Tuple[List[dict], int]:
         """Traces completed after ``cursor`` (oldest first, truncated
-        to the ring's reach) and the new cursor value.  Pull-based, for
-        consumers that must never run inside a request: the lifecycle
+        to the ring's reach) and the new cursor value.  Pull-based
+        alternative to add_observer, for consumers that must never run
+        inside a request: the lifecycle
         ledger drains here off-thread, because for direct predicate
         calls the root span closes while the predicate lock is still
         held."""

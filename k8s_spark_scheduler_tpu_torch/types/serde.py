@@ -16,6 +16,8 @@ import threading
 from collections import OrderedDict
 from typing import Any, Dict, List
 
+from ..analysis import racecheck
+from ..analysis.guarded import guarded_by
 from ..utils.quantity import Quantity
 from .extenderapi import ExtenderArgs, ExtenderFilterResult
 from .objects import (
@@ -334,6 +336,7 @@ def extender_args_from_dict(d: dict) -> ExtenderArgs:
 # costs a compare, not a wrong candidate list.
 
 
+@guarded_by("_lock", "_entries", "hits", "misses")
 class NodeNamesInterner:
     """Bounded exact-verified intern pool for candidate node-name lists.
 
@@ -365,6 +368,7 @@ class NodeNamesInterner:
         fp = self._fingerprint(incoming)
         hit = None
         with self._lock:
+            racecheck.note_access(self, "_entries")
             bucket = self._entries.get(fp)
             if bucket is not None:
                 self._entries.move_to_end(fp)
@@ -412,6 +416,7 @@ def intern_node_names(names: list) -> tuple:
     return names_interner.intern(names)
 
 
+@guarded_by("_lock", "_cache")
 class UniformFailureEncoder:
     """Reusable encoded-response buffers for uniform all-nodes failures.
 
@@ -432,6 +437,7 @@ class UniformFailureEncoder:
     def encode(self, names: tuple, message: str, error: str = "") -> bytes:
         key = (id(names), message, error)
         with self._lock:
+            racecheck.note_access(self, "_cache")
             hit = self._cache.get(key)
             if hit is not None and hit[0] is names:
                 self._cache.move_to_end(key)
@@ -444,6 +450,7 @@ class UniformFailureEncoder:
             }
         ).encode()
         with self._lock:
+            racecheck.note_access(self, "_cache")
             self._cache[key] = (names, encoded)
             while len(self._cache) > self.MAX_ENTRIES:
                 self._cache.popitem(last=False)

@@ -2,9 +2,10 @@
 turns on: ``Install.reference_only`` names exactly the subsystems the
 JAX package runs on the same config and the port does not have (all but
 resilience, provenance, delta-solve, class aggregation, the capacity
-observatory and the lifecycle ledger, which the port has), and the
-server logs one warning for each at start (on examples/install.json
-among others).  ``delta-solve`` (default true, as in the reference) and
+observatory, the lifecycle ledger and the contention observatory, which
+the port has), and the server logs one warning for each at start: none
+on examples/install.json, since every subsystem the reference runs by
+default is ported.  ``delta-solve`` (default true, as in the reference) and
 ``classes`` load and reach the engine, with
 ``provenance.parity-check-interval``; ``capacity`` and ``lifecycle``
 load with the reference's keys and defaults and reach the sampler and
@@ -28,7 +29,7 @@ from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("provenance", "capacity", "contention", "policy", "ha", "lifecycle", "concurrent", "classes")
 # the reference's subsystems the port has too
-PORTED = {"resilience", "provenance", "delta-solve", "classes", "capacity", "lifecycle"}
+PORTED = {"resilience", "provenance", "delta-solve", "classes", "capacity", "lifecycle", "contention"}
 
 
 def _example() -> dict:
@@ -73,7 +74,7 @@ def test_example_config_warns_once_per_missing_subsystem(tmp_path, caplog):
         server = init_server_with_clients(APIServer(), install, start_background=False, device="cpu")
     warned = [r.getMessage() for r in caplog.records if "the reference package runs" in r.getMessage()]
     expected = _reference_runs(_example()) - PORTED
-    assert len(warned) == len(expected) == 1  # contention
+    assert len(warned) == len(expected) == 0
     for name in expected:
         assert sum(f" runs {name} on this config" in w for w in warned) == 1, name
     # the two settings configure something now: the marker's timeout,

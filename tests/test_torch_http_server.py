@@ -305,13 +305,13 @@ def test_cli_serves_the_example_config_on_cpu(tmp_path):
 # ROADMAP numbered these items A.5 and A.8; the items are ROADMAP's
 # current numbers.  The provenance and resilience sections (config1,
 # config2, config10) load since both subsystems were ported, and so do
-# delta-solve and classes (config0, config9), and lifecycle and capacity
-# (config4, config7; tests/test_torch_config.py).
+# delta-solve and classes (config0, config9), lifecycle and capacity
+# (config4, config7; tests/test_torch_config.py), and contention (config8,
+# test_contention_config_loads_and_serves below).
 _REFUSED = [
     ("config3-A.8", {"policy": {"enabled": True}}, r"A\.6\.5 \(scheduling policy\)"),
     ("config5-A.8", {"ha": {"enabled": True}}, r"A\.6\.6 \(HA failover\)"),
     ("config6-A.5", {"concurrent": {"enabled": True}}, r"A\.4 \(concurrent admission\)"),
-    ("config8-A.8", {"contention": {"enabled": True}}, r"A\.6\.7 \(contention observatory\)"),
 ]
 
 
@@ -347,3 +347,185 @@ def test_install_reads_the_reference_keys():
     with pytest.raises(ValueError, match="unknown install key"):
         Install.from_dict({"binpak": "tpu-batch"})
     assert Install(delta_solve=True).delta_solve is Install().delta_solve is True
+
+
+# -- contention observatory (contention/) -------------------------------------
+
+
+def _serve_queue(japi, jhttp, papi, phttp, apps=3):
+    """Nodes and ``apps`` one-executor drivers in both servers, each
+    driver Filtered over HTTP by both; the bodies must be equal."""
+    for wire in _node_wires(2):
+        _create_both(japi, papi, wire)
+    for i in range(apps):
+        driver = static_pod_wires(f"app-cp-{i}", 1, T0 - 10 * (apps - i))[0]
+        _create_both(japi, papi, driver)
+        payload = {"Pod": driver, "NodeNames": ["n0", "n1"]}
+        assert _post(phttp.port, "/predicates", payload) == _post(jhttp.port, "/predicates", payload)
+
+
+def test_debug_criticalpath_endpoint(both_served):
+    """/debug/criticalpath decomposes served requests into the named
+    gating segments, per-request records reconstruct the request total,
+    and the body has the reference's keys and request count."""
+    japi, jhttp, papi, psched, phttp = both_served
+    _serve_queue(japi, jhttp, papi, phttp)
+
+    status, body = _get(phttp.port, "/debug/criticalpath")
+    jstatus, jbody = _get(jhttp.port, "/debug/criticalpath")
+    assert status == jstatus == 200 and body["enabled"] is True
+    assert set(body) == set(jbody) and set(body["segments"]) == set(jbody["segments"])
+    assert body["requests"] == jbody["requests"] == 3 and body["window"] == 3
+    segs = body["segments"]
+    for name in ("gate-queue", "lock-wait", "serde", "solve", "write-back", "other"):
+        assert segs[name]["p99Ms"] >= 0.0
+    # the solver does the work in this configuration
+    assert segs["solve"]["p50Ms"] > 0.0
+    assert body["totalMs"]["p99"] > 0.0
+    assert 0.0 <= body["coverage"]["p50"] <= 1.0
+    assert body["dominant"], "dominant-segment counter empty"
+
+    status, body = _get(phttp.port, "/debug/criticalpath?limit=2")
+    jstatus, jbody = _get(jhttp.port, "/debug/criticalpath?limit=2")
+    assert status == 200 and len(body["recent"]) == 2
+    assert [set(r) for r in body["recent"]] == [set(r) for r in jbody["recent"]]
+    for record in body["recent"]:
+        total = record["totalMs"]
+        assert total > 0.0
+        assert abs(sum(record["segments"].values()) - total) / total < 0.10, record
+        assert record["traceId"]
+
+
+def test_debug_contention_endpoint(both_served):
+    """/debug/contention serves per-lock wait/hold distributions with
+    holder-phase attribution, in the reference's schema; ?lock=
+    filters."""
+    japi, jhttp, papi, psched, phttp = both_served
+    _serve_queue(japi, jhttp, papi, phttp, apps=1)
+
+    status, body = _get(phttp.port, "/debug/contention")
+    jstatus, jbody = _get(jhttp.port, "/debug/contention")
+    assert status == jstatus == 200 and body["enabled"] is True
+    assert set(body) == set(jbody)
+    locks = {entry["name"]: entry for entry in body["locks"]}
+    plock = locks["extender.predicate"]
+    assert set(plock) == set(next(e for e in jbody["locks"] if e["name"] == "extender.predicate"))
+    assert plock["acquisitions"] >= 1
+    assert plock["sampleEvery"] == 1  # the predicate lock records every acquire
+    assert plock["holdMs"]["count"] >= 1 and plock["holdMs"]["max"] > 0.0
+    assert "http.request" in plock["byPhase"], plock["byPhase"]
+    # the @guarded_by singletons are wrapped too (names = declaration site)
+    assert any(name.endswith("._lock") for name in locks), sorted(locks)
+
+    status, body = _get(phttp.port, "/debug/contention?lock=extender.predicate")
+    assert status == 200
+    assert [entry["name"] for entry in body["locks"]] == ["extender.predicate"]
+    status, body = _get(phttp.port, "/debug/contention?lock=no-such-lock")
+    assert status == 200 and body["locks"] == []
+
+
+def _served_port(install):
+    api = APIServer()
+    api.create_crd(port_crd.DEMAND_CRD_NAME, port_crd.demand_crd_spec())
+    scheduler = init_server_with_clients(api, install, demand_poll_interval=0.02, device="cpu")
+    http = ExtenderHTTPServer(scheduler, port=0)
+    http.start()
+    return scheduler, http
+
+
+def test_contention_endpoints_empty_and_disabled():
+    """Empty cluster: both endpoints answer 200 with empty-but-well-formed
+    payloads.  A server wired with contention.enabled=false reports
+    disabled instead of erroring."""
+    from k8s_spark_scheduler_tpu_torch.config import ContentionConfig
+
+    scheduler, http = _served_port(Install(binpack_algo="tightly-pack"))
+    try:
+        status, body = _get(http.port, "/debug/criticalpath")
+        assert status == 200 and body["enabled"] is True
+        assert body["requests"] == 0 and body["window"] == 0
+        assert body["totalMs"]["p99"] == 0.0
+        status, body = _get(http.port, "/debug/contention")
+        assert status == 200 and body["enabled"] is True  # locks exist, idle
+    finally:
+        http.stop()
+        scheduler.stop()
+
+    scheduler, http = _served_port(
+        Install(binpack_algo="tightly-pack", contention=ContentionConfig(enabled=False))
+    )
+    try:
+        assert _get(http.port, "/debug/contention") == (200, {"enabled": False, "locks": []})
+        assert _get(http.port, "/debug/criticalpath") == (200, {"enabled": False, "requests": 0})
+    finally:
+        http.stop()
+        scheduler.stop()
+
+
+@pytest.mark.parametrize(
+    "config, enabled",
+    [({"contention": {"enabled": True}}, True), ({"contention": {"enabled": False}}, False)],
+    ids=["config8-A.8", "contention-off"],
+)
+def test_contention_config_loads_and_serves(config, enabled):
+    """The reference's ``contention`` section loads (it was refused
+    before the observatory was ported) and switches both endpoints:
+    ``{"enabled": false}`` answers their disabled forms."""
+    install = Install.from_dict(dict(config, binpack="tpu-batch"))
+    assert install.contention.enabled is enabled
+    assert install.reference_only == ()
+    scheduler, http = _served_port(install)
+    try:
+        assert (scheduler.contention is not None) is enabled
+        assert (scheduler.criticalpath is not None) is enabled
+        status, body = _get(http.port, "/debug/contention")
+        assert status == 200 and body["enabled"] is enabled
+        status, body = _get(http.port, "/debug/criticalpath")
+        assert status == 200 and body["enabled"] is enabled
+        if not enabled:
+            assert body == {"enabled": False, "requests": 0}
+    finally:
+        http.stop()
+        scheduler.stop()
+
+
+def _get_raw(port, path, headers):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", headers=headers)
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        return resp.status, dict(resp.headers), resp.read()
+
+
+def test_contention_gauges_render_in_plain_and_openmetrics(both_served):
+    """The lock / critical-path metrics follow the exposition rules:
+    plain 0.0.4 text under every Accept header, and the opt-in
+    OpenMetrics flavour stays well-formed."""
+    japi, jhttp, papi, psched, phttp = both_served
+    _serve_queue(japi, jhttp, papi, phttp, apps=1)
+    # reading /debug/contention drains pending lock samples into the registry
+    assert _get(phttp.port, "/debug/contention")[0] == 200
+
+    status, headers, raw = _get_raw(phttp.port, "/metrics", {"Accept": "text/plain;version=0.0.4"})
+    assert status == 200 and headers["Content-Type"].startswith("text/plain")
+    plain = raw.decode()
+    for series in ("lock_acquire_count", "lock_hold_time",
+                   "criticalpath_segment_time", "criticalpath_coverage",
+                   "criticalpath_dominant_count"):
+        assert f"foundry_spark_scheduler_tpu_{series}" in plain, series
+    assert 'lock="extender.predicate"' in plain
+    assert 'segment="solve"' in plain
+    assert "# EOF" not in plain and "trace_id" not in plain
+
+    status, headers, raw = _get_raw(phttp.port, "/metrics?format=openmetrics", {})
+    assert status == 200
+    assert headers["Content-Type"].startswith("application/openmetrics-text")
+    om = raw.decode()
+    assert "foundry_spark_scheduler_tpu_lock_acquire_count" in om
+    assert "foundry_spark_scheduler_tpu_criticalpath_segment_time" in om
+    assert om.rstrip().endswith("# EOF")
+
+    # strict OpenMetrics Accept still gets plain text
+    status, headers, raw = _get_raw(
+        phttp.port, "/metrics", {"Accept": "application/openmetrics-text;version=1.0.0"}
+    )
+    assert status == 200 and headers["Content-Type"].startswith("text/plain")
+    assert b"foundry_spark_scheduler_tpu_lock_acquire_count" in raw

@@ -533,3 +533,63 @@ def test_observatory_and_lifecycle_run_with_jax_and_reference_package_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "OBSERVATORY-OK" in proc.stdout
+
+
+_BLOCKED_CONTENTION = textwrap.dedent(
+    """
+    import importlib, os, sys
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    # the modules of the contention slice, each by name
+    for name in ("analysis", "analysis.guarded", "analysis.racecheck", "contention",
+                 "contention.locktime", "contention.criticalpath"):
+        importlib.import_module("k8s_spark_scheduler_tpu_torch." + name)
+    from k8s_spark_scheduler_tpu_torch.analysis import racecheck
+    from k8s_spark_scheduler_tpu_torch.contention import locktime
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    os.environ[racecheck.ENV_FLAG] = "1"
+    h = Harness(binpack_algo="tpu-batch", is_fifo=True, device="cpu")
+    try:
+        names = [f"n{i}" for i in range(3)]
+        for name in names:
+            h.new_node(name, cpu="16", memory="32Gi")
+        for pod in h.static_allocation_spark_pods("app", 2):
+            assert h.schedule(pod, names).node_names
+        summary = h.server.criticalpath.summary()
+        assert summary["requests"] == 3 and summary["dominant"], summary
+        plock = locktime.snapshot("extender.predicate")
+        assert plock and plock[0]["acquisitions"] == 3, plock
+        h.server.capacity.sample_now(trigger="t")
+        h.server.lifecycle.drain(trigger="t")
+    finally:
+        h.close()
+        detector = racecheck.disable()
+    assert detector.clean(), detector.report_lines()
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("CONTENTION-OK")
+    """
+)
+
+
+def test_contention_and_race_detector_run_with_jax_and_reference_package_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CONTENTION],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "CONTENTION-OK" in proc.stdout

@@ -15,7 +15,8 @@ Filter is served warm wherever the engine can).  ``Twin.schedule``
 holds every ``ExtenderFilterResult`` equal (failure messages included),
 ``Twin.assert_state_equal`` the reservations and demands in both API
 servers, and ``Twin.delta_stats`` reads both engines' counters.  Both
-run the capacity observatory and the lifecycle ledger too:
+run the contention observatory (each package's own process-wide
+timekeeper) and the capacity observatory and the lifecycle ledger too:
 ``Twin.get`` reads an endpoint of each over HTTP, and
 ``Twin.quiet_observatories`` stops their background threads so that a
 read's sample and drain are the ones it asks for.
