@@ -49,16 +49,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (10,000 nodes in 3 zones, allocatable 4–96 CPU / 8–256 Gi, 1,000 queued
    drivers of 1–32 executors of 1–8 CPU / 2–16 Gi) rebuilt from ``--seed``;
    2 warmup and 24 timed ``POST /predicates`` probes with all 10,000 node
-   names, each retired and settled before the next; every response body
-   equal to the same probe on a ``device="cpu"`` server fed the same
-   objects, every probe on the tensor lane (``lane=fast``) through the
+   names, each retired and settled before the next, each cuda server
+   timed alone (the cpu server's sampler and ledger paused for the run,
+   the other cuda server's around each timed request); every response
+   body equal to the same probe on a ``device="cpu"`` server fed the same
+   objects, posted after the timed request, every probe on the tensor lane (``lane=fast``) through the
    delta-solve session on the card (its first, cold pass a launch of the
    checkpointed queue kernel; the retired probes leave the cluster as it
    was, so the timed probes are served warm); for 3
    granted probes the driver is bound and every executor POSTed, each
    granted its reserved node; request latency p50 / p99, the provenance
-   work a request does, span medians and the device's idle share in a
-   profiler trace of one request; then one probe refused behind the
+   work a request does, span medians, the slowest timed Filter's span
+   tree and ``/debug/criticalpath`` record, and the device's idle share
+   in a profiler trace of one request; then one probe refused behind the
    queue, explained on the card, its message equal to the cpu server's;
 6. cluster: the same server against a Kubernetes API over REST — a cuda
    and a cpu server, each on its own ``FakeKubeAPI`` (a local HTTP
@@ -156,7 +159,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the disabled path's ns per acquire and per ``note_access``; the
    checkpointed queue kernel launched on the phase's path.  Every phase's
    servers run the contention observatory (the reference's default);
-11. the kernels line (times, bounds, launches) and the device result line.
+11. policy: the scheduling-policy engine (policy/) on phase 5's snapshot
+   under ``tpu-batch``, each queued driver labelled with a band (low /
+   normal / high, 20 / 60 / 20 %) and one of 4 tenants from ``--seed``,
+   the newest 100 younger than the starvation age (so the backfill
+   probe runs for them): a cuda server with ``priority-then-fifo``,
+   backfill and preemption, a cuda server with the policy off and a cpu
+   server with the policy on; 4 probes on all three (on and cpu bodies
+   equal), then 40 granted probes a side in blocks of 20 in turns, each
+   block posted to its own server alone after ``quiet()``, every probe
+   of each on block then posted to the cpu server, bodies equal; p50 /
+   p99, the warm-hit share and miss reasons, the backfill probes a
+   Filter with their host time, span medians; one block of 10 under
+   ``drf`` and under ``fifo`` (each its own cuda server, after one
+   probe), the ``drf`` block's bodies equal to a cpu server's with
+   ``drf`` and the ``fifo`` engine's byte-equal to the policy-off
+   server's; then, on a fresh cuda and cpu server with the first
+   policy, in a pool of 8 nodes of its own instance group, two
+   low-band apps bound and a high-band gang that fits only after an
+   eviction: its Filter refused
+   with ``preempting victims: low-b``, the victim's pods and reservation
+   gone, the retry granted, the messages, ``/policy/state`` (less the
+   evictions' clock stamps) and ``/lifecycle/low-b`` (``evicted``) equal
+   on cuda and cpu; the checkpointed queue kernel launched on the
+   phase's path;
+12. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -164,6 +191,7 @@ Needs CUDA: without it the script exits with an error before any phase.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import random
@@ -401,9 +429,9 @@ class PortServer:
     an ephemeral port."""
 
     def __init__(self, policy: str, device: str, nodes, queue, provenance=None, delta_solve: bool = True,
-                 observatories: bool = True, contention: bool = True):
+                 observatories: bool = True, contention: bool = True, scheduling_policy=None):
         from k8s_spark_scheduler_tpu_torch.config import (CapacityConfig, ContentionConfig, Install,
-                                                          LifecycleConfig, ProvenanceConfig)
+                                                          LifecycleConfig, PolicyConfig, ProvenanceConfig)
         from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
         from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
         from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
@@ -414,13 +442,16 @@ class PortServer:
         # the reference's defaults, resilience, provenance, the capacity
         # observatory, the lifecycle ledger and the contention observatory
         # included (`observatories` False turns the capacity observatory
-        # and the ledger off, `contention` False the last); the marker's
-        # scan is phase 6's, not a load on the timed probes
+        # and the ledger off, `contention` False the last;
+        # `scheduling_policy` is a PolicyConfig, off by default as in the
+        # reference); the marker's scan is phase 6's, not a load on the
+        # timed probes
         install = Install(binpack_algo=policy, fifo=True, provenance=provenance or ProvenanceConfig(),
                           resilience=server_resilience(device), delta_solve=delta_solve,
                           capacity=CapacityConfig(enabled=observatories),
                           lifecycle=LifecycleConfig(enabled=observatories),
-                          contention=ContentionConfig(enabled=contention))
+                          contention=ContentionConfig(enabled=contention),
+                          policy=scheduling_policy or PolicyConfig())
         self.scheduler = init_server_with_clients(
             self.api, install, demand_poll_interval=0.5, unschedulable_polling_interval=3600.0,
             device=device,
@@ -441,6 +472,31 @@ class PortServer:
         if self.http is not None:
             self.http.stop()
         self.scheduler.stop()
+
+    def pause_background(self) -> None:
+        """Stop the capacity sampler's and the lifecycle ledger's threads,
+        joining a sample or drain in flight (Filters never depend on
+        them)."""
+        for part in (self.scheduler.capacity, self.scheduler.lifecycle):
+            if part is not None:
+                part.stop()
+
+    def resume_background(self) -> None:
+        for part in (self.scheduler.capacity, self.scheduler.lifecycle):
+            if part is not None:
+                part.start()
+
+    def post_alone(self, others, pod, names):
+        """``post`` with every server in ``others`` paused for the
+        request: no other in-process server's background work runs
+        while this one is timed."""
+        for other in others:
+            other.pause_background()
+        try:
+            return self.post(pod, names)
+        finally:
+            for other in others:
+                other.resume_background()
 
     def post(self, pod, names):
         """(ms on the host clock, status, body bytes) of one Filter of the
@@ -634,6 +690,53 @@ def span_durations(span: dict, out: dict) -> dict:
     return out
 
 
+def span_tree_lines(span: dict, depth: int = 0) -> list:
+    """A span tree as indented ``name ms`` lines."""
+    lines = [f"{'  ' * depth}{span['name']} {span['durationMs']:.3f}"]
+    for child in span.get("children", ()):
+        lines += span_tree_lines(child, depth + 1)
+    return lines
+
+
+class GcWatch:
+    """The interpreter's garbage collections while in ``gc.callbacks``:
+    (generation, start on the wall clock, ms, objects collected) each."""
+
+    def __init__(self):
+        self.events = []
+        self._start = (0.0, 0.0)
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._start = (time.time(), time.perf_counter())
+        else:
+            self.events.append((info["generation"], self._start[0],
+                                (time.perf_counter() - self._start[1]) * 1e3, info["collected"]))
+
+    def between(self, start: float, end: float) -> list:
+        return [e for e in self.events if start <= e[1] <= end]
+
+
+def slow_filter_capture(server, policy: str, slowest, gcs: GcWatch, smi: str) -> None:
+    """Log the slowest timed Filter's span tree, its
+    ``/debug/criticalpath`` record and the garbage collections that ran
+    inside it."""
+    ms, trace_id = slowest
+    trace = server.scheduler.tracer.find_by_trace_id(trace_id)
+    _, body = server.get("/debug/criticalpath?limit=256")
+    record = next((r for r in json.loads(body).get("recent", ()) if r["traceId"] == trace_id), None)
+    inside = gcs.between(trace["startTime"], trace["startTime"] + ms / 1e3)
+    full = [e for e in gcs.events if e[0] == 2]
+    log(f"phase server: {policy}: the slowest timed Filter ({ms:.3f} ms, trace {trace_id}): "
+        f"criticalpath {json.dumps(record, sort_keys=True)}; spans by exclusive time "
+        + ", ".join(f"{name} {t:.3f}" for name, t in
+                    sorted(self_times(trace["root"], {}).items(), key=lambda kv: -kv[1])[:8])
+        + f"; tree: {' | '.join(span_tree_lines(trace['root']))}; garbage collections inside it "
+        + (", ".join(f"generation {g} {t:.1f} ms ({n} collected)" for g, _, t, n in inside) or "none")
+        + f" (generation-2 collections so far in the phase: {len(full)}, "
+        + (f"max {max(e[2] for e in full):.1f} ms" if full else "none") + f") | {smi}")
+
+
 def server_phase(seed: int, smi: str) -> dict:
     """Phase 5 (see the module docstring); returns the launches of each
     policy's checkpointed kernel on its cuda servers' run.  Raises
@@ -647,6 +750,8 @@ def server_phase(seed: int, smi: str) -> dict:
 
     logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
     path_launches = {}
+    gcs = GcWatch()
+    gc.callbacks.append(gcs)
     try:
         t0 = time.perf_counter()
         names, nodes, queue, rng, base = server_objects(seed)
@@ -665,11 +770,18 @@ def server_phase(seed: int, smi: str) -> dict:
                 log(f"phase server: {policy}: {', '.join(servers)} servers ready in "
                     f"{time.perf_counter() - t0:.2f} s")
                 card = servers["cuda"]
+                # each cuda server is timed alone: the cpu server (the
+                # card's oracle, whose answers do not depend on its
+                # observatories) keeps its sampler and ledger paused for the
+                # policy's run, and the other cuda server's are paused
+                # around each timed request
+                servers["cpu"].pause_background()
                 solver = card.scheduler.extender.binpacker.queue_solver
                 prov = card.watch_provenance()
                 kname = SERVER_KERNEL[policy]
                 engine = card.scheduler.extender.delta_engine
                 lat_ms, off_ms, traces, granted, exec_checked, compared = [], [], [], 0, 0, 0
+                slowest = None  # (ms, trace id) of the slowest timed Filter
                 n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
                 # the path is driven with every count at 0: the first probe's
                 # cold session pass launches the checkpointed kernel, and
@@ -691,15 +803,18 @@ def server_phase(seed: int, smi: str) -> dict:
                     for server in servers.values():
                         server.api.create(pods[0].deepcopy())
                     fast_before = card.fast_lane_count()
+                    others = [off] if off is not None else []
                     if off is not None and i % 2:  # the two cuda servers in turns
-                        o_ms, o_status, o_body = off.post(pods[0], names)
-                    ms, status, body = card.post(pods[0], names)
+                        o_ms, o_status, o_body = off.post_alone([card], pods[0], names)
+                    ms, status, body = card.post_alone(others, pods[0], names)
                     if timed:
                         lat_ms.append(ms)
                         traces.append(card.scheduler.tracer.traces(limit=1)[0])
+                        if slowest is None or ms > slowest[0]:
+                            slowest = (ms, traces[-1]["traceId"])
                     if off is not None:
                         if not i % 2:
-                            o_ms, o_status, o_body = off.post(pods[0], names)
+                            o_ms, o_status, o_body = off.post_alone([card], pods[0], names)
                         if (o_status, o_body) != (status, body):
                             raise SystemExit(f"{policy} probe {i}: provenance off answered {o_status} "
                                              f"{o_body[:300]!r}, on {status} {body[:300]!r}")
@@ -759,9 +874,11 @@ def server_phase(seed: int, smi: str) -> dict:
                 log(f"phase server: {policy}: provenance on the request path (begin, context, capture, "
                     f"record) median {statistics.median(prov['ms']):.3f} ms, max {max(prov['ms']):.3f} ms "
                     f"a Filter over the timed run's {len(prov['ms'])} driver and executor Filters")
-                log(f"phase server: {policy}: /predicates at {N_NODES} nodes x {N_APPS} queued drivers: "
+                log(f"phase server: {policy}: /predicates at {N_NODES} nodes x {N_APPS} queued drivers, the "
+                    f"cuda server timed alone (the other servers' sampler and ledger paused): "
                     f"p50 {statistics.median(lat_ms):.3f} ms, p99 {float(np.percentile(lat_ms, 99)):.3f} ms "
                     f"over {len(lat_ms)} probes (runs {', '.join(f'{x:.1f}' for x in lat_ms)}) | {smi}")
+                slow_filter_capture(card, policy, slowest, gcs, smi)
                 if off is not None:
                     log(f"phase server: {policy}: the same probes on a cuda server with provenance off, in "
                         f"turns with it on: p50 {statistics.median(off_ms):.3f} ms, p99 "
@@ -816,6 +933,7 @@ def server_phase(seed: int, smi: str) -> dict:
                 for server in servers.values():
                     server.stop()
     finally:
+        gc.callbacks.remove(gcs)
         logging.disable(logging.NOTSET)
     return path_launches
 
@@ -2404,6 +2522,347 @@ def contention_phase(seed: int, smi: str) -> dict:
         logging.disable(logging.NOTSET)
 
 
+# -- phase policy: the scheduling-policy engine ---------------------------------
+
+POLICY_SERVER = "tpu-batch"
+POLICY_WARM = 4  # probes on the on, off and cpu servers, on and cpu bodies equal
+POLICY_PROBES = 40  # granted probes, each retired, on each of the on and off servers
+POLICY_BLOCK = 20  # in blocks in turns, each block to its own server alone, each on block then to the cpu server
+ORDER_WARM = 1  # probes before the drf and fifo servers' block (the first a cold pass)
+ORDER_BLOCK = 10  # the drf and fifo servers' block
+POLICY_YOUNG = 100  # the newest queued drivers, younger than the starvation age: backfill probes them
+POLICY_BANDS = (("low", 0.2), ("normal", 0.6), ("high", 0.2))
+POLICY_TENANTS = 4
+BAND_LABEL, TENANT_LABEL = "spark-priority-band", "spark-tenant"
+# the preemption scenario's own instance group: nodes that fit one
+# 12 CPU / 48 Gi executor each (and a driver beside it); no queued driver
+# is in the group, so nothing queues ahead of its apps
+POOL_GROUP, POOL_NODES, POOL_EXECUTOR = "preempt-pool", 8, ("12", "48Gi")
+POLICY_SPANS = ("fast_path.snapshot", "fast_path.earlier_drivers", "deltasolve.lookup", "deltasolve.scale",
+                "kernel:fifo_queue", "binpack", "predicate", "http.request")
+# fields of a /lifecycle record the host's clock decides
+LIFECYCLE_HOST_FIELDS = ("phaseTimes", "queueWaitSeconds", "solveTenureSeconds", "traceIds")
+
+
+def policy_objects(seed: int):
+    """Phase 5's snapshot with every queued driver labelled with a band
+    (low / normal / high, 20 / 60 / 20 %) and a tenant (4), from
+    `seed`, the newest POLICY_YOUNG of them created 300-201 s ago
+    (younger than the starvation age of 600 s for the whole phase, so
+    the backfill probe runs for them), plus the preemption pool's
+    nodes.  Returns (node names, nodes,
+    queue, rng, the time after the queue's newest driver)."""
+    from k8s_spark_scheduler_tpu_torch.types.objects import Node, ObjectMeta
+    from k8s_spark_scheduler_tpu_torch.types.resources import ZONE_LABEL, Resources
+
+    names, nodes, queue, rng, _ = server_objects(seed)
+    prng = np.random.RandomState(seed + 11)
+    bands, weights = zip(*POLICY_BANDS)
+    now = time.time()
+    for i, pod in enumerate(queue):
+        pod.labels[BAND_LABEL] = str(prng.choice(bands, p=weights))
+        pod.labels[TENANT_LABEL] = f"tenant-{prng.randint(POLICY_TENANTS)}"
+        young = i - (N_APPS - POLICY_YOUNG)
+        if young >= 0:
+            pod.meta.creation_timestamp = now - 300.0 + young
+    pool = [
+        Node(meta=ObjectMeta(name=f"pool-{i}", labels={ZONE_LABEL: "z0", "resource_channel": POOL_GROUP}),
+             allocatable=Resources.of("16", "64Gi"))
+        for i in range(POOL_NODES)
+    ]
+    return names, nodes + pool, queue, prng, now - 200.0
+
+
+def pod_gone(server, pod) -> bool:
+    from k8s_spark_scheduler_tpu_torch.kube.errors import NotFoundError
+
+    try:
+        server.api.get("Pod", pod.namespace, pod.name)
+    except NotFoundError:
+        return True
+    return False
+
+
+def identity_free_policy_state(state: dict) -> dict:
+    """/policy/state less the evictions' host-clock stamps."""
+    out = json.loads(json.dumps(state))
+    for entry in out.get("preemption", {}).get("recent", ()):
+        entry.pop("at", None)
+    return out
+
+
+def policy_phase(seed: int, smi: str) -> dict:
+    """Phase policy (see the module docstring).  Returns the queue
+    kernels' launches on the phase's path; raises SystemExit on any
+    failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.config import PolicyConfig
+    from k8s_spark_scheduler_tpu_torch.metrics import names as mnames
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.policy import engine as policy_engine
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    t0 = time.perf_counter()
+    names, nodes, queue, prng, t_probe = policy_objects(seed)
+    pool_names = [n.name for n in nodes[-POOL_NODES:]]
+    counts = {b: sum(p.labels[BAND_LABEL] == b for p in queue) for b, _ in POLICY_BANDS}
+    config = dict(enabled=True, ordering="priority-then-fifo", backfill=True, preemption_enabled=True)
+    servers = {}
+    made = [0]
+
+    # the backfill probe (the reference's numpy rule), counted and timed
+    real_probe = policy_engine.backfill_cannot_delay
+    backfill = {"n": 0, "ms": 0.0}
+
+    def counted_probe(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_probe(*a, **kw)
+        finally:
+            backfill["n"] += 1
+            backfill["ms"] += (time.perf_counter() - t) * 1e3
+
+    def probe_driver(tag: str):
+        """The driver of a small gang that fits, with a seeded band and
+        tenant, newer than the whole queue."""
+        bands, weights = zip(*POLICY_BANDS)
+        pods = Harness.static_allocation_spark_pods(
+            tag, int(prng.randint(1, 5)), executor_cpu=str(int(prng.randint(1, 5))),
+            executor_mem=f"{int(prng.randint(2, 9))}Gi", creation_timestamp=t_probe + made[0])
+        made[0] += 1
+        pods[0].labels[BAND_LABEL] = str(prng.choice(bands, p=weights))
+        pods[0].labels[TENANT_LABEL] = f"tenant-{prng.randint(POLICY_TENANTS)}"
+        return pods[0]
+
+    def filter_once(side: str, pod, alone: bool = True):
+        """(ms, body, backfill probes, their ms) of one granted Filter of
+        `pod` on `side`, then the pod retired there."""
+        server = servers[side]
+        server.api.create(pod.deepcopy())
+        backfill["n"], backfill["ms"] = 0, 0.0
+        others = [s for k, s in servers.items() if k != side] if alone else []
+        ms, status, body = server.post_alone(others, pod, names)
+        probes, probe_ms = backfill["n"], backfill["ms"]
+        if status != 200 or not json.loads(body).get("NodeNames"):
+            raise SystemExit(f"phase policy: {side} did not grant {pod.name}: {status} {body[:300]!r}")
+        server.retire([pod])
+        return ms, body, probes, probe_ms
+
+    def block_run(side: str, pods) -> dict:
+        """One block posted to `side` alone: the other servers paused for
+        the block, `side`'s sampler and ledger quiet before it."""
+        server = servers[side]
+        others = [s for k, s in servers.items() if k != side]
+        for other in others:
+            other.pause_background()
+        try:
+            quiet(server, "policy")
+            out = {"ms": [], "bodies": [], "probes": [], "probe_ms": [], "traces": []}
+            for pod in pods:
+                ms, body, probes, probe_ms = filter_once(side, pod, alone=False)
+                out["ms"].append(ms)
+                out["bodies"].append(body)
+                out["probes"].append(probes)
+                out["probe_ms"].append(probe_ms)
+                out["traces"].append(server.scheduler.tracer.traces(limit=1)[0])
+        finally:
+            for other in others:
+                other.resume_background()
+        return out
+
+    def replay(side: str, pods, bodies, against: str) -> float:
+        """Post each of `pods` to `side` (untimed), bodies equal to
+        `against`'s; returns the seconds it took."""
+        t = time.perf_counter()
+        for pod, want in zip(pods, bodies):
+            _, body, _, _ = filter_once(side, pod, alone=False)
+            if body != want:
+                raise SystemExit(f"phase policy: {pod.name}: {side} answered {body[:300]!r}, "
+                                 f"{against} {want[:300]!r}")
+        return time.perf_counter() - t
+
+    def engine_line(side: str, before: dict) -> str:
+        after = servers[side].scheduler.extender.delta_engine.stats()
+        hits = after["warm_hits"] - before["warm_hits"]
+        cold = after["cold_solves"] - before["cold_solves"]
+        misses = {k: v - before["misses"].get(k, 0) for k, v in after["misses"].items()
+                  if v - before["misses"].get(k, 0)}
+        total = hits + cold + sum(misses.values())
+        return (f"warm hits {hits} of {total} ({100 * hits / max(total, 1):.1f} %), cold builds {cold}, "
+                f"misses {misses or 'none'}")
+
+    def latency_line(run: dict) -> str:
+        ms = run["ms"]
+        line = (f"/predicates: p50 {statistics.median(ms):.3f} ms, p99 {float(np.percentile(ms, 99)):.3f} ms over "
+                f"{len(ms)} probes")
+        if any(run["probes"]):
+            per = [pm / max(n, 1) for n, pm in zip(run["probes"], run["probe_ms"])]
+            line += (f"; backfill probes a Filter median {statistics.median(run['probes'])} (max "
+                     f"{max(run['probes'])}), their host ms a Filter median "
+                     f"{statistics.median(run['probe_ms']):.3f} (p99 {float(np.percentile(run['probe_ms'], 99)):.3f}),"
+                     f" ms a probe {statistics.median(per):.3f}")
+        spans = {}
+        for trace in run["traces"]:
+            span_durations(trace["root"], spans)
+        return line + "; span medians (ms) " + ", ".join(
+            f"{name} {statistics.median(spans[name]):.3f}" for name in POLICY_SPANS if name in spans)
+
+    policy_engine.backfill_cannot_delay = counted_probe
+    try:
+        # 1. priority-then-fifo with backfill and preemption against the
+        # policy off, bodies equal to a cpu server with the same policy
+        servers["on"] = PortServer(POLICY_SERVER, "cuda", nodes, queue,
+                                   scheduling_policy=PolicyConfig(**config))
+        servers["off"] = PortServer(POLICY_SERVER, "cuda", nodes, queue)
+        servers["cpu"] = PortServer(POLICY_SERVER, "cpu", nodes, queue, scheduling_policy=PolicyConfig(**config))
+        log(f"phase policy: {POLICY_SERVER}: servers with {config} (cuda, cpu) and the policy off (cuda) ready in "
+            f"{time.perf_counter() - t0:.2f} s; queue bands {counts}, {POLICY_TENANTS} tenants, the newest "
+            f"{POLICY_YOUNG} queued drivers 201-300 s old")
+        qk.reset_launch_counts()  # the path's run starts here
+        for i in range(POLICY_WARM):
+            pod = probe_driver(f"pol-warm-{i}")
+            bodies = {side: filter_once(side, pod)[1] for side in ("on", "off", "cpu")}
+            if bodies["on"] != bodies["cpu"]:
+                raise SystemExit(f"phase policy: warm probe {i}: on {bodies['on'][:300]!r}, "
+                                 f"cpu {bodies['cpu'][:300]!r}")
+        before = {side: servers[side].scheduler.extender.delta_engine.stats() for side in ("on", "off")}
+        skips_before = servers["on"].scheduler.metrics.get_counter(mnames.POLICY_BACKFILL_SKIPS)
+        runs = {"on": [], "off": []}
+        replay_s = 0.0
+        blocks = ["on", "off", "off", "on"] * (POLICY_PROBES // (2 * POLICY_BLOCK))
+        for b, side in enumerate(blocks):
+            pods = [probe_driver(f"pol-{b}-{j:02d}") for j in range(POLICY_BLOCK)]
+            run = block_run(side, pods)
+            runs[side].append(run)
+            if side == "on":
+                replay_s += replay("cpu", pods, run["bodies"], "on")
+        merged = {side: {k: sum((r[k] for r in rs), []) for k in rs[0]} for side, rs in runs.items()}
+        for side, what in (("on", "priority-then-fifo, backfill, preemption"), ("off", "no engine")):
+            log(f"phase policy: {POLICY_SERVER} policy {side} ({what}): {latency_line(merged[side])}; "
+                f"{engine_line(side, before[side])} | {smi}")
+        skips = servers["on"].scheduler.metrics.get_counter(mnames.POLICY_BACKFILL_SKIPS) - skips_before
+        log(f"phase policy: all {POLICY_PROBES} of the on blocks' Filters equal the cpu server's "
+            f"(posted there after each block, {replay_s:.2f} s in all); blocks {', '.join(blocks)}; backfill verdicts that a queued driver's skip is safe "
+            f"{skips:.0f}")
+
+        # 2. the same protocol for one block under drf and under fifo: the
+        # drf server's bodies equal a cpu server's with drf (the warm
+        # probes' too), the fifo engine's the policy-off server's
+        for order, against in (("drf", "drf-cpu"), ("fifo", "off")):
+            t = time.perf_counter()
+            order_policy = PolicyConfig(**dict(config, ordering=order))
+            servers[order] = PortServer(POLICY_SERVER, "cuda", nodes, queue, scheduling_policy=order_policy)
+            if against == "drf-cpu":
+                servers[against] = PortServer(POLICY_SERVER, "cpu", nodes, queue, scheduling_policy=order_policy)
+            boot = time.perf_counter() - t
+            warm = [probe_driver(f"pol-{order}-warm-{i}") for i in range(ORDER_WARM)]
+            warm_bodies = [filter_once(order, pod)[1] for pod in warm]
+            stats0 = servers[order].scheduler.extender.delta_engine.stats()
+            pods = [probe_driver(f"pol-{order}-{j:02d}") for j in range(ORDER_BLOCK)]
+            run = block_run(order, pods)
+            checked = replay(against, warm + pods, warm_bodies + run["bodies"], order)
+            note = (f"; bodies equal to the {'cpu server' if against == 'drf-cpu' else 'policy-off server'}'s "
+                    f"({len(warm) + len(pods)} Filters, {checked:.2f} s)")
+            log(f"phase policy: {POLICY_SERVER} ordering {order} (servers built in {boot:.2f} s): "
+                + latency_line(run) + f"; {engine_line(order, stats0)}{note} | {smi}")
+            servers.pop(order).stop()
+            if against == "drf-cpu":
+                servers.pop(against).stop()
+
+        # 3. preemption: low-band apps bound in the pool, a high-band gang
+        # that fits only after an eviction, on a fresh cuda and cpu server
+        # with step 1's policy (fresh: /policy/state counts the apps each
+        # server saw)
+        for side in list(servers):
+            servers.pop(side).stop()
+        t = time.perf_counter()
+        for side, device in (("on", "cuda"), ("cpu", "cpu")):
+            servers[side] = PortServer(POLICY_SERVER, device, nodes, queue,
+                                       scheduling_policy=PolicyConfig(**config))
+        log(f"phase policy: preemption servers (cuda, cpu) ready in {time.perf_counter() - t:.2f} s")
+        pool_apps = {
+            "low-a": (3, "low", t_probe + made[0] + 1),
+            "low-b": (3, "low", t_probe + made[0] + 2),
+            "high": (5, "high", t_probe + made[0] + 3),
+        }
+        pods_of = {
+            app: Harness.static_allocation_spark_pods(
+                app, k, executor_cpu=POOL_EXECUTOR[0], executor_mem=POOL_EXECUTOR[1],
+                instance_group=POOL_GROUP, creation_timestamp=created)
+            for app, (k, band, created) in pool_apps.items()
+        }
+        for app, pods in pods_of.items():
+            for pod in pods:
+                pod.labels[BAND_LABEL] = pool_apps[app][1]
+        outcome = {}
+        for side in ("on", "cpu"):
+            server = servers[side]
+
+            def admit(app, server=server, side=side):
+                for pod in pods_of[app]:
+                    server.api.create(pod.deepcopy())
+                    _, status, body = server.post(pod, pool_names)
+                    nodes_ = json.loads(body).get("NodeNames") if status == 200 else None
+                    if not nodes_:
+                        raise SystemExit(f"phase policy: {side}: {pod.name} refused: {body[:300]!r}")
+                    server.bind(pod, nodes_[0])
+
+            t = time.perf_counter()
+            admit("low-a")
+            admit("low-b")
+            server.settle_embedded()
+            high = pods_of["high"][0]
+            server.api.create(high.deepcopy())
+            ms, status, refused = server.post(high, pool_names)
+            message = next(iter(json.loads(refused).get("FailedNodes", {}).values()), "")
+            if "preempting victims: low-b" not in message:
+                raise SystemExit(f"phase policy: {side}: the high-band Filter was not refused with the "
+                                 f"victim note: {refused[:300]!r}")
+            wait_for(lambda: all(pod_gone(server, p) for p in pods_of["low-b"])
+                     and server.scheduler.resource_reservation_cache.get("default", "low-b") is None,
+                     f"{side}: the victim's pods and reservation to go")
+            server.settle_embedded()
+            for pod in pods_of["high"][1:]:
+                server.api.create(pod.deepcopy())
+            _, status, granted = server.post(high, pool_names)
+            if not json.loads(granted).get("NodeNames"):
+                raise SystemExit(f"phase policy: {side}: the preemptor's retry was refused: {granted[:300]!r}")
+            server.bind(high, json.loads(granted)["NodeNames"][0])
+            for pod in pods_of["high"][1:]:
+                _, status, body = server.post(pod, pool_names)
+                if not json.loads(body).get("NodeNames"):
+                    raise SystemExit(f"phase policy: {side}: preemptor executor {pod.name} refused")
+            _, state = server.get("/policy/state")
+            _, record = server.get("/lifecycle/low-b")
+            record = json.loads(record)
+            outcome[side] = (refused, granted, identity_free_policy_state(json.loads(state)),
+                             {k: v for k, v in record.items() if k not in LIFECYCLE_HOST_FIELDS})
+            log(f"phase policy: {side}: preemption in the {POOL_NODES}-node pool: the high-band Filter refused in "
+                f"{ms:.3f} ms with {message[-60:]!r}; victim low-b's pods and reservation gone; the retry "
+                f"and its executors granted ({time.perf_counter() - t:.2f} s in all); /lifecycle/low-b "
+                f"{record['phase']} ({record['evictionCause']!r})")
+        if outcome["on"] != outcome["cpu"]:
+            raise SystemExit(f"phase policy: preemption differs on cuda and cpu: {outcome['on']} / {outcome['cpu']}")
+        if outcome["on"][3]["phase"] != "evicted":
+            raise SystemExit(f"phase policy: the victim's lifecycle record is {outcome['on'][3]}")
+        state = outcome["on"][2]
+        log(f"phase policy: preemption messages, /policy/state (less the evictions' clock stamps) and "
+            f"/lifecycle/low-b equal on cuda and cpu: evictions {state['preemption']['evictionsTotal']}, "
+            f"what-if {state['preemption']['whatif']}, lane {state['preemption']['recent'][-1]['reason']!r}")
+        launches = {k: v for k, v in qk.launch_counts.items() if v}
+        if launches.get("fifo_queue_tightly_checkpointed", 0) < 1:
+            raise SystemExit(f"phase policy: the checkpointed fifo_queue was not launched ({launches})")
+        log(f"phase policy: queue-kernel launches on the phase's path {launches}")
+        return launches
+    finally:
+        policy_engine.backfill_cannot_delay = real_probe
+        for server in servers.values():
+            server.stop()
+        logging.disable(logging.NOTSET)
+
+
 def session_stream(problem, n_earlier: int, smi: str) -> None:
     """Phase delta, step 3 at the library layer: one FifoSession on the
     card and one on the CPU fed the same stream of queues from the main
@@ -3111,7 +3570,13 @@ def main() -> int:
     log(f"phase contention: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 11: results
+    # ---- phase policy: the scheduling-policy engine through the server
+    t = time.perf_counter()
+    policy_phase(args.seed, smi)
+    log(f"phase policy: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 12: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,7 +18,8 @@ class aggregation (``classes``), the capacity observatory
 (``capacity``), the lifecycle ledger with its SLO engine
 (``lifecycle``) and the contention observatory (``contention``), all
 enabled by default, are this package's own: they load with the
-reference's keys and defaults.
+reference's keys and defaults.  So does the scheduling-policy engine
+(``policy``), off by default as in the reference.
 """
 
 from __future__ import annotations
@@ -305,6 +306,57 @@ class ContentionConfig:
 
 
 @dataclass
+class PolicyConfig:
+    """Scheduling-policy engine (policy/): priority classes, pluggable
+    queue ordering, conservative backfill, gang-aware preemption, and
+    DRF fair share.
+
+    ``enabled=False`` (the default) constructs no engine at all —
+    extender decisions are byte-identical to pre-policy behavior
+    (pinned by tests/test_torch_policy.py).  ``ordering`` is one of ``fifo``,
+    ``priority-then-fifo``, ``drf``; ``bands`` maps band name → rank
+    (higher = more important) read from the driver pod's ``band_label``
+    label.  Preemption evicts WHOLE applications only, each victim set
+    validated by a what-if solve and journaled before any delete."""
+
+    enabled: bool = False
+    ordering: str = "fifo"
+    band_label: str = "spark-priority-band"
+    bands: Dict[str, int] = field(
+        default_factory=lambda: {"low": 0, "normal": 1, "high": 2}
+    )
+    default_band: str = "normal"
+    tenant_label: str = "spark-tenant"
+    preemption_enabled: bool = False
+    # a preemptor must outrank a victim by at least this many bands
+    preemption_min_band_gap: int = 1
+    max_victims: int = 4
+    backfill: bool = False
+    # backfill may never skip a queue head older than this (I-P3)
+    starvation_age_seconds: float = 600.0
+    tenant_weights: Dict[str, float] = field(default_factory=dict)
+    recent_evictions: int = 64
+
+    @staticmethod
+    def from_dict(d: dict) -> "PolicyConfig":
+        return PolicyConfig(
+            enabled=d.get("enabled", False),
+            ordering=d.get("ordering", "fifo"),
+            band_label=d.get("band-label", "spark-priority-band"),
+            bands=dict(d.get("bands", {"low": 0, "normal": 1, "high": 2})),
+            default_band=d.get("default-band", "normal"),
+            tenant_label=d.get("tenant-label", "spark-tenant"),
+            preemption_enabled=d.get("preemption-enabled", False),
+            preemption_min_band_gap=d.get("preemption-min-band-gap", 1),
+            max_victims=d.get("max-victims", 4),
+            backfill=d.get("backfill", False),
+            starvation_age_seconds=d.get("starvation-age-seconds", 600.0),
+            tenant_weights=dict(d.get("tenant-weights", {})),
+            recent_evictions=d.get("recent-evictions", 64),
+        )
+
+
+@dataclass
 class ConversionWebhookConfig:
     """Where the apiserver would reach the CRD conversion webhook
     (conversionwebhook/resource_reservation.go:44-98): the
@@ -323,7 +375,6 @@ class ConversionWebhookConfig:
 # section turns its subsystem on when its "enabled" (or that default)
 # is true.
 _UNPORTED_SECTIONS = {
-    "policy": (False, "ROADMAP A.6.5 (scheduling policy)"),
     "ha": (False, "ROADMAP A.6.6 (HA failover)"),
     "concurrent": (False, "ROADMAP A.4 (concurrent admission)"),
 }
@@ -356,6 +407,7 @@ _KNOWN_KEYS = {
     "capacity",
     "lifecycle",
     "contention",
+    "policy",
     *_UNPORTED_SECTIONS,
 }
 _FIFO_KEYS = {"default-enforce-after-pod-age-seconds", "enforce-after-pod-age-by-instance-group"}
@@ -434,6 +486,9 @@ class Install:
     # contention observatory: lock wait/hold telemetry + critical-path
     # decomposition (contention/) — diagnostic only
     contention: ContentionConfig = field(default_factory=ContentionConfig)
+    # scheduling policy: priority bands, ordering, backfill, preemption,
+    # DRF (policy/) — disabled = byte-identical FIFO decisions
+    policy: PolicyConfig = field(default_factory=PolicyConfig)
     # subsystems the reference would run on this config and this package
     # lacks, as (subsystem, ROADMAP item); from_dict derives it from the
     # keys given, a directly built Install has the reference's defaults
@@ -502,5 +557,6 @@ class Install:
             capacity=CapacityConfig.from_dict(d.get("capacity") or {}),
             lifecycle=LifecycleConfig.from_dict(d.get("lifecycle") or {}),
             contention=ContentionConfig.from_dict(d.get("contention") or {}),
+            policy=PolicyConfig.from_dict(d.get("policy") or {}),
             reference_only=_reference_only(d),
         )

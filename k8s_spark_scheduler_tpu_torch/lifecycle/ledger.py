@@ -3,7 +3,7 @@
 Every Spark application is tracked through
 ``submitted → queued → solving → reserved → bound → running →
 completed | evicted | expired`` with first-arrival timestamps per
-phase and queue-wait and solve-tenure durations.
+phase, queue-wait and solve-tenure durations, and eviction causes.
 
 Feeding never happens under the predicate lock (the capacity
 observatory's pattern):
@@ -11,20 +11,22 @@ observatory's pattern):
 - informer handlers (pod add/update/delete, reservation add) run on
   API/informer threads and record phase transitions directly;
 - everything that originates inside the predicate
-  (``application_scheduled`` events, completed predicate traces) is
-  drained by cursor off-thread: the background thread parks on wakeup
-  Events attached to the EventLog and the tensor-mirror ChangeFeed,
-  debounces, and pulls ``events_since``/``completed_since``.
+  (``application_scheduled`` events, completed predicate traces,
+  policy evictions) is drained by cursor off-thread: the background
+  thread parks on wakeup Events attached to the EventLog and the
+  tensor-mirror ChangeFeed, debounces, and pulls
+  ``events_since``/``completed_since``/coordinator deltas.
 
 ``drain`` refuses to run while the calling thread holds the predicate
 lock (``in_predicate_lock``), counting ``lock_violations``, which
 must stay zero.
 
-The reference also drains a policy engine's evictions and DRF shares
-and stamps each transition with the HA epoch; this package has neither
-a policy engine (ROADMAP A.6.5) nor HA (A.6.6), so no gang is ever
-evicted or spans epochs here, and the bodies carry the reference's keys
-with those parts empty.
+With a policy engine wired, each drain also marks its evictions
+(``evicted`` with the eviction's cause) and feeds the DRF share gap to
+the ``fairness_gap`` objective.  The reference also stamps each
+transition with the HA epoch; this package has no HA yet (ROADMAP
+A.6.6), so no gang spans epochs here and ``epochs`` /
+``epochContinuity`` carry the reference's keys empty.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ class GangRecord:
     queue_wait_s: Optional[float] = None
     solve_count: int = 0
     solve_tenure_s: float = 0.0
+    eviction_cause: str = ""
     # most recent scheduling-request traces touching this gang
     trace_ids: List[str] = field(default_factory=list)
 
@@ -100,7 +103,7 @@ class GangRecord:
             ),
             "solveCount": self.solve_count,
             "solveTenureSeconds": round(self.solve_tenure_s, 6),
-            "evictionCause": "",  # no policy engine evicts here
+            "evictionCause": self.eviction_cause,
             "traceIds": list(self.trace_ids),
             "epochs": [],  # no HA epochs here
         }
@@ -126,6 +129,7 @@ class LifecycleLedger:
         event_log=None,
         tracer=None,
         feed=None,
+        policy=None,
         slo=None,
         metrics=None,
         ring_size: int = 2048,
@@ -135,6 +139,7 @@ class LifecycleLedger:
         self._event_log = event_log
         self._tracer = tracer
         self._feed = feed
+        self._policy = policy
         self._slo = slo
         self._metrics = metrics
         self.ring_size = int(ring_size)
@@ -160,6 +165,7 @@ class LifecycleLedger:
         # drain cursors
         self._event_seq = 0
         self._trace_cursor = 0
+        self._evictions_seen = 0
         self._last_gate: Tuple = ()
 
         self._wake = threading.Event()
@@ -276,7 +282,9 @@ class LifecycleLedger:
             if record is None or record.phase in TERMINAL:
                 return
             # a driver that dies after binding completed its run; one
-            # that vanishes still queued expired
+            # that vanishes still queued expired.  Policy evictions are
+            # re-marked with their cause at the next drain (the
+            # coordinator's recent ring is authoritative).
             terminal = (
                 "completed"
                 if record.phase in ("bound", "running")
@@ -329,10 +337,12 @@ class LifecycleLedger:
         if record is not None:
             self._by_driver.pop(record.driver_pod, None)
 
-    def _advance_locked(self, record: GangRecord, phase: str, now: float) -> bool:
-        """Move ``record`` to ``phase`` if that is forward progress.
-        Stamps first-arrival time; returns True when a transition
-        happened."""
+    def _advance_locked(
+        self, record: GangRecord, phase: str, now: float, cause: str = ""
+    ) -> bool:
+        """Move ``record`` to ``phase`` if that is forward progress (or
+        a terminal re-mark with a cause).  Stamps first-arrival time;
+        returns True when a transition happened."""
         racecheck.note_access(self, "_transitions")
         current = record.phase
         if phase == current:
@@ -340,7 +350,10 @@ class LifecycleLedger:
         # "shed" is the one escapable terminal: the gang was never
         # admitted, so a retried Filter revives it into the live phases
         revival = current == "shed" and phase not in TERMINAL
-        if _PHASE_RANK[phase] < _PHASE_RANK[current] and not revival:
+        re_terminal = phase in TERMINAL and bool(cause)
+        if _PHASE_RANK[phase] < _PHASE_RANK[current] and not (
+            re_terminal or revival
+        ):
             # drains lag the informer path, so an earlier phase (e.g.
             # "solving" off the event log) can arrive after "bound" was
             # observed live — record its first-arrival time without
@@ -348,10 +361,12 @@ class LifecycleLedger:
             if phase not in TERMINAL and current not in TERMINAL:
                 record.phase_times.setdefault(phase, now)
             return False
-        if current in TERMINAL and not revival:
+        if current in TERMINAL and not (re_terminal or revival):
             return False
         record.phase = phase
         record.phase_times.setdefault(phase, now)
+        if cause:
+            record.eviction_cause = cause
         self._transitions += 1
         if self._metrics is not None:
             from ..metrics import names as mnames
@@ -440,9 +455,13 @@ class LifecycleLedger:
             and hasattr(self._tracer, "completed_total")
             else 0
         )
+        ev_total = 0
+        coordinator = getattr(self._policy, "coordinator", None)
+        if coordinator is not None:
+            ev_total = coordinator.state()["evictionsTotal"]
         with self._lock:
             transitions = self._transitions
-        return (ev, tr, transitions)
+        return (ev, tr, ev_total, transitions)
 
     def maybe_drain(self, trigger: str = "feed") -> Optional[Dict[str, Any]]:
         """Drain iff any cursor source moved since the last drain —
@@ -468,6 +487,8 @@ class LifecycleLedger:
             gate = self._gate()
             self._drain_events()
             self._drain_traces()
+            self._drain_evictions()
+            self._probe_fairness()
             now = timesource.now()
             if self._slo is not None:
                 self._slo.evaluate(now=now)
@@ -554,6 +575,52 @@ class LifecycleLedger:
                     mnames.LIFECYCLE_SOLVE_TENURE, solve_tenure
                 )
 
+    def _drain_evictions(self) -> None:
+        coordinator = getattr(self._policy, "coordinator", None)
+        if coordinator is None:
+            return
+        st = coordinator.state()
+        fresh = st["evictionsTotal"] - self._evictions_seen
+        if fresh <= 0:
+            return
+        self._evictions_seen = st["evictionsTotal"]
+        recent = st["recent"][-fresh:] if fresh <= len(st["recent"]) else st["recent"]
+        for entry in recent:
+            app_id = entry.get("app", "")
+            if not app_id:
+                continue
+            cause = entry.get("reason", "") or "preempted"
+            at = entry.get("at", timesource.now())
+            with self._lock:
+                record = self._records.get(app_id)
+                if record is None:
+                    record = self._record_locked(app_id, at)
+                    record.namespace = entry.get("namespace", "")
+                self._advance_locked(record, "evicted", at, cause=cause)
+            if self._metrics is not None:
+                from ..metrics import names as mnames
+
+                self._metrics.counter(
+                    mnames.LIFECYCLE_EVICTIONS,
+                    tags={mnames.TAG_CAUSE: _cause_bucket(cause)},
+                )
+
+    def _probe_fairness(self) -> None:
+        if self._slo is None:
+            return
+        drf = getattr(self._policy, "drf", None)
+        if drf is None:
+            return
+        try:
+            tenants = drf.state()
+        except Exception:
+            return
+        if len(tenants) < 2:
+            return
+        shares = [info["dominantShare"] for info in tenants.values()]
+        gap = max(shares) - min(shares)
+        self._slo.observe("fairness_gap", gap)
+
     # -- read side ------------------------------------------------------------
 
     def record(self, app_id: str) -> Optional[Dict[str, Any]]:
@@ -572,7 +639,7 @@ class LifecycleLedger:
                         if r.queue_wait_s is None
                         else round(r.queue_wait_s, 6)
                     ),
-                    "evictionCause": "",
+                    "evictionCause": r.eviction_cause,
                 }
                 for r in (self._records[a] for a in self._order)
             ]
@@ -580,8 +647,14 @@ class LifecycleLedger:
     def summary(self) -> Dict[str, Any]:
         with self._lock:
             phase_counts = {p: 0 for p in PHASES}
+            evictions_by_cause: Dict[str, int] = {}
             for record in self._records.values():
                 phase_counts[record.phase] += 1
+                if record.phase == "evicted":
+                    bucket = _cause_bucket(record.eviction_cause)
+                    evictions_by_cause[bucket] = (
+                        evictions_by_cause.get(bucket, 0) + 1
+                    )
             waits = sorted(self._queue_waits)
             stats = dict(self._stats)
             transitions = self._transitions
@@ -596,8 +669,8 @@ class LifecycleLedger:
                 "p95": _pct(waits, 0.95),
                 "p99": _pct(waits, 0.99),
             },
-            # no policy engine evicts and no HA epoch changes here
-            "evictionsByCause": {},
+            "evictionsByCause": evictions_by_cause,
+            # no HA epoch changes here (ROADMAP A.6.6)
             "epochContinuity": {"gangsSpanningEpochs": 0, "epochRegressions": 0},
             "drains": stats["drains"],
             "lockViolations": stats["lock_violations"],
@@ -636,3 +709,15 @@ def _pct(sorted_values: List[float], q: float) -> Optional[float]:
         len(sorted_values) - 1, max(0, int(q * len(sorted_values) + 0.5) - 1)
     )
     return round(sorted_values[idx], 6)
+
+
+def _cause_bucket(cause: str) -> str:
+    """Collapse free-text eviction reasons to a bounded tag set."""
+    text = (cause or "").lower()
+    if "replay" in text:
+        return "replayed"
+    if "preempt" in text or "band" in text:
+        return "preempted"
+    if "share" in text or "drf" in text or "fair" in text:
+        return "fair-share"
+    return "other" if text else "unknown"

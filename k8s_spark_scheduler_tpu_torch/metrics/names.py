@@ -104,6 +104,21 @@ RESILIENCE_JOURNAL_TORN_TAIL = (
     "foundry.spark.scheduler.resilience.journal.torn.tail.count"
 )
 
+# policy engine (policy/): priority ordering, backfill, gang-aware
+# preemption, DRF fair share
+# committed preemptions (one per validated victim plan)
+POLICY_PREEMPTION_COUNT = "foundry.spark.scheduler.tpu.policy.preemption.count"
+# whole applications evicted across all preemptions
+POLICY_PREEMPTION_VICTIMS = (
+    "foundry.spark.scheduler.tpu.policy.preemption.victims"
+)
+# victim-set what-if validation latency (milliseconds; histogram)
+POLICY_WHATIF_MS = "foundry.spark.scheduler.tpu.policy.preemption.whatif.ms"
+# per-tenant weighted dominant share (gauge, tagged tenant=)
+POLICY_DRF_SHARE = "foundry.spark.scheduler.tpu.policy.drf.share"
+# blocked queue heads safely skipped by the conservative backfill probe
+POLICY_BACKFILL_SKIPS = "foundry.spark.scheduler.tpu.policy.backfill.skips"
+
 # decision provenance (provenance/): unschedulability explainer,
 # shortfall telemetry, anomaly flight recorder
 # per-dimension cluster shortfall (executors short when that dimension

@@ -127,6 +127,7 @@ class SparkSchedulerExtender:
         tracer: Optional[tracing.Tracer] = None,
         delta_solve: bool = True,
         provenance=None,
+        policy=None,
     ):
         self._node_informer = node_informer
         self._pod_lister = pod_lister
@@ -177,6 +178,10 @@ class SparkSchedulerExtender:
         # keeps every capture sink None — the solver then runs with zero
         # provenance work
         self._provenance = provenance
+        # scheduling-policy engine (policy/engine.py): None (the
+        # default) keeps every hook a single attribute check — the
+        # Filter path is then byte-identical to pre-policy behavior
+        self._policy = policy
         if provenance is not None and provenance.enabled:
             solver = getattr(binpacker, "queue_solver", None)
             if solver is not None and hasattr(solver, "capture_sink"):
@@ -399,10 +404,39 @@ class SparkSchedulerExtender:
         detail = prov.refusal_detail(kind)
         return f"{base}: {detail}" if detail else base
 
-    def _raise_driver_refusal(self, outcome: str, base_message: str, kind: str):
-        """Shared refusal tail for the driver path: the message enriched
-        with the shortfall explanation."""
-        raise SchedulingFailure(outcome, self._refusal_message(base_message, kind))
+    # -- policy hooks (no-ops when no engine is configured) ------------------
+
+    def _earlier_drivers(self, driver: Pod) -> List[Pod]:
+        """The queue-ahead set for the FIFO gate; the policy engine may
+        re-order it (priority-then-fifo, DRF) without touching the
+        queue solve itself."""
+        if self._policy is not None:
+            return self._policy.earlier_queue(driver)
+        return self._pod_lister.list_earlier_drivers(driver)
+
+    def _skip_verdict(self, queued: Pod, driver: Pod, skip_cutoff: float) -> bool:
+        """enforce-after-age skip verdict for one queued driver,
+        optionally widened by the policy engine's conservative backfill
+        probe (which can only ADD skips, never remove one)."""
+        base = queued.creation_timestamp > skip_cutoff
+        if self._policy is not None:
+            return self._policy.skip_allowed(queued, driver, base)
+        return base
+
+    def _raise_driver_refusal(
+        self, driver: Pod, app_resources, outcome: str, base_message: str, kind: str
+    ):
+        """Shared refusal tail for the driver path: enrich the message
+        with the shortfall explanation, give the policy engine its
+        preemption shot (the explanation memoized the blocker set it
+        seeds from), and stamp any committed victim set into the
+        FailedNodes message."""
+        message = self._refusal_message(base_message, kind)
+        if self._policy is not None:
+            note = self._policy.on_driver_refusal(driver, app_resources, outcome)
+            if note:
+                message = f"{message}; {note}"
+        raise SchedulingFailure(outcome, message)
 
     def _fail_with_message(self, outcome: str, args: ExtenderArgs, message: str) -> ExtenderFilterResult:
         if self._waste_reporter is not None:
@@ -480,6 +514,8 @@ class SparkSchedulerExtender:
                     driver, app_resources_early
                 )
                 self._raise_driver_refusal(
+                    driver,
+                    app_resources_early,
                     FAILURE_EARLIER_DRIVER,
                     "earlier drivers do not fit to the cluster",
                     "earlier-driver",
@@ -503,7 +539,7 @@ class SparkSchedulerExtender:
         packing_result = None
         self._check_deadline("fifo-gate")
         if self._is_fifo:
-            queued_drivers = self._pod_lister.list_earlier_drivers(driver)
+            queued_drivers = self._earlier_drivers(driver)
             # tpu-batch: the whole earlier-drivers pass plus this driver's
             # pack is ONE device solve (ops/fifo_solver); other policies
             # run the host loop
@@ -514,6 +550,7 @@ class SparkSchedulerExtender:
                 executor_node_names,
                 metadata,
                 app_resources,
+                driver,
             )
             if outcome is not None and outcome.supported:
                 earlier_ok = outcome.earlier_ok
@@ -525,10 +562,13 @@ class SparkSchedulerExtender:
                     driver_node_names,
                     executor_node_names,
                     metadata,
+                    driver,
                 )
             if not earlier_ok:
                 self._demands.create_demand_for_application_in_any_zone(driver, app_resources)
                 self._raise_driver_refusal(
+                    driver,
+                    app_resources,
                     FAILURE_EARLIER_DRIVER,
                     "earlier drivers do not fit to the cluster",
                     "earlier-driver",
@@ -567,7 +607,11 @@ class SparkSchedulerExtender:
         if not packing_result.has_capacity:
             self._demands.create_demand_for_application_in_any_zone(driver, app_resources)
             self._raise_driver_refusal(
-                FAILURE_FIT, "application does not fit to the cluster", "fit"
+                driver,
+                app_resources,
+                FAILURE_FIT,
+                "application does not fit to the cluster",
+                "fit",
             )
 
         if efficiency is None:
@@ -632,7 +676,7 @@ class SparkSchedulerExtender:
         if self._is_fifo:
             with self._tracer.span("fast_path.earlier_drivers") as sp:
                 skip_cutoff = self._fifo_skip_cutoff(instance_group)
-                for queued in self._pod_lister.list_earlier_drivers(driver):
+                for queued in self._earlier_drivers(driver):
                     try:
                         # stable AppDemand per pod version: tensor rows
                         # are computed once per app, not per request
@@ -644,7 +688,7 @@ class SparkSchedulerExtender:
                         )
                         continue
                     earlier_apps.append(demand)
-                    skip_allowed.append(queued.creation_timestamp > skip_cutoff)
+                    skip_allowed.append(self._skip_verdict(queued, driver, skip_cutoff))
                     if queue_names is not None:
                         queue_names.append(queued.name)
                 sp.tag("earlierApps", len(earlier_apps))
@@ -702,6 +746,7 @@ class SparkSchedulerExtender:
         executor_node_names: List[str],
         metadata,
         app_resources,
+        current_driver: Pod,
     ):
         """Run the FIFO pass + current pack on the device when the
         configured binpacker provides a queue solver; returns None when
@@ -728,7 +773,7 @@ class SparkSchedulerExtender:
                 )
                 continue
             earlier_apps.append(demand)
-            skip_allowed.append(queued.creation_timestamp > skip_cutoff)
+            skip_allowed.append(self._skip_verdict(queued, current_driver, skip_cutoff))
             if queue_names is not None:
                 queue_names.append(queued.name)
         if prov is not None:
@@ -760,12 +805,14 @@ class SparkSchedulerExtender:
         node_names: List[str],
         executor_node_names: List[str],
         metadata,
+        current_driver: Pod,
     ) -> bool:
         """resource.go:224-262: binpack every earlier driver and subtract
         its usage before considering this one."""
         with self._tracer.span(
             "fifo_gate", {"lane": "host", "earlierApps": len(drivers)}
         ) as sp:
+            skip_cutoff = self._fifo_skip_cutoff(instance_group)
             for driver in drivers:
                 try:
                     app_resources = spark_resources_cached(driver)
@@ -781,7 +828,7 @@ class SparkSchedulerExtender:
                     metadata,
                 )
                 if not packing_result.has_capacity:
-                    if self._should_skip_driver_fifo(driver, instance_group):
+                    if self._skip_verdict(driver, current_driver, skip_cutoff):
                         logger.debug(
                             "skipping non-fitting driver %s from FIFO: not old enough", driver.name
                         )
@@ -800,10 +847,6 @@ class SparkSchedulerExtender:
                 )
             sp.tag("earlierOk", True)
             return True
-
-    def _should_skip_driver_fifo(self, pod: Pod, instance_group: str) -> bool:
-        """resource.go:264-270."""
-        return pod.creation_timestamp > self._fifo_skip_cutoff(instance_group)
 
     def _fifo_skip_cutoff(self, instance_group: str) -> float:
         """Creation-time cutoff above which a queued driver is young

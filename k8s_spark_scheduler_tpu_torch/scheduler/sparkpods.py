@@ -221,13 +221,10 @@ class SparkPodLister:
     def list(self, namespace: Optional[str] = None, label_selector=None) -> List[Pod]:
         return self._informer.list(namespace=namespace, label_selector=label_selector)
 
-    def list_earlier_drivers(self, driver: Pod) -> List[Pod]:
-        """Unscheduled drivers in the same instance group, targeted at the
-        same scheduler, created strictly earlier, sorted by creation time
-        (sparkpods.go:45-71).  The driver-independent part (pending
-        drivers, time-sorted) is cached per informer revision."""
-        # keyed on the driver-role bucket revision: executor pod churn
-        # (the dominant event stream) leaves the cache valid
+    def _pending_drivers(self) -> List[Pod]:
+        """Every pending driver, sorted by creation time, cached per
+        revision of the informer's driver-role bucket: executor pod
+        churn (the dominant event stream) leaves the cache valid."""
         rev = self._informer.selector_revision(L.SPARK_ROLE_LABEL, L.DRIVER)
         cached_rev, pending = self._pending_cache
         if cached_rev != rev:
@@ -241,12 +238,32 @@ class SparkPodLister:
             ]
             pending.sort(key=lambda p: p.creation_timestamp)
             self._pending_cache = (rev, pending)
+        return pending
+
+    def list_earlier_drivers(self, driver: Pod) -> List[Pod]:
+        """Unscheduled drivers in the same instance group, targeted at the
+        same scheduler, created strictly earlier, sorted by creation time
+        (sparkpods.go:45-71)."""
         cut = driver.creation_timestamp
         return [
             p
-            for p in pending
+            for p in self._pending_drivers()
             if p.creation_timestamp < cut
             and p.scheduler_name == driver.scheduler_name
+            and L.match_pod_instance_group(p, driver, self._instance_group_label)
+        ]
+
+    def list_pending_drivers(self, driver: Pod) -> List[Pod]:
+        """The full pending-driver set ``driver`` competes with: same
+        filters as :meth:`list_earlier_drivers` MINUS the creation-time
+        cut (and including ``driver`` itself when pending), still
+        creation-time sorted.  The policy engine re-orders this set
+        under non-FIFO comparators; it shares the pending-driver cache,
+        so the policy path costs no extra informer scan."""
+        return [
+            p
+            for p in self._pending_drivers()
+            if p.scheduler_name == driver.scheduler_name
             and L.match_pod_instance_group(p, driver, self._instance_group_label)
         ]
 

@@ -41,6 +41,11 @@
 - ``GET /debug/criticalpath`` (``?limit=N``) — per-request latency
   decomposition: gate-queue / lock-wait / serde / solve / write-back
   (contention/criticalpath.py)
+- ``GET /policy/state`` — policy-engine state: priority bands, tenant
+  dominant shares, recent evictions with reasons (policy/engine.py);
+  ``{"enabled": false}`` without an engine
+- ``GET /status/ha`` — ``{"enabled": false}``: no HA fabric here yet
+  (ROADMAP A.6.6)
 """
 
 from __future__ import annotations
@@ -226,10 +231,26 @@ class _Handler(BaseHTTPRequestHandler):
             self._handle_debug_criticalpath(query)
         elif path == "/slo" and self.scheduler is not None:
             self._handle_slo()
+        elif path == "/policy/state" and self.scheduler is not None:
+            self._handle_policy_state()
         elif (path == "/lifecycle" or path.startswith("/lifecycle/")) and self.scheduler is not None:
             self._handle_lifecycle(unquote(path[len("/lifecycle"):]).lstrip("/"))
+        elif path == "/status/ha" and self.scheduler is not None:
+            # no HA fabric in this package yet (ROADMAP A.6.6): the body
+            # the reference answers with HA off
+            self._send_json(200, {"enabled": False})
         else:
             self._send_json(404, {"error": "not found"})
+
+    def _handle_policy_state(self) -> None:
+        """Policy-engine operator surface (policy/engine.py): configured
+        bands with observation counts, per-tenant dominant shares, and
+        the recent-evictions ring with reasons."""
+        engine = self.scheduler.policy
+        if engine is None:
+            self._send_json(200, {"enabled": False})
+            return
+        self._send_json(200, engine.state())
 
     def _split_path(self):
         parts = urlsplit(self.path)

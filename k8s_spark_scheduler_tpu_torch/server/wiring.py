@@ -12,7 +12,9 @@ and the flight recorder), the capacity observatory (a sampler thread
 probing headroom on ``device``), the lifecycle ledger with its SLO
 engine, and the contention observatory (every ``@guarded_by`` lock and
 the predicate lock timed, each request's trace decomposed into its
-critical-path segments).  The
+critical-path segments), and, when the install turns it on, the
+scheduling-policy engine (priority bands, queue orders, backfill,
+whole-gang preemption, DRF; ``policy/``).  The
 ``tpu-batch*`` binpackers run their queue solvers on ``device`` (None =
 CUDA, which raises on a host without CUDA); ``start_background`` also
 starts the kernel warmup, which builds the binpacker's CUDA library and
@@ -156,6 +158,7 @@ class Server:
     slo: object = None  # SloEngine (lifecycle/slo.py)
     contention: object = None  # LockTimekeeper (contention/locktime.py)
     criticalpath: object = None  # CriticalPathAnalyzer (contention/criticalpath.py)
+    policy: object = None  # PolicyEngine (policy/engine.py)
     _warm_done: threading.Event = field(default_factory=threading.Event)
     _warm_stop: threading.Event = field(default_factory=threading.Event)
     _warm_error: Optional[BaseException] = None
@@ -224,6 +227,9 @@ class Server:
             # the journal keeps its pending (unlanded) intents on disk
             # for the next instance's boot-time replay
             self.resilience.journal.close()
+        if self.policy is not None:
+            # same contract for the evict journal
+            self.policy.close()
         self.lazy_demand_informer.stop()
         for thread in self._threads:
             # a kernel build is bounded by nvcc; joining it keeps a CUDA
@@ -399,12 +405,34 @@ def init_server_with_clients(
             device=device,
         )
 
+    # scheduling-policy engine (policy/): priority ordering, backfill,
+    # gang-aware preemption, DRF.  None when disabled — the extender's
+    # hooks then cost one attribute check and decisions are
+    # byte-identical to pre-policy behavior.
+    policy_engine = None
+    if install.policy.enabled:
+        from ..policy import PolicyEngine
+
+        policy_engine = PolicyEngine(
+            install.policy,
+            pod_lister=pod_lister,
+            tensor_snapshot=tensor_snapshot,
+            rr_cache=rr_cache,
+            api=api,
+            journal_path=install.resilience.journal_path,
+            metrics=metrics,
+            provenance=provenance_tracker,
+        )
+        # evict intents journaled by a previous instance replay
+        # exactly-once before any scheduling decision runs (mirrors
+        # rr_cache.recover_from_journal above)
+        policy_engine.recover()
+
     # gang lifecycle ledger + SLO engine (lifecycle/): per-application
     # state machine fed off informer threads and drain cursors — never
     # under the predicate lock.  The waste reporter's slo_sink makes
     # WasteMetricsReporter the single source of truth for the
-    # eviction_waste objective.  No policy engine (its evictions and
-    # DRF probe) and no HA epoch source exist here yet.
+    # eviction_waste objective.  No HA epoch source exists here yet.
     lifecycle_ledger = None
     slo_engine = None
     if install.lifecycle.enabled:
@@ -421,6 +449,7 @@ def init_server_with_clients(
             event_log=event_log,
             tracer=tracer,
             feed=tensor_snapshot.feed,
+            policy=policy_engine,
             slo=slo_engine,
             metrics=metrics,
             ring_size=install.lifecycle.ring_size,
@@ -457,7 +486,12 @@ def init_server_with_clients(
         tracer=tracer,
         delta_solve=install.delta_solve,
         provenance=provenance_tracker,
+        policy=policy_engine,
     )
+    if policy_engine is not None:
+        # what-if victim validation rides the extender's warm
+        # delta-solve sessions (ops/deltasolve.py latest_basis)
+        policy_engine._delta_engine = extender.delta_engine
     if slo_engine is not None:
         # decision traces carry the active SLO alert states (one
         # precomputed-attribute read; never a burn-rate computation on
@@ -518,6 +552,7 @@ def init_server_with_clients(
         slo=slo_engine,
         contention=contention_keeper,
         criticalpath=criticalpath_analyzer,
+        policy=policy_engine,
     )
     server.reporters = ReporterSet(server)
 

@@ -2,14 +2,15 @@
 turns on: ``Install.reference_only`` names exactly the subsystems the
 JAX package runs on the same config and the port does not have (all but
 resilience, provenance, delta-solve, class aggregation, the capacity
-observatory, the lifecycle ledger and the contention observatory, which
-the port has), and the server logs one warning for each at start: none
+observatory, the lifecycle ledger, the contention observatory and the policy
+engine, which the port has), and the server logs one warning for each at start: none
 on examples/install.json, since every subsystem the reference runs by
 default is ported.  ``delta-solve`` (default true, as in the reference) and
 ``classes`` load and reach the engine, with
 ``provenance.parity-check-interval``; ``capacity`` and ``lifecycle``
 load with the reference's keys and defaults and reach the sampler and
-the ledger.  Also the two settings that now configure something:
+the ledger; ``policy`` loads into a ``PolicyConfig`` equal to the
+reference's and reaches the engine.  Also the two settings that now configure something:
 ``conversion-webhook`` (the CRD's conversion stanza) and
 ``unschedulable-pod-timeout-seconds`` (the marker)."""
 
@@ -29,7 +30,7 @@ from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("provenance", "capacity", "contention", "policy", "ha", "lifecycle", "concurrent", "classes")
 # the reference's subsystems the port has too
-PORTED = {"resilience", "provenance", "delta-solve", "classes", "capacity", "lifecycle", "contention"}
+PORTED = {"resilience", "provenance", "delta-solve", "classes", "capacity", "lifecycle", "contention", "policy"}
 
 
 def _example() -> dict:
@@ -202,3 +203,37 @@ def test_capacity_and_lifecycle_load_as_in_the_reference(d):
 def test_capacity_and_lifecycle_sections_refuse_unknown_keys(section):
     with pytest.raises(ValueError, match=section):
         Install.from_dict({section: {"enabled": True, "ring_size": 5}})
+
+
+@pytest.mark.parametrize(
+    "section",
+    [
+        {},
+        {"enabled": False},
+        {"enabled": True},
+        {"enabled": True, "ordering": "priority-then-fifo", "backfill": True, "preemption-enabled": True},
+        {"enabled": True, "ordering": "drf", "band-label": "band", "bands": {"bulk": 0, "prod": 5},
+         "default-band": "nope", "tenant-label": "team", "preemption-min-band-gap": 2, "max-victims": 1,
+         "starvation-age-seconds": 30.0, "tenant-weights": {"a": 2.0}, "recent-evictions": 8},
+    ],
+)
+def test_policy_section_loads_as_in_the_reference(section):
+    """``{"policy": {...}}`` loads into a PolicyConfig equal to the
+    reference's, and an enabled one builds the engine with it."""
+    ours, theirs = Install.from_dict({"policy": section}), JaxInstall.from_dict({"policy": section})
+    assert ours.policy.__dict__ == theirs.policy.__dict__
+    server = init_server_with_clients(
+        APIServer(), Install(fifo=True, binpack_algo="tpu-batch", policy=ours.policy),
+        start_background=False, device="cpu",
+    )
+    try:
+        engine = server.policy
+        assert (engine is not None) == ours.policy.enabled
+        assert server.extender._policy is engine and server.lifecycle._policy is engine
+        if engine is not None:
+            assert engine.config is ours.policy
+            assert (engine.coordinator is not None) == ours.policy.preemption_enabled
+            # a default band the bands lack falls back to the lowest, as in the reference
+            assert engine.ledger.default_band in ours.policy.bands
+    finally:
+        server.stop()

@@ -306,10 +306,10 @@ def test_cli_serves_the_example_config_on_cpu(tmp_path):
 # current numbers.  The provenance and resilience sections (config1,
 # config2, config10) load since both subsystems were ported, and so do
 # delta-solve and classes (config0, config9), lifecycle and capacity
-# (config4, config7; tests/test_torch_config.py), and contention (config8,
-# test_contention_config_loads_and_serves below).
+# (config4, config7; tests/test_torch_config.py), contention (config8,
+# test_contention_config_loads_and_serves below), and policy (config3;
+# tests/test_torch_config.py test_policy_section_loads_as_in_the_reference).
 _REFUSED = [
-    ("config3-A.8", {"policy": {"enabled": True}}, r"A\.6\.5 \(scheduling policy\)"),
     ("config5-A.8", {"ha": {"enabled": True}}, r"A\.6\.6 \(HA failover\)"),
     ("config6-A.5", {"concurrent": {"enabled": True}}, r"A\.4 \(concurrent admission\)"),
 ]

@@ -593,3 +593,72 @@ def test_contention_and_race_detector_run_with_jax_and_reference_package_blocked
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "CONTENTION-OK" in proc.stdout
+
+
+_BLOCKED_POLICY = textwrap.dedent(
+    """
+    import importlib, sys, tempfile
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    # the modules of the policy slice, each by name
+    for name in ("ha", "ha.crashpoint", "policy", "policy.classes", "policy.ordering", "policy.drf",
+                 "policy.victims", "policy.preempt", "policy.engine"):
+        importlib.import_module("k8s_spark_scheduler_tpu_torch." + name)
+    from k8s_spark_scheduler_tpu_torch.config import Install, PolicyConfig, ResilienceConfig
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    install = Install(
+        fifo=True, binpack_algo="tpu-batch",
+        resilience=ResilienceConfig(journal_path=tempfile.mkdtemp() + "/intents.jsonl"),
+        policy=PolicyConfig(enabled=True, ordering="priority-then-fifo", backfill=True, preemption_enabled=True),
+    )
+    h = Harness(extra_install=install, device="cpu")
+    try:
+        names = ["n1", "n2"]
+        for name in names:
+            h.new_node(name, cpu="4", memory="4Gi")
+        low = h.static_allocation_spark_pods("low", 5)
+        for pod in low:
+            pod.labels["spark-priority-band"] = "low"
+            assert h.schedule(pod, names).node_names
+        high = h.static_allocation_spark_pods("high", 4)
+        for pod in high:
+            pod.labels["spark-priority-band"] = "high"
+        result = h.schedule(high[0], names)
+        assert "preempting victims: low" in "; ".join(result.failed_nodes.values()), result
+        h.wait_quiesced()
+        for pod in high:
+            assert h.schedule(pod, names).node_names
+        state = h.server.policy.state()
+        assert state["preemption"]["evictionsTotal"] == 1 and state["preemption"]["journalDepth"] == 0
+    finally:
+        h.close()
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("POLICY-OK")
+    """
+)
+
+
+def test_policy_engine_runs_with_jax_and_reference_package_blocked():
+    """The policy slice (policy/, ha/crashpoint) imports and preempts
+    on the port's server with jax and the JAX package blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_POLICY],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "POLICY-OK" in proc.stdout

@@ -14,7 +14,7 @@ the reference:
 - a Twin sequence on the reference's defaults: the bodies of
   ``/state/capacity`` (and its history and diff), ``/slo`` and
   ``/lifecycle`` from both servers on one frozen clock are equal, with
-  the fields named in ``UNCOMPARED`` left out.
+  the fields named in ``UNCOMPARED`` (tests/torch_parity.py) left out.
 
 The reference's simulator and policy-regression-gate cases
 (``test_lifecycle.py:344``, ``:414``, ``:496``, ``:582``) wait for the
@@ -40,7 +40,9 @@ from k8s_spark_scheduler_tpu_torch.lifecycle import (
 from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
 from k8s_spark_scheduler_tpu_torch.tracing import Tracer
 
-from torch_parity import Twin
+from torch_parity import UNCOMPARED, Twin
+from torch_parity import lifecycle_record_body as _record_body
+from torch_parity import lifecycle_summary_body as _summary_body
 
 
 def _harness() -> Harness:
@@ -449,44 +451,12 @@ def test_scorecard_diff_edge_cases():
 
 # -- the Twin: both servers' observatory bodies on one frozen clock ------------
 
-# Fields left out of the comparison, each because its value names the
-# serving process or the host's clock rather than the cluster's state:
-# - sampleMs, classes.expandMs: host-clock cost of a sample;
-# - probeLane: where the probes ran ("torch" here, the reference's
-#   "native" or "numpy");
-# - t: the sample's time source read (frozen, but not the cluster's);
-# - contentKey[0], structureKey[0]: the tensor mirror's process-local
-#   instance number (each package counts its own mirrors);
-# - traceIds: random per request;
-# - solveTenureSeconds: host-clock span durations of the Filters;
-# - the filter_latency objective's good / bad split and everything
-#   derived from it (state, budgetRemaining, windows), and the
-#   scorecard digest over it: a Filter is good when its host-clock
-#   duration is under 0.1 s (its total is compared);
-# - the ledger's transitions count: a granted driver's reservation is
-#   written back on a worker thread, and whether its informer event
-#   lands before the driver's bind (one more transition, "reserved"
-#   before "bound") is the host's thread timing, in either package;
-#   the phases and their first-arrival times are compared.
-UNCOMPARED = {
-    "capacity": ("sampleMs", "probeLane", "t"),
-    "classes": ("expandMs",),
-    "record": ("traceIds", "solveTenureSeconds"),
-    "filter_latency": ("good", "bad", "state", "budgetRemaining", "windows"),
-    "lifecycle": ("transitions",),
-}
-
-
 def _capacity_body(sample: dict) -> dict:
     out = {k: v for k, v in sample.items() if k not in UNCOMPARED["capacity"]}
     out["contentKey"] = sample["contentKey"][1:]
     out["structureKey"] = sample["structureKey"][1:]
     out["classes"] = {k: v for k, v in sample["classes"].items() if k not in UNCOMPARED["classes"]}
     return out
-
-
-def _summary_body(summary: dict) -> dict:
-    return {k: v for k, v in summary.items() if k not in UNCOMPARED["lifecycle"]}
 
 
 def _slo_body(card: dict) -> dict:
@@ -497,10 +467,6 @@ def _slo_body(card: dict) -> dict:
     }
     out["lifecycle"] = _summary_body(card["lifecycle"])
     return out
-
-
-def _record_body(record: dict) -> dict:
-    return {k: v for k, v in record.items() if k not in UNCOMPARED["record"]}
 
 
 def test_twin_observatory_bodies_equal_on_the_defaults():

@@ -19,7 +19,11 @@ run the contention observatory (each package's own process-wide
 timekeeper) and the capacity observatory and the lifecycle ledger too:
 ``Twin.get`` reads an endpoint of each over HTTP, and
 ``Twin.quiet_observatories`` stops their background threads so that a
-read's sample and drain are the ones it asks for.
+read's sample and drain are the ones it asks for.  ``Twin(policy={...})``
+turns on the scheduling-policy engine on both sides with the same
+``PolicyConfig`` fields; ``lifecycle_record_body`` and
+``lifecycle_summary_body`` drop the fields of a ``/lifecycle`` body that
+the serving process or the host's clock decides (``UNCOMPARED``).
 
 Both servers write reservations and demands back on worker threads, and
 a Filter or a delete that overtakes a pending write can decide
@@ -40,6 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 from k8s_spark_scheduler_tpu import timesource as jax_timesource
 from k8s_spark_scheduler_tpu.config import FifoConfig as JaxFifoConfig
 from k8s_spark_scheduler_tpu.config import Install as JaxInstall
+from k8s_spark_scheduler_tpu.config import PolicyConfig as JaxPolicyConfig
 from k8s_spark_scheduler_tpu.scheduler import invariants as jax_invariants
 from k8s_spark_scheduler_tpu.server.http import ExtenderHTTPServer as JaxHTTPServer
 from k8s_spark_scheduler_tpu.testing.harness import Harness as JaxHarness
@@ -49,6 +54,8 @@ from k8s_spark_scheduler_tpu.types.objects import Container, Node, ObjectMeta, P
 from k8s_spark_scheduler_tpu.types.resources import ZONE_LABEL, Resources
 from k8s_spark_scheduler_tpu_torch import timesource as port_timesource
 from k8s_spark_scheduler_tpu_torch.config import FifoConfig as PortFifoConfig
+from k8s_spark_scheduler_tpu_torch.config import Install as PortInstall
+from k8s_spark_scheduler_tpu_torch.config import PolicyConfig as PortPolicyConfig
 from k8s_spark_scheduler_tpu_torch.convert import object_from_wire
 from k8s_spark_scheduler_tpu_torch.metrics import names as port_names
 from k8s_spark_scheduler_tpu_torch.scheduler import invariants as port_invariants
@@ -60,6 +67,42 @@ from k8s_spark_scheduler_tpu_torch.types.extenderapi import ExtenderArgs as Port
 T0 = 1_700_000_000.0
 GROUP = "batch-medium-priority"
 IG_LABEL = "resource_channel"
+
+# Fields of the observatory bodies (/state/capacity, /slo, /lifecycle)
+# left out of the Twin comparisons, each because its value names the
+# serving process or the host's clock rather than the cluster's state:
+# - sampleMs, classes.expandMs: host-clock cost of a sample;
+# - probeLane: where the probes ran ("torch" here, the reference's
+#   "native" or "numpy");
+# - t: the sample's time source read (frozen, but not the cluster's);
+# - contentKey[0], structureKey[0]: the tensor mirror's process-local
+#   instance number (each package counts its own mirrors);
+# - traceIds: random per request;
+# - solveTenureSeconds: host-clock span durations of the Filters;
+# - the filter_latency objective's good / bad split and everything
+#   derived from it (state, budgetRemaining, windows), and the
+#   scorecard digest over it: a Filter is good when its host-clock
+#   duration is under 0.1 s (its total is compared);
+# - the ledger's transitions count: a granted driver's reservation is
+#   written back on a worker thread, and whether its informer event
+#   lands before the driver's bind (one more transition, "reserved"
+#   before "bound") is the host's thread timing, in either package;
+#   the phases and their first-arrival times are compared.
+UNCOMPARED = {
+    "capacity": ("sampleMs", "probeLane", "t"),
+    "classes": ("expandMs",),
+    "record": ("traceIds", "solveTenureSeconds"),
+    "filter_latency": ("good", "bad", "state", "budgetRemaining", "windows"),
+    "lifecycle": ("transitions",),
+}
+
+
+def lifecycle_summary_body(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k not in UNCOMPARED["lifecycle"]}
+
+
+def lifecycle_record_body(record: dict) -> dict:
+    return {k: v for k, v in record.items() if k not in UNCOMPARED["record"]}
 
 
 def _strip_identity(wire: dict) -> dict:
@@ -95,30 +138,36 @@ class Twin:
         enforce_after_age: float = 0.0,
         dynamic_allocation_single_az: bool = False,
         check_invariants: bool = False,
+        policy: Optional[dict] = None,
     ):
+        """``policy``: ``PolicyConfig`` fields (e.g. ``{"enabled": True,
+        "ordering": "drf"}``) set on both sides; None leaves the engine
+        off, as the defaults do."""
         self.now = T0
         jax_timesource.set_source(lambda: self.now)
         port_timesource.set_source(lambda: self.now)
         self.jax: Optional[JaxHarness] = None
         self.port: Optional[PortHarness] = None
+        common = dict(
+            fifo=True,
+            binpack_algo=binpack_algo,
+            instance_group_label=IG_LABEL,
+            should_schedule_dynamically_allocated_executors_in_same_az=dynamic_allocation_single_az,
+        )
         try:
             self.jax = JaxHarness(
                 extra_install=JaxInstall(
-                    fifo=True,
                     fifo_config=JaxFifoConfig(default_enforce_after_pod_age=enforce_after_age),
-                    binpack_algo=binpack_algo,
-                    instance_group_label=IG_LABEL,
-                    should_schedule_dynamically_allocated_executors_in_same_az=(
-                        dynamic_allocation_single_az
-                    ),
+                    policy=JaxPolicyConfig(**(policy or {})),
+                    **common,
                 )
             )
             self.port = PortHarness(
-                binpack_algo=binpack_algo,
-                is_fifo=True,
-                fifo_config=PortFifoConfig(default_enforce_after_pod_age=enforce_after_age),
-                instance_group_label=IG_LABEL,
-                dynamic_allocation_single_az=dynamic_allocation_single_az,
+                extra_install=PortInstall(
+                    fifo_config=PortFifoConfig(default_enforce_after_pod_age=enforce_after_age),
+                    policy=PortPolicyConfig(**(policy or {})),
+                    **common,
+                ),
                 device="cpu",
             )
         except BaseException:
