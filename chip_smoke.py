@@ -104,7 +104,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``tpu-batch`` and ``tpu-batch-minimal-fragmentation``, a cuda server
    with the engine on, one with it off and a cpu server with it on, the
    1,000 queued drivers behind an enforced driver that fits nowhere;
-   three segments of 200 Filters, each posted to the two cuda servers in
+   three segments of 100 Filters, each posted to the two cuda servers in
    turns: (a) retries of queued drivers in random order, nothing changing
    between them; (b) the same with an unrelated reservation created and
    deleted before each (the change feed moves, the class digest cancels
@@ -183,7 +183,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    evictions' clock stamps) and ``/lifecycle/low-b`` (``evicted``) equal
    on cuda and cpu; the checkpointed queue kernel launched on the
    phase's path;
-12. the kernels line (times, bounds, launches) and the device result line.
+12. ha: the HA failover fabric (ha/) on phase 5's snapshot under
+   ``tpu-batch``: one ``FakeKubeAPI`` holding it, two cuda replicas a and
+   b each through its own kubeconfig and journal with ``ha: {enabled,
+   background: false, lease-duration-seconds: 2}`` (the lease travels
+   over REST as coordination.k8s.io/v1, whose TTL is whole seconds), and
+   a cpu server fed the same objects for body equality.  (a) a steps to
+   epoch 1, b follows; readiness a 200, b 503; both ``/status/ha``
+   bodies.  (b) 2 warmup and 24 timed probes on a, each retired and
+   timed alone (phase 5's protocol, a renewing before each), bodies equal
+   to the cpu server's, p50 / p99 beside phase 5's ``tpu-batch`` in the
+   same call; the fence counts commits, no refusal, no stale commit.
+   (c) a steps down, b steps to epoch 2, a steps and is deposed: the
+   takeover time from the step-down to b's first ``/predicates`` answer,
+   split into b's election step, its ``Reconciler`` report and its first
+   Filter, which is one cold checkpointed ``fifo_queue_tightly`` launch
+   from row 0; 12 timed probes on b, warm, bodies equal; a's writer
+   refuses all 5 fenced operations; readiness a 503, b 200.  (d) b stops
+   renewing; after the TTL a steps to epoch 3 (its takeover report and
+   cold first Filter; the time to recover from b's last renewal to a's
+   first answer); b, not stepped since, grants one probe whose
+   write-back the read-through fence refuses and diverts to b's journal,
+   no reservation of b's reaching the API.  (e) the crash matrix
+   (``CrashMatrix(nodes=2)`` under ``tpu-batch``) on cuda, each of the
+   ten points outside the concurrent admission engine and the
+   two-replica handoff cell, each report ok and equal to the same cell
+   on cpu, with seconds and queue-kernel launches; generation-2
+   collections inside timed Filters are counted (``GcWatch``);
+13. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -191,6 +218,7 @@ Needs CUDA: without it the script exits with an error before any phase.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
 import json
 import os
@@ -199,6 +227,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -381,6 +410,9 @@ SERVER_SPANS = ("http.read", "serde.decode", "predicate", "fast_path.snapshot", 
 # the lane that serves a Filter with the delta-solve engine on (the
 # default): the session, on the card
 SESSION_LANE = "cuda-session"
+# each policy's timed /predicates latencies (ms) in phase 5 of this run,
+# for later phases to print beside their own
+SERVER_LATENCY = {}
 
 
 def server_objects(seed: int):
@@ -428,6 +460,8 @@ class PortServer:
     """The port's server on its own embedded API server, serving HTTP on
     an ephemeral port."""
 
+    live = set()  # the servers built and not yet stopped
+
     def __init__(self, policy: str, device: str, nodes, queue, provenance=None, delta_solve: bool = True,
                  observatories: bool = True, contention: bool = True, scheduling_policy=None):
         from k8s_spark_scheduler_tpu_torch.config import (CapacityConfig, ContentionConfig, Install,
@@ -457,6 +491,8 @@ class PortServer:
             device=device,
         )
         self.http = None
+        self.background_paused = False
+        PortServer.live.add(self)
         try:
             for obj in nodes + queue:
                 self.api.create(obj.deepcopy())
@@ -469,6 +505,7 @@ class PortServer:
             raise
 
     def stop(self) -> None:
+        PortServer.live.discard(self)
         if self.http is not None:
             self.http.stop()
         self.scheduler.stop()
@@ -480,11 +517,13 @@ class PortServer:
         for part in (self.scheduler.capacity, self.scheduler.lifecycle):
             if part is not None:
                 part.stop()
+        self.background_paused = True
 
     def resume_background(self) -> None:
         for part in (self.scheduler.capacity, self.scheduler.lifecycle):
             if part is not None:
                 part.start()
+        self.background_paused = False
 
     def post_alone(self, others, pod, names):
         """``post`` with every server in ``others`` paused for the
@@ -878,6 +917,7 @@ def server_phase(seed: int, smi: str) -> dict:
                     f"cuda server timed alone (the other servers' sampler and ledger paused): "
                     f"p50 {statistics.median(lat_ms):.3f} ms, p99 {float(np.percentile(lat_ms, 99)):.3f} ms "
                     f"over {len(lat_ms)} probes (runs {', '.join(f'{x:.1f}' for x in lat_ms)}) | {smi}")
+                SERVER_LATENCY[policy] = list(lat_ms)
                 slow_filter_capture(card, policy, slowest, gcs, smi)
                 if off is not None:
                     log(f"phase server: {policy}: the same probes on a cuda server with provenance off, in "
@@ -1600,7 +1640,9 @@ def resilience_phase(seed: int, smi: str) -> None:
 # under distribute-evenly too, so the engine is held on against off and
 # cuda against cpu under every tensor-lane name
 DELTA_POLICIES = {"tpu-batch": "abc", "tpu-batch-minimal-fragmentation": "abc", "tpu-batch-distribute-evenly": "a"}
-DELTA_FILTERS = 200  # Filters a segment
+# Filters a segment: 100 (it was 200 before phase ha joined the script,
+# which must end well inside its 1,200 s limit on a slow host)
+DELTA_FILTERS = 100
 DELTA_GRANT_EVERY = 10  # segment (c): every 10th Filter is an app that is granted and starts
 # the queued drivers' Filters of segments (a) and (b) the cpu server
 # answers too: its warm passes are the plain versions' suffixes, seconds a
@@ -2863,6 +2905,417 @@ def policy_phase(seed: int, smi: str) -> dict:
         logging.disable(logging.NOTSET)
 
 
+# -- phase ha: the HA failover fabric ----------------------------------------
+
+HA_POLICY = "tpu-batch"
+# the lease's TTL travels over REST as whole seconds (a sub-second one
+# reads back as 15 s), so the replicas use a whole-second TTL
+HA_TTL_S = 2
+HA_B_PROBES = 12  # timed probes on the new leader after the planned handoff
+HA_A_AFTER = 2  # probes on the re-elected leader after its cold first Filter
+# the write paths a deposed replica's gate must refuse (the reference's
+# handoff cell)
+HA_FENCED_OPS = ("writeback.create", "writeback.update", "writeback.delete", "demand.create", "preempt.commit")
+# the crash-matrix cells' binpack algorithm on the card: every cell's
+# driver Filter through the delta-solve session's tensor lane on the card
+HA_MATRIX_BINPACK = "tpu-batch"
+HA_SPANS = ("predicate", "fast_path.snapshot", "fast_path.earlier_drivers", "deltasolve.lookup", "fifo_gate",
+            "http.request")
+
+
+class HAReplica(ClusterServer):
+    """One HA replica of the port's server: its own kubeconfig and REST
+    backend to the shared FakeKubeAPI, its own intent journal, the HA
+    fabric on with background renewal off (the phase steps elections)."""
+
+    def __init__(self, fake, identity: str, workdir: str):
+        from k8s_spark_scheduler_tpu_torch.config import HAConfig, Install
+        from k8s_spark_scheduler_tpu_torch.server.__main__ import api_backend
+        from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
+        from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
+
+        self.fake, self.api = fake, fake.api
+        self.scheduler = self.http = self.backend = None
+        try:
+            path = os.path.join(workdir, f"kubeconfig-{identity}.json")
+            with open(path, "w") as f:
+                json.dump({
+                    "current-context": "fake",
+                    "contexts": [{"name": "fake", "context": {"cluster": "fake", "user": "fake"}}],
+                    "clusters": [{"name": "fake", "cluster": {"server": fake.host}}],
+                    "users": [{"name": "fake", "user": {}}],
+                }, f)
+            self.backend, _ = api_backend(path, None, False)
+            resilience = server_resilience("cuda")
+            resilience.journal_path = os.path.join(workdir, f"{identity}.jsonl")
+            self.scheduler = init_server_with_clients(
+                self.backend,
+                Install(binpack_algo=HA_POLICY, fifo=True, resilience=resilience,
+                        ha=HAConfig(enabled=True, background=False, identity=identity,
+                                    lease_duration_seconds=HA_TTL_S)),
+                demand_poll_interval=0.5, unschedulable_polling_interval=3600.0, device="cuda",
+            )
+            self.http = ExtenderHTTPServer(self.scheduler, port=0, host="127.0.0.1")
+            self.http.start()
+            if not self.scheduler.wait_ready(timeout=600.0):
+                raise SystemExit(f"phase ha: {identity} did not become ready")
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self) -> None:
+        if self.http is not None:
+            self.http.stop()
+        if self.scheduler is not None:
+            self.scheduler.stop()
+        if self.backend is not None:
+            self.backend.stop()
+
+    def status(self, path: str) -> int:
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.http.port}{path}", timeout=60) as resp:
+                return resp.status
+        except urllib.error.HTTPError as err:
+            return err.code
+
+
+def find_span(span: dict, name: str):
+    if span["name"] == name:
+        return span
+    for child in span.get("children", ()):
+        found = find_span(child, name)
+        if found is not None:
+            return found
+    return None
+
+
+def ha_phase(seed: int, smi: str) -> dict:
+    """Phase ha (see the module docstring).  Returns the checkpointed
+    queue kernel's launches on the phase's path; raises SystemExit on any
+    failure."""
+    import logging
+    import tempfile
+
+    from k8s_spark_scheduler_tpu_torch import timesource
+    from k8s_spark_scheduler_tpu_torch.ha import crashpoint
+    from k8s_spark_scheduler_tpu_torch.ha.crashmatrix import PORTED_POINTS, CrashMatrix
+    from k8s_spark_scheduler_tpu_torch.ha.fencing import StaleEpochError
+    from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.testing.fake_kube_api import FakeKubeAPI
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    chk = "fifo_queue_tightly_checkpointed"
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    gcs = GcWatch()
+    gc.callbacks.append(gcs)
+    fake = host = None
+    replicas = {}
+    path_launches = 0
+    made = [0]
+    try:
+        t0 = time.perf_counter()
+        names, nodes, queue, rng, base = server_objects(seed)
+        fake = FakeKubeAPI().start()
+        fake.api.create_crd(DEMAND_CRD_NAME, demand_crd_spec())
+        for obj in nodes + queue:
+            fake.api.create(obj.deepcopy())
+        workdir = tempfile.mkdtemp(prefix="ha-phase-")
+        for identity in ("replica-a", "replica-b"):
+            replicas[identity] = HAReplica(fake, identity, workdir)
+        host = PortServer(HA_POLICY, "cpu", nodes, queue)
+        host.pause_background()  # the card's oracle; its answers do not depend on them
+        a, b = replicas["replica-a"], replicas["replica-b"]
+        log(f"phase ha: {HA_POLICY}: replicas a and b (cuda, each through its own kubeconfig to one FakeKubeAPI "
+            f"holding {len(nodes)} nodes in {N_ZONES} zones and {len(queue)} queued drivers, HA on with a "
+            f"{HA_TTL_S} s lease over coordination.k8s.io/v1) and a cpu server ready in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        def new_probe(tag: str):
+            pods = Harness.static_allocation_spark_pods(
+                f"ha-{tag}", int(rng.randint(1, 32)), executor_cpu=str(int(rng.randint(1, 8))),
+                executor_mem=f"{int(rng.randint(2, 16))}Gi", creation_timestamp=base + N_APPS + made[0])
+            made[0] += 1
+            fake.api.create(pods[0].deepcopy())
+            host.api.create(pods[0].deepcopy())
+            for r in replicas.values():
+                r.sees(pods[0])
+            return pods[0]
+
+        def retire(pod, reserved_by=()) -> None:
+            """Delete the probe everywhere; wait until the replicas in
+            `reserved_by` dropped its reservation (owner GC in the fake,
+            seen through their watches) and every replica's informer
+            dropped the pod."""
+            fake.api.delete("Pod", pod.namespace, pod.name)
+            host.retire([pod])
+            app = pod.labels["spark-app-id"]
+            wait_for(lambda: all(r.scheduler.resource_reservation_cache.get(pod.namespace, app) is None
+                                 for r in reserved_by)
+                     and all(r.scheduler.pod_informer.get(pod.namespace, pod.name) is None
+                             for r in replicas.values()),
+                     f"the replicas to drop {pod.name}")
+
+        def against_host(pod, status, body, what: str) -> None:
+            _, h_status, h_body = host.post(pod, names)
+            if (status, body) != (h_status, h_body) or status != 200 or not json.loads(body)["NodeNames"]:
+                raise SystemExit(f"phase ha: {what}: cuda answered {status} {body[:300]!r}, "
+                                 f"cpu {h_status} {h_body[:300]!r}")
+
+        def gen2_inside(w0: float, w1: float) -> list:
+            return [e for e in gcs.between(w0, w1) if e[0] == 2]
+
+        def timed_run(leader, other, tag: str, n: int, warmup: int = 0) -> dict:
+            """`warmup` + `n` granted probes on `leader`, each timed alone
+            (the other replica's and the cpu server's background paused),
+            renewed before each as the background renewal would, each
+            body equal to the cpu server's, each retired."""
+            engine = leader.scheduler.extender.delta_engine
+            out = {"ms": [], "traces": [], "gen2": []}
+            for i in range(warmup + n):
+                pod = new_probe(f"{tag}-{i:03d}")
+                leader.settle()
+                if not leader.scheduler.ha.step():
+                    raise SystemExit(f"phase ha: {tag}: the leader lost its lease")
+                if i == warmup:
+                    warm0 = engine.stats()["warm_hits"]
+                w0 = time.time()
+                ms, status, body = leader.post_alone([other, host], pod, names)
+                w1 = time.time()
+                if i >= warmup:
+                    out["ms"].append(ms)
+                    out["traces"].append(leader.scheduler.tracer.traces(limit=1)[0])
+                    out["gen2"] += gen2_inside(w0, w1)
+                against_host(pod, status, body, f"{tag} probe {i}")
+                retire(pod, reserved_by=replicas.values())
+            out["warm"] = engine.stats()["warm_hits"] - warm0
+            if out["warm"] != n:
+                raise SystemExit(f"phase ha: {tag}: {out['warm']} of the {n} timed probes served warm")
+            return out
+
+        def run_line(run: dict) -> str:
+            spans = {}
+            for trace in run["traces"]:
+                span_durations(trace["root"], spans)
+            gen2 = run["gen2"]
+            return (f"p50 {statistics.median(run['ms']):.3f} ms, p99 {float(np.percentile(run['ms'], 99)):.3f} ms "
+                    f"over {len(run['ms'])} probes (runs {', '.join(f'{x:.1f}' for x in run['ms'])}); span medians "
+                    + ", ".join(f"{k} {statistics.median(spans[k]):.3f}" for k in HA_SPANS if k in spans)
+                    + f"; generation-2 collections inside them: "
+                    + (f"{len(gen2)}, max {max(e[2] for e in gen2):.1f} ms" if gen2 else "none"))
+
+        def first_filter(leader, others, tag: str, t_start: float) -> tuple:
+            """The new leader's first Filter right after its election:
+            (ms, ms since t_start) of a cold checkpointed launch from row
+            0, body equal to the cpu server's."""
+            engine = leader.scheduler.extender.delta_engine
+            before = engine.stats()
+            qk.reset_launch_counts()
+            pod = probes.pop(tag)
+            ms, status, body = leader.post(pod, names)
+            since = (time.perf_counter() - t_start) * 1e3
+            launches = qk.launch_counts[chk]
+            after = engine.stats()
+            gate = find_span(leader.scheduler.tracer.traces(limit=1)[0]["root"], "fifo_gate")
+            tags = gate["tags"] if gate is not None else {}
+            if (launches != 1 or after["cold_solves"] != before["cold_solves"] + 1
+                    or after["warm_hits"] != before["warm_hits"] or tags.get("warm") is not False
+                    or tags.get("resumeFrom") != 0):
+                raise SystemExit(f"phase ha: {tag}: the first Filter after the takeover was not one cold "
+                                 f"checkpointed launch from row 0: {chk} launches {launches}, engine {before} -> "
+                                 f"{after}, fifo_gate tags {tags}")
+            for other in others:
+                other.resume_background()
+            against_host(pod, status, body, f"{tag} first Filter")
+            retire(pod, reserved_by=replicas.values())
+            return ms, since, launches
+
+        # (a) election
+        if not a.scheduler.ha.step() or b.scheduler.ha.step():
+            raise SystemExit("phase ha: replica-a did not win epoch 1 with replica-b following")
+        if (a.scheduler.ha.fence.epoch(), b.scheduler.ha.fence.epoch()) != (1, 0):
+            raise SystemExit("phase ha: the election's epochs are not (1, 0)")
+        ready = (a.status("/status/readiness"), b.status("/status/readiness"))
+        if ready != (200, 503):
+            raise SystemExit(f"phase ha: readiness a / b {ready}, want (200, 503)")
+        for r in (a, b):
+            _, body = r.get("/status/ha")
+            log(f"phase ha: (a) /status/ha of {r.scheduler.ha.elector.identity}: {body.decode()}")
+        log("phase ha: (a) election: a holds epoch 1, b follows; readiness a 200, b 503")
+
+        # (b) serving under the fence: phase 5's protocol on replica-a
+        qk.reset_launch_counts()  # the path's run starts here
+        run_a = timed_run(a, b, "a", SERVER_TIMED_PROBES, warmup=SERVER_WARMUP_PROBES)
+        path_launches += qk.launch_counts[chk]
+        fence_a = a.scheduler.ha.fence.state()
+        if fence_a["refusals"] or fence_a["staleCommits"] or fence_a["commits"] < 1:
+            raise SystemExit(f"phase ha: (b) replica-a's fence {fence_a}")
+        p5 = SERVER_LATENCY.get(HA_POLICY) or [float("nan")]
+        log(f"phase ha: (b) replica-a /predicates under the fence, timed alone: {run_line(run_a)}; phase 5's "
+            f"{HA_POLICY} in this call p50 {statistics.median(p5):.3f} ms, p99 {float(np.percentile(p5, 99)):.3f} ms; "
+            f"{qk.launch_counts[chk]} {chk} launches (the first probe's cold pass); every body equal to the cpu "
+            f"server's; fence {json.dumps(fence_a, sort_keys=True)} | {smi}")
+
+        # (c) planned handoff
+        probes = {"b-first": new_probe("b-first")}
+        for other in (a, host):
+            other.pause_background()
+        b.settle()
+        t_h0 = time.perf_counter()
+        a.scheduler.ha.elector.step_down()
+        t_h1 = time.perf_counter()
+        won = b.scheduler.ha.step()
+        t_h2 = time.perf_counter()
+        report = b.scheduler.ha.status()["reconciliation"]
+        if not won or b.scheduler.ha.fence.epoch() != 2:
+            raise SystemExit(f"phase ha: (c) replica-b did not take epoch 2 ({b.scheduler.ha.status()})")
+        first_ms, takeover_ms, launches = first_filter(b, (a, host), "b-first", t_h0)
+        path_launches += launches
+        if a.scheduler.ha.step() or not a.scheduler.ha.fence.deposed():
+            raise SystemExit("phase ha: (c) replica-a did not see itself deposed")
+        refused0 = a.scheduler.ha.fence.refusals()
+        for op in HA_FENCED_OPS:
+            try:
+                a.scheduler.ha.writer.check(op)
+            except StaleEpochError:
+                continue
+            raise SystemExit(f"phase ha: (c) deposed replica-a's {op} was not fenced")
+        deposed_refusals = a.scheduler.ha.fence.refusals() - refused0
+        ready = (a.status("/status/readiness"), b.status("/status/readiness"))
+        if deposed_refusals != len(HA_FENCED_OPS) or ready != (503, 200):
+            raise SystemExit(f"phase ha: (c) deposedRefusals {deposed_refusals}, readiness a / b {ready}")
+        step_ms = (t_h2 - t_h1) * 1e3
+        log(f"phase ha: (c) planned handoff: takeover {takeover_ms:.3f} ms from a's step_down to b's first "
+            f"/predicates answer = step_down {(t_h1 - t_h0) * 1e3:.3f} ms + b's election step {step_ms:.3f} ms "
+            f"(of which the Reconciler {report['elapsedSeconds'] * 1e3:.3f} ms: journalReplays "
+            f"{report['journalReplays']}, evictionReplays {report['evictionReplays']}, crdDiffRan "
+            f"{report['crdDiffRan']}) + b's first Filter {first_ms:.3f} ms (cold: one {chk} launch from row 0) "
+            f"+ {takeover_ms - (t_h2 - t_h0) * 1e3 - first_ms:.3f} ms between; deposedRefusals "
+            f"{deposed_refusals}; readiness a 503, b 200 | {smi}")
+        qk.reset_launch_counts()
+        run_b = timed_run(b, a, "b", HA_B_PROBES)
+        path_launches += qk.launch_counts[chk]
+        log(f"phase ha: (c) replica-b after the takeover, timed alone: {run_line(run_b)}; {qk.launch_counts[chk]} "
+            f"{chk} launches (all warm); every body equal to the cpu server's | {smi}")
+
+        # (d) unplanned failover: b stops renewing, its lease lapses, a
+        # takes epoch 3 while b still believes it leads
+        probes["a-first"] = new_probe("a-first")
+        a.settle()
+        if not b.scheduler.ha.step():
+            raise SystemExit("phase ha: (d) replica-b's last renewal failed")
+        t_renew = time.perf_counter()
+        lease = b.scheduler.ha.elector.peek()
+        while timesource.now() <= lease.renewed_at + lease.duration_seconds:
+            time.sleep(0.01)
+        for other in (b, host):
+            other.pause_background()
+        t_d0 = time.perf_counter()
+        won = a.scheduler.ha.step()
+        t_d1 = time.perf_counter()
+        report = a.scheduler.ha.status()["reconciliation"]
+        if not won or a.scheduler.ha.fence.epoch() != 3 or a.scheduler.ha.fence.deposed():
+            raise SystemExit(f"phase ha: (d) replica-a did not take epoch 3 ({a.scheduler.ha.status()})")
+        first_ms, recover_ms, launches = first_filter(a, (b, host), "a-first", t_renew)
+        path_launches += launches
+        log(f"phase ha: (d) unplanned failover: time to recover {recover_ms:.3f} ms from b's last renewal to a's "
+            f"first /predicates answer (the {HA_TTL_S} s TTL, then a's election step {(t_d1 - t_d0) * 1e3:.3f} ms, "
+            f"of which the Reconciler {report['elapsedSeconds'] * 1e3:.3f} ms: journalReplays "
+            f"{report['journalReplays']}, evictionReplays {report['evictionReplays']}, crdDiffRan "
+            f"{report['crdDiffRan']}; a's first Filter {first_ms:.3f} ms, cold: one {chk} launch from row 0) "
+            f"| {smi}")
+        # b still believes it leads: its granted probe's write-back is
+        # refused by the read-through fence and diverted to b's journal
+        pod = new_probe("b-stale")
+        b.settle()
+        journal = b.scheduler.resilience.journal
+        depth0 = journal.depth()
+        ms, status, body = b.post(pod, names)
+        against_host(pod, status, body, "b's stale probe")
+        app = pod.labels["spark-app-id"]
+        wait_for(lambda: journal.depth() == depth0 + 1, "b's refused write-back to reach its journal")
+        pending = [(i["op"], i["name"], i.get("epoch")) for i in journal.pending()]
+        fence_b = b.scheduler.ha.fence.state()
+        landed = [rr.name for rr in fake.api.list("ResourceReservation") if rr.name == app]
+        if (("create", app, 2) not in pending or landed or not b.scheduler.ha.fence.deposed()
+                or fence_b["refusals"] != {"writeback.create": 1} or fence_b["staleCommits"]):
+            raise SystemExit(f"phase ha: (d) b's stale write-back: journal {pending}, in the API {landed}, "
+                             f"fence {fence_b}")
+        retire(pod)
+        if journal.depth() != depth0 + 1:
+            raise SystemExit("phase ha: (d) b's diverted intent left its journal")
+        log(f"phase ha: (d) replica-b (epoch 2, not stepped since) granted {app} in {ms:.3f} ms, body equal to the "
+            f"cpu server's; its write-back was refused by the read-through fence and diverted to its journal "
+            f"(journaled_fenced: pending {pending}); no reservation of b's reached the API; fence "
+            f"{json.dumps(fence_b, sort_keys=True)}")
+        qk.reset_launch_counts()
+        run_a2 = timed_run(a, b, "a2", HA_A_AFTER)
+        path_launches += qk.launch_counts[chk]
+        for r in (a, b):
+            _, body = r.get("/status/ha")
+            log(f"phase ha: (d) /status/ha of {r.scheduler.ha.elector.identity}: {body.decode()}")
+        stale = {r.scheduler.ha.elector.identity: r.scheduler.ha.fence.stale_commits() for r in (a, b)}
+        if any(stale.values()):
+            raise SystemExit(f"phase ha: stale commits {stale}")
+        log(f"phase ha: (d) replica-a at epoch 3 after its cold Filter: {run_line(run_a2)}; stale commits {stale}")
+    finally:
+        for server in [*replicas.values(), host]:
+            if server is not None:
+                server.stop()
+        if fake is not None:
+            fake.stop()
+        logging.disable(logging.NOTSET)
+        gc.callbacks.remove(gcs)
+
+    # (e) the crash matrix on the card, each cell against the same cell on
+    # the CPU
+    t0 = time.perf_counter()
+    cells_launches = {"plain": 0, "checkpointed": 0}
+    logging.disable(logging.CRITICAL)  # each cell's kill -9 logs its stack traces
+    try:
+        for point in PORTED_POINTS:
+            reports, seconds = {}, {}
+            for device in ("cuda", "cpu"):
+                qk.reset_launch_counts()
+                mk.reset_launch_counts()
+                t = time.perf_counter()
+                reports[device] = CrashMatrix(nodes=2, device=device, binpack_algo=HA_MATRIX_BINPACK).run_point(point)
+                seconds[device] = time.perf_counter() - t
+                if device == "cuda":
+                    cell = (qk.launch_counts["fifo_queue_tightly"], qk.launch_counts[chk])
+                    cells_launches["plain"] += cell[0]
+                    cells_launches["checkpointed"] += cell[1]
+            if not reports["cuda"]["ok"] or reports["cuda"] != reports["cpu"]:
+                raise SystemExit(f"phase ha: (e) cell {point}: cuda {reports['cuda']}, cpu {reports['cpu']}")
+            log(f"phase ha: (e) crash cell {point}: ok, crashed, recovered at epoch "
+                f"{reports['cuda']['recoveredEpoch']}, report equal on cuda and cpu; cuda {seconds['cuda']:.2f} s "
+                f"(queue kernel: {cell[0]} warmup launches, {cell[1]} checkpointed Filter launches), cpu "
+                f"{seconds['cpu']:.2f} s")
+        handoff = {}
+        for device in ("cuda", "cpu"):
+            t = time.perf_counter()
+            handoff[device] = CrashMatrix(nodes=2, device=device, binpack_algo=HA_MATRIX_BINPACK).run_handoff()
+            seconds[device] = time.perf_counter() - t
+        if not handoff["cuda"]["ok"] or handoff["cuda"] != handoff["cpu"]:
+            raise SystemExit(f"phase ha: (e) handoff cell: cuda {handoff['cuda']}, cpu {handoff['cpu']}")
+        if crashpoint.armed() is not None:
+            raise SystemExit("phase ha: (e) a crash point stayed armed")
+    finally:
+        logging.disable(logging.NOTSET)
+    path_launches += cells_launches["checkpointed"]
+    log(f"phase ha: (e) the two-replica handoff cell: ok, epoch {handoff['cuda']['handoffEpoch']}, deposedRefusals "
+        f"{handoff['cuda']['deposedRefusals']}, equal on cuda and cpu ({seconds['cuda']:.2f} / {seconds['cpu']:.2f} s); "
+        f"the {len(PORTED_POINTS)} cells and the handoff under {HA_MATRIX_BINPACK} in {time.perf_counter() - t0:.1f} s, "
+        f"the cuda cells launching the queue kernel {cells_launches['plain']} times at their servers' warmup and "
+        f"{cells_launches['checkpointed']} times checkpointed on their Filters (a cell's gang has no earlier "
+        f"driver, so its session has no queue to pass) | {smi}")
+    return {chk: path_launches}
+
+
 def session_stream(problem, n_earlier: int, smi: str) -> None:
     """Phase delta, step 3 at the library layer: one FifoSession on the
     card and one on the CPU fed the same stream of queues from the main
@@ -2942,7 +3395,12 @@ LAUNCH_FUNCTIONS = {"queue": "fifo_queue_launch", "min_frag": "fifo_queue_min_fr
 
 
 def traced_device_time(fn):
-    """Run fn once under torch.profiler: (device busy ms, host-clock ms of
+    """Run fn once under torch.profiler, with every live PortServer's
+    background work (the sampler, the ledger) paused and every HTTP
+    request thread ended from before the profiler starts until after it
+    stops: stopping the profiler while another thread makes CUDA calls
+    can crash the process (a segmentation fault on the H100, a sampler's
+    program in flight).  Returns (device busy ms, host-clock ms of
     the call with the profiler's overhead, the port's kernel launches in
     the call, those of them the trace holds), or busy None when the call
     left no device work.  The busy time is the union of the trace's device
@@ -2975,6 +3433,10 @@ def traced_device_time(fn):
 
         setattr(lib, name, timed_launch)
         patched.append((lib, name, launch))
+    paused = [server for server in PortServer.live if not server.background_paused]
+    for server in paused:
+        server.pause_background()
+    join_request_threads()
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2982,9 +3444,14 @@ def traced_device_time(fn):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
+            # the request's handler thread may still be closing its
+            # connection: the profiler stops once it has ended
+            join_request_threads()
     finally:
         for lib, name, launch in patched:
             setattr(lib, name, launch)
+        for server in paused:
+            server.resume_background()
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     seen = sum("fifo_queue" in e.name for e in device_events)
     spans = sorted((e.time_range.start, e.time_range.end) for e in device_events if "fifo_queue" not in e.name)
@@ -2997,6 +3464,15 @@ def traced_device_time(fn):
             busy_us += hi - max(lo, end)
             end = hi
     return busy_us / 1e3 + kernel_ms, wall_ms, len(launches), seen
+
+
+def join_request_threads() -> None:
+    """Wait for every in-process HTTP request thread to end (the script
+    sends its requests one at a time, so these are finishing the last
+    one)."""
+    for thread in threading.enumerate():
+        if thread.name.endswith("(process_request_thread)") and thread is not threading.current_thread():
+            thread.join()
 
 
 def busy_share(fn) -> str:
@@ -3144,6 +3620,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    # a fatal signal (a crash in native code) prints every thread's Python stack to stderr
+    faulthandler.enable(all_threads=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only", file=sys.stderr)
@@ -3576,7 +4054,15 @@ def main() -> int:
     log(f"phase policy: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 12: results
+    # ---- phase ha: the HA failover fabric through the server
+    t = time.perf_counter()
+    ha_launches = ha_phase(args.seed, smi)
+    for entry in kernels:
+        entry["launches"] += ha_launches.get(entry["name"], 0)
+    log(f"phase ha: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 13: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -356,6 +356,59 @@ class PolicyConfig:
         )
 
 
+_HA_KEYS = {
+    "enabled",
+    "lease-namespace",
+    "lease-name",
+    "lease-duration-seconds",
+    "renew-interval-seconds",
+    "identity",
+    "background",
+}
+
+
+@dataclass
+class HAConfig:
+    """HA failover fabric (ha/): lease-fenced multi-replica operation.
+
+    Disabled (the default) wires nothing — no elector, no fence gates,
+    single-replica behavior byte-identical to pre-HA builds.  Enabled,
+    the replica elects over a coordination lease, stamps every fenced
+    write with its epoch, and runs full state reconciliation on
+    takeover.  Over REST the lease's TTL travels as whole seconds
+    (``leaseDurationSeconds``), so a sub-second TTL there reads back
+    as the 15 s default, as in the reference.
+    """
+
+    enabled: bool = False
+    lease_namespace: str = "default"
+    lease_name: str = "tpu-gang-scheduler"
+    # how stale a lease may go before a candidate may steal it; mirrors
+    # client-go's LeaseDuration default (resource.go:57-59)
+    lease_duration_seconds: float = 15.0
+    # background renewal cadence; tests and the crash matrix step the
+    # elector manually
+    renew_interval_seconds: float = 5.0
+    # replica identity on the lease; "" = <hostname>-<pid> at wiring
+    identity: str = ""
+    # start the background renewal thread from start_background();
+    # tests disable this and drive fabric.step() themselves
+    background: bool = True
+
+    @staticmethod
+    def from_dict(d: dict) -> "HAConfig":
+        _check_keys(d, _HA_KEYS, "ha")
+        return HAConfig(
+            enabled=d.get("enabled", False),
+            lease_namespace=d.get("lease-namespace", "default"),
+            lease_name=d.get("lease-name", "tpu-gang-scheduler"),
+            lease_duration_seconds=d.get("lease-duration-seconds", 15.0),
+            renew_interval_seconds=d.get("renew-interval-seconds", 5.0),
+            identity=d.get("identity", ""),
+            background=d.get("background", True),
+        )
+
+
 @dataclass
 class ConversionWebhookConfig:
     """Where the apiserver would reach the CRD conversion webhook
@@ -375,7 +428,6 @@ class ConversionWebhookConfig:
 # section turns its subsystem on when its "enabled" (or that default)
 # is true.
 _UNPORTED_SECTIONS = {
-    "ha": (False, "ROADMAP A.6.6 (HA failover)"),
     "concurrent": (False, "ROADMAP A.4 (concurrent admission)"),
 }
 # what the reference runs on a config that omits every key and this
@@ -408,6 +460,7 @@ _KNOWN_KEYS = {
     "lifecycle",
     "contention",
     "policy",
+    "ha",
     *_UNPORTED_SECTIONS,
 }
 _FIFO_KEYS = {"default-enforce-after-pod-age-seconds", "enforce-after-pod-age-by-instance-group"}
@@ -489,6 +542,9 @@ class Install:
     # scheduling policy: priority bands, ordering, backfill, preemption,
     # DRF (policy/) — disabled = byte-identical FIFO decisions
     policy: PolicyConfig = field(default_factory=PolicyConfig)
+    # HA failover fabric: leader election + fencing + takeover
+    # reconciliation (ha/) — disabled = single-replica, nothing wired
+    ha: HAConfig = field(default_factory=HAConfig)
     # subsystems the reference would run on this config and this package
     # lacks, as (subsystem, ROADMAP item); from_dict derives it from the
     # keys given, a directly built Install has the reference's defaults
@@ -558,5 +614,6 @@ class Install:
             lifecycle=LifecycleConfig.from_dict(d.get("lifecycle") or {}),
             contention=ContentionConfig.from_dict(d.get("contention") or {}),
             policy=PolicyConfig.from_dict(d.get("policy") or {}),
+            ha=HAConfig.from_dict(d.get("ha") or {}),
             reference_only=_reference_only(d),
         )

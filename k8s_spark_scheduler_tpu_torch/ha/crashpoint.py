@@ -1,13 +1,15 @@
 """Named crash-point injection for failover testing; a copy of the
 reference package's ``ha/crashpoint.py``.
 
-``maybe_crash("preempt.post-journal")`` sits at every point where a
-process death would leave interesting partial state.  The registry
-below is the reference's whole sweep set (write-back, both journals,
-preemption commit, lease renewal, concurrent admission); in this
-package only the preemption commit (policy/preempt.py) traverses its
-points so far — the others belong to subsystems still to port
-(ROADMAP A.6.6, A.4).
+``maybe_crash("journal.post-append")`` sits at every point where a
+process death would leave interesting partial state: around the async
+write-back's API calls, both journals' append/ack, preemption commit,
+and lease renewal.  The registry below is the reference's whole sweep
+set; the three ``concurrent.*`` points belong to the concurrent
+admission engine, which this package does not have yet (ROADMAP A.4),
+so nothing here traverses them.  The crash-matrix harness
+(:mod:`.crashmatrix`) sweeps the others: scenario → crash at point k →
+cold-restart recovery → invariant audit.
 
 The disabled cost is ONE module-attribute read (``_ARMED is None``).
 Arming is one-shot: the first traversal of the armed point raises and

@@ -20,9 +20,8 @@ interface with client-go-equivalent behavior (SURVEY §2.10 L1):
 
 Watch event objects convert through ``types/serde.py``; unknown kinds
 raise early rather than silently serving nothing.  The kinds are those
-the scheduler reads and writes: Pod, Node, ResourceReservation v1beta2
-and Demand v1alpha2 (no coordination Lease: nothing in this package
-elects a leader).
+the scheduler reads and writes: Pod, Node, ResourceReservation v1beta2,
+Demand v1alpha2 and the HA fabric's coordination.k8s.io/v1 Lease.
 """
 
 from __future__ import annotations
@@ -116,6 +115,28 @@ _RESOURCES: Dict[str, _Resource] = {
         serde.demand_from_dict_v1alpha2,
     ),
 }
+
+
+def _register_lease_resource() -> None:
+    # deferred: ha/lease.py imports kube/errors, keep this module's
+    # import graph acyclic by registering the Lease mapping lazily on
+    # first module load of either side
+    from ..ha.lease import Lease, lease_from_wire, lease_to_wire
+
+    _RESOURCES.setdefault(
+        Lease.KIND,
+        _Resource(
+            Lease.KIND,
+            "/apis/coordination.k8s.io/v1",
+            "leases",
+            True,
+            lease_to_wire,
+            lease_from_wire,
+        ),
+    )
+
+
+_register_lease_resource()
 
 
 def _k8s_wire(obj_dict: dict) -> dict:

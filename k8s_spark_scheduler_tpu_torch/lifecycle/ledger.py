@@ -3,7 +3,8 @@
 Every Spark application is tracked through
 ``submitted → queued → solving → reserved → bound → running →
 completed | evicted | expired`` with first-arrival timestamps per
-phase, queue-wait and solve-tenure durations, and eviction causes.
+phase, queue-wait and solve-tenure durations, eviction causes, and the
+HA epochs it was observed under (epoch continuity across failover).
 
 Feeding never happens under the predicate lock (the capacity
 observatory's pattern):
@@ -23,10 +24,11 @@ must stay zero.
 
 With a policy engine wired, each drain also marks its evictions
 (``evicted`` with the eviction's cause) and feeds the DRF share gap to
-the ``fairness_gap`` objective.  The reference also stamps each
-transition with the HA epoch; this package has no HA yet (ROADMAP
-A.6.6), so no gang spans epochs here and ``epochs`` /
-``epochContinuity`` carry the reference's keys empty.
+the ``fairness_gap`` objective.  With the HA fabric wired
+(``epoch_source``), each transition is stamped with the fencing epoch it
+was observed under: ``epochs`` lists a gang's distinct epochs in order,
+and ``epochContinuity`` counts the gangs that span a takeover and any
+epoch that went backwards.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .. import timesource
 from ..analysis import racecheck
@@ -82,6 +84,8 @@ class GangRecord:
     eviction_cause: str = ""
     # most recent scheduling-request traces touching this gang
     trace_ids: List[str] = field(default_factory=list)
+    # distinct HA epochs this gang was observed under, in order
+    epochs: List[int] = field(default_factory=list)
 
     def to_dict(self) -> Dict[str, Any]:
         return {
@@ -105,7 +109,7 @@ class GangRecord:
             "solveTenureSeconds": round(self.solve_tenure_s, 6),
             "evictionCause": self.eviction_cause,
             "traceIds": list(self.trace_ids),
-            "epochs": [],  # no HA epochs here
+            "epochs": list(self.epochs),
         }
 
 
@@ -132,6 +136,7 @@ class LifecycleLedger:
         policy=None,
         slo=None,
         metrics=None,
+        epoch_source: Optional[Callable[[], int]] = None,
         ring_size: int = 2048,
         debounce_seconds: float = 0.05,
         interval_seconds: float = 5.0,
@@ -142,6 +147,8 @@ class LifecycleLedger:
         self._policy = policy
         self._slo = slo
         self._metrics = metrics
+        # attribute, re-pointed by wiring once the HA fence exists
+        self.epoch_source = epoch_source
         self.ring_size = int(ring_size)
         self.debounce_seconds = float(debounce_seconds)
         self.interval_seconds = float(interval_seconds)
@@ -160,6 +167,7 @@ class LifecycleLedger:
             "drains": 0,
             "skipped_unchanged": 0,
             "lock_violations": 0,
+            "epoch_regressions": 0,
         }
 
         # drain cursors
@@ -341,8 +349,9 @@ class LifecycleLedger:
         self, record: GangRecord, phase: str, now: float, cause: str = ""
     ) -> bool:
         """Move ``record`` to ``phase`` if that is forward progress (or
-        a terminal re-mark with a cause).  Stamps first-arrival time;
-        returns True when a transition happened."""
+        a terminal re-mark with a cause).  Stamps first-arrival time
+        and the current HA epoch; returns True when a transition
+        happened."""
         racecheck.note_access(self, "_transitions")
         current = record.phase
         if phase == current:
@@ -367,6 +376,7 @@ class LifecycleLedger:
         record.phase_times.setdefault(phase, now)
         if cause:
             record.eviction_cause = cause
+        self._stamp_epoch_locked(record)
         self._transitions += 1
         if self._metrics is not None:
             from ..metrics import names as mnames
@@ -376,6 +386,20 @@ class LifecycleLedger:
                 tags={mnames.TAG_PHASE: phase},
             )
         return True
+
+    def _stamp_epoch_locked(self, record: GangRecord) -> None:
+        if self.epoch_source is None:
+            return
+        try:
+            epoch = int(self.epoch_source())
+        except Exception:
+            return
+        if record.epochs and record.epochs[-1] == epoch:
+            return
+        if record.epochs and epoch < record.epochs[-1]:
+            racecheck.note_access(self, "_stats")
+            self._stats["epoch_regressions"] += 1
+        record.epochs.append(epoch)
 
     def _mark_bound(self, app_id: str, now: float) -> None:
         with self._lock:
@@ -648,6 +672,7 @@ class LifecycleLedger:
         with self._lock:
             phase_counts = {p: 0 for p in PHASES}
             evictions_by_cause: Dict[str, int] = {}
+            spanning = 0
             for record in self._records.values():
                 phase_counts[record.phase] += 1
                 if record.phase == "evicted":
@@ -655,6 +680,8 @@ class LifecycleLedger:
                     evictions_by_cause[bucket] = (
                         evictions_by_cause.get(bucket, 0) + 1
                     )
+                if len(record.epochs) > 1:
+                    spanning += 1
             waits = sorted(self._queue_waits)
             stats = dict(self._stats)
             transitions = self._transitions
@@ -670,8 +697,10 @@ class LifecycleLedger:
                 "p99": _pct(waits, 0.99),
             },
             "evictionsByCause": evictions_by_cause,
-            # no HA epoch changes here (ROADMAP A.6.6)
-            "epochContinuity": {"gangsSpanningEpochs": 0, "epochRegressions": 0},
+            "epochContinuity": {
+                "gangsSpanningEpochs": spanning,
+                "epochRegressions": stats["epoch_regressions"],
+            },
             "drains": stats["drains"],
             "lockViolations": stats["lock_violations"],
         }

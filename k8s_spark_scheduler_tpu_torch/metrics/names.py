@@ -119,6 +119,27 @@ POLICY_DRF_SHARE = "foundry.spark.scheduler.tpu.policy.drf.share"
 # blocked queue heads safely skipped by the conservative backfill probe
 POLICY_BACKFILL_SKIPS = "foundry.spark.scheduler.tpu.policy.backfill.skips"
 
+# HA failover fabric (ha/): lease-fenced multi-replica operation
+# 1 while this replica holds the lease, 0 as follower
+HA_LEADER_STATE = "foundry.spark.scheduler.tpu.ha.leader.state"
+# the fencing epoch this replica holds (0 = never elected)
+HA_EPOCH = "foundry.spark.scheduler.tpu.ha.epoch"
+# leadership transitions, tagged to=leader|follower
+HA_TRANSITIONS = "foundry.spark.scheduler.tpu.ha.transitions.count"
+# fenced writes refused with StaleEpochError, tagged op=
+HA_FENCE_REFUSALS = "foundry.spark.scheduler.tpu.ha.fence.refused.count"
+# writes that committed while a newer epoch was observed — ALWAYS 0
+# (the I-H3 invariant witness; any nonzero value is a split-brain bug)
+HA_FENCE_STALE_COMMITS = (
+    "foundry.spark.scheduler.tpu.ha.fence.stale.commit.count"
+)
+# takeover reconciliation wall time (seconds)
+HA_RECONCILE_TIME = "foundry.spark.scheduler.tpu.ha.reconcile.time"
+# repairs applied by the takeover reconciler, tagged class=
+HA_RECONCILE_REPAIRS = (
+    "foundry.spark.scheduler.tpu.ha.reconcile.repairs.count"
+)
+
 # decision provenance (provenance/): unschedulability explainer,
 # shortfall telemetry, anomaly flight recorder
 # per-dimension cluster shortfall (executors short when that dimension

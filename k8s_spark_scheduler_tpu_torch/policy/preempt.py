@@ -19,9 +19,10 @@ order per victim application:
 A crash between 1 and 4 leaves the intent pending; the standby's
 :meth:`PreemptionCoordinator.recover` replays it idempotently — every
 step tolerates "already done" — and acks, so each eviction lands
-exactly once across a mid-eviction failover (tests/test_torch_policy.py).
-``install_fence`` takes the HA fencing gate; nothing installs one until
-the HA fabric is ported (ROADMAP A.6.6).
+exactly once across a mid-eviction failover (tests/test_torch_policy.py,
+tests/test_torch_ha_crashpoints.py).  With HA on, wiring installs the
+fencing gate (``install_fence``): a deposed leader's commit is refused
+before it journals, and its journal's acks are fenced too.
 """
 
 from __future__ import annotations
@@ -68,9 +69,9 @@ class PreemptionCoordinator:
         self._recent: deque = deque(maxlen=max(int(recent_limit), 1))
         self._evicted_total = 0
         self._victims_total = 0
-        # HA fencing gate (the reference's ha/fencing.FencedWriter): a
-        # deposed leader may not journal, execute, or ack evictions.
-        # None until the HA fabric is ported (ROADMAP A.6.6)
+        # HA fencing gate (ha/fencing.FencedWriter), installed by server
+        # wiring: a deposed leader may not journal, execute, or ack
+        # evictions
         self.fence_gate = None
 
     def install_fence(self, gate) -> None:

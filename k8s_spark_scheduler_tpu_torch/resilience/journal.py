@@ -27,9 +27,12 @@ running, the journal re-compacts opportunistically on the ack path once
 acked records exceed a configurable fraction of the file, so journals
 stop growing unbounded across failovers.
 
-The reference package stamps put and ack records with an HA fencing
-epoch (an ``"epoch"`` key); this package has no HA fabric, writes no
-epoch, and ignores the key when it loads such a journal.
+When a fencing gate is installed (HA wiring), acks are **fenced**: a
+deposed leader cannot ack an intent out from under the successor that
+will replay it.  Put and ack records are then stamped with the writer's
+fencing epoch (an ``"epoch"`` key) for the post-failover audit trail, as
+the reference package stamps them: a journal either package wrote loads
+in the other.
 
 Exactly-once at the CRD level comes from replaying through the
 idempotent write path (create → AlreadyExists folds the server copy;
@@ -47,6 +50,7 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from ..analysis import racecheck
 from ..analysis.guarded import guarded_by
+from ..ha import crashpoint
 
 logger = logging.getLogger(__name__)
 
@@ -118,6 +122,11 @@ class IntentJournal:
         # records in the file since the last rewrite (puts + acks);
         # drives the acked-fraction compaction trigger
         self._file_records = 0
+        # HA hooks, installed by server wiring when the fabric is on:
+        # epoch_source stamps put/ack records, fence_gate refuses acks
+        # from a deposed leader (ha/fencing.FencedWriter)
+        self.epoch_source = None
+        self.fence_gate = None
         if path:
             self._load()
 
@@ -219,6 +228,8 @@ class IntentJournal:
         self, op: str, kind: str, namespace: str, name: str, obj_wire: Optional[dict]
     ) -> None:
         """Divert one write intent (latest-wins per key)."""
+        crashpoint.maybe_crash(crashpoint.JOURNAL_PRE_APPEND)
+        epoch_source = self.epoch_source
         with self._lock:
             racecheck.note_access(self, "_pending")
             self._seq += 1
@@ -231,6 +242,8 @@ class IntentJournal:
                 "name": name,
                 "obj": obj_wire,
             }
+            if epoch_source is not None:
+                rec["epoch"] = epoch_source()
             self._pending[(namespace, name)] = rec
             self._append_line(rec)
             racecheck.hb_publish(self._hb_key)
@@ -241,11 +254,19 @@ class IntentJournal:
                 self._metrics.counter(
                     mnames.RESILIENCE_JOURNAL_APPENDED, {"op": op, "kind": kind}
                 )
+        crashpoint.maybe_crash(crashpoint.JOURNAL_POST_APPEND)
 
     def ack(self, op: str, namespace: str, name: str) -> bool:
         """Mark the pending intent for a key as landed.  Only acks when
         the landed operation's class matches the pending intent's (an
-        upsert landing must not ack a newer pending delete)."""
+        upsert landing must not ack a newer pending delete).  Fenced
+        when HA is wired: a deposed leader's ack would erase an intent
+        the successor is about to replay."""
+        gate = self.fence_gate
+        if gate is not None:
+            gate.check("journal.ack")  # raises StaleEpochError when deposed
+        crashpoint.maybe_crash(crashpoint.JOURNAL_PRE_ACK)
+        epoch_source = self.epoch_source
         with self._lock:
             racecheck.note_access(self, "_pending")
             key = (namespace, name)
@@ -253,13 +274,17 @@ class IntentJournal:
             if rec is None or _op_class(rec["op"]) != _op_class(op):
                 return False
             del self._pending[key]
-            self._append_line({"a": "ack", "seq": rec["seq"]})
+            ack_rec: dict = {"a": "ack", "seq": rec["seq"]}
+            if epoch_source is not None:
+                ack_rec["epoch"] = epoch_source()
+            self._append_line(ack_rec)
             self._report_depth()
             if self._metrics is not None:
                 from ..metrics import names as mnames
 
                 self._metrics.counter(mnames.RESILIENCE_JOURNAL_REPLAYED)
             self._maybe_compact_locked()
+        crashpoint.maybe_crash(crashpoint.JOURNAL_POST_ACK)
         return True
 
     # -- introspection -------------------------------------------------------

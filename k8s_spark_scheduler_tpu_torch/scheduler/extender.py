@@ -191,6 +191,11 @@ class SparkSchedulerExtender:
         self._last_request = 0.0
         # diagnostics: which lane served the last executor reschedule
         self.last_reschedule_path: Optional[str] = None
+        # HA fabric hook (server/wiring.py): the fencing-epoch reader,
+        # so every decision trace carries the epoch it was served under
+        # — post-mortems can attribute a decision to a leadership term.
+        # None (the default / single-replica) costs one attribute check.
+        self.epoch_source: Optional[Callable[[], int]] = None
         # SLO engine hook (server/wiring.py): reads the precomputed
         # alert-tag string (e.g. "eviction_waste:page") so decision
         # traces made during an SLO burn carry that context.  The value
@@ -216,6 +221,8 @@ class SparkSchedulerExtender:
                     "predicate",
                     {"pod": args.pod.name, "namespace": args.pod.namespace},
                 ):
+                    if self.epoch_source is not None:
+                        tracing.add_tag("epoch", self.epoch_source())
                     if self.slo_alert_source is not None:
                         alert = self.slo_alert_source()
                         if alert:

@@ -44,8 +44,10 @@
 - ``GET /policy/state`` — policy-engine state: priority bands, tenant
   dominant shares, recent evictions with reasons (policy/engine.py);
   ``{"enabled": false}`` without an engine
-- ``GET /status/ha`` — ``{"enabled": false}``: no HA fabric here yet
-  (ROADMAP A.6.6)
+- ``GET /status/ha`` — the HA fabric's state (ha/): identity, leader,
+  epoch, fence counters, the lease and the last takeover's
+  reconciliation report; ``{"enabled": false}`` with HA off.  With HA
+  on, readiness answers 503 on a replica that does not hold the lease
 """
 
 from __future__ import annotations
@@ -188,6 +190,10 @@ class _Handler(BaseHTTPRequestHandler):
                 # traffic now would put the nvcc build on the first
                 # Filter requests, or serve a kernel that does not run
                 and self.scheduler.warmup_complete()
+                # HA standby: a replica that does not hold the lease
+                # must not receive Filter traffic — its fenced write
+                # paths would refuse every decision's write-back anyway
+                and (self.scheduler.ha is None or self.scheduler.ha.is_leader())
             )
             if self.scheduler is None:  # webhook-only: no scheduler to report on
                 self._send_json(200 if serving else 503, {"ready": serving})
@@ -236,9 +242,13 @@ class _Handler(BaseHTTPRequestHandler):
         elif (path == "/lifecycle" or path.startswith("/lifecycle/")) and self.scheduler is not None:
             self._handle_lifecycle(unquote(path[len("/lifecycle"):]).lstrip("/"))
         elif path == "/status/ha" and self.scheduler is not None:
-            # no HA fabric in this package yet (ROADMAP A.6.6): the body
-            # the reference answers with HA off
-            self._send_json(200, {"enabled": False})
+            fabric = self.scheduler.ha
+            if fabric is None:
+                self._send_json(200, {"enabled": False})
+                return
+            out = {"enabled": True}
+            out.update(fabric.status())
+            self._send_json(200, out)
         else:
             self._send_json(404, {"error": "not found"})
 

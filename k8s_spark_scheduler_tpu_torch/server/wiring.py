@@ -14,7 +14,9 @@ engine, and the contention observatory (every ``@guarded_by`` lock and
 the predicate lock timed, each request's trace decomposed into its
 critical-path segments), and, when the install turns it on, the
 scheduling-policy engine (priority bands, queue orders, backfill,
-whole-gang preemption, DRF; ``policy/``).  The
+whole-gang preemption, DRF; ``policy/``) and the HA failover fabric
+(lease election, fencing epochs on every write path, takeover
+reconciliation; ``ha/``).  The
 ``tpu-batch*`` binpackers run their queue solvers on ``device`` (None =
 CUDA, which raises on a host without CUDA); ``start_background`` also
 starts the kernel warmup, which builds the binpacker's CUDA library and
@@ -159,6 +161,7 @@ class Server:
     contention: object = None  # LockTimekeeper (contention/locktime.py)
     criticalpath: object = None  # CriticalPathAnalyzer (contention/criticalpath.py)
     policy: object = None  # PolicyEngine (policy/engine.py)
+    ha: object = None  # HAFabric (ha/__init__.py)
     _warm_done: threading.Event = field(default_factory=threading.Event)
     _warm_stop: threading.Event = field(default_factory=threading.Event)
     _warm_error: Optional[BaseException] = None
@@ -176,6 +179,8 @@ class Server:
             self.capacity.start()
         if self.lifecycle is not None:
             self.lifecycle.start()
+        if self.ha is not None and self.install.ha.background:
+            self.ha.start()
         self._start_warmup()
 
     def warmup_complete(self) -> bool:
@@ -220,6 +225,14 @@ class Server:
             self.capacity.stop()
         if self.lifecycle is not None:
             self.lifecycle.stop()
+        if self.ha is not None:
+            self.ha.stop()
+            try:
+                # graceful handoff: expire our own lease so the standby
+                # takes over in one step instead of waiting out the TTL
+                self.ha.elector.step_down()
+            except Exception:
+                logger.exception("ha: step-down at stop failed")
         self.unschedulable_marker.stop()
         self.resource_reservation_cache.stop()
         self.demand_cache.stop()
@@ -432,7 +445,8 @@ def init_server_with_clients(
     # state machine fed off informer threads and drain cursors — never
     # under the predicate lock.  The waste reporter's slo_sink makes
     # WasteMetricsReporter the single source of truth for the
-    # eviction_waste objective.  No HA epoch source exists here yet.
+    # eviction_waste objective.  The HA block below points the ledger's
+    # epoch source at the fence.
     lifecycle_ledger = None
     slo_engine = None
     if install.lifecycle.enabled:
@@ -555,6 +569,52 @@ def init_server_with_clients(
         policy=policy_engine,
     )
     server.reporters = ReporterSet(server)
+
+    # HA failover fabric (ha/): lease election + fencing + takeover
+    # reconciliation.  Built AFTER the boot-time journal recoveries above
+    # on purpose: a cold replica's own replay must not be fenced (the
+    # gates are installed here, so everything before this line runs
+    # unfenced; everything after is epoch-checked).
+    if install.ha.enabled:
+        import os
+        import socket
+
+        from ..ha import FencedWriter, FenceState, HAFabric
+        from ..ha.lease import LeaderElector
+        from ..ha.reconcile import Reconciler
+
+        identity = install.ha.identity or f"{socket.gethostname()}-{os.getpid()}"
+        fence = FenceState(metrics=metrics)
+        elector = LeaderElector(
+            api,
+            identity,
+            fence,
+            namespace=install.ha.lease_namespace,
+            name=install.ha.lease_name,
+            duration_seconds=install.ha.lease_duration_seconds,
+        )
+        # read-through gate: every fenced write re-reads the lease, so a
+        # deposed leader's first post-pause write refuses deterministically
+        gate = FencedWriter(fence, lease_reader=elector.peek, metrics=metrics)
+        # decision traces carry the epoch they were served under (one
+        # counter read; never a lease fetch on the Filter path)
+        extender.epoch_source = fence.epoch
+        if lifecycle_ledger is not None:
+            # lifecycle records stamp the epoch each transition was
+            # observed under (epoch continuity across failover)
+            lifecycle_ledger.epoch_source = fence.epoch
+        rr_cache.install_fence(gate)
+        demand_cache.install_fence(gate)
+        if policy_engine is not None and policy_engine.coordinator is not None:
+            policy_engine.coordinator.install_fence(gate)
+        server.ha = HAFabric(
+            elector,
+            fence,
+            reconciler=Reconciler(server, metrics=metrics),
+            metrics=metrics,
+            renew_interval_seconds=install.ha.renew_interval_seconds,
+            writer=gate,
+        )
 
     from ..scheduler import invariants
 

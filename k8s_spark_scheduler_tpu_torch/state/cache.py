@@ -17,6 +17,8 @@ from typing import List, Optional
 
 logger = logging.getLogger(__name__)
 
+from ..ha import crashpoint
+from ..ha.fencing import StaleEpochError
 from ..kube import conflict as kconflict
 from ..kube import errors as kerrors
 from ..kube.apiserver import APIServer
@@ -159,6 +161,10 @@ class AsyncClient:
         # param above is the per-request outcome marker, kept separate
         # for reference parity
         self._registry = registry
+        # HA fencing gate (ha/fencing.FencedWriter), installed by server
+        # wiring when the fabric is enabled: every API mutation is
+        # refused with StaleEpochError once this replica is deposed
+        self.fence_gate = None
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
 
@@ -194,6 +200,16 @@ class AsyncClient:
                     self._do_update(r)
                 elif r.type == DELETE:
                     self._do_delete(r)
+            except StaleEpochError as fe:
+                # deposed leader: the write is refused, never dropped —
+                # divert the intent to the journal so the successor's
+                # takeover replay owns it.  Not a breaker signal (the
+                # server was never touched).
+                logger.warning(
+                    "fenced write refused: %s %s (%s)", r.type, r.key, fe
+                )
+                self._release_probe()
+                self._divert(r, "journaled_fenced")
             except Exception:
                 # worker must survive anything, but a failure reaching here
                 # is a programming error (client errors are handled in the
@@ -205,6 +221,22 @@ class AsyncClient:
                 except Exception:
                     pass
 
+    def _pre_commit(self, r: Request) -> None:
+        """HA fence + crash-injection gate before any API mutation.
+        Raises StaleEpochError (worker loop diverts the intent to the
+        journal) or SimulatedCrash (BaseException — the crash matrix's
+        kill -9).  Disabled cost: two attribute reads."""
+        gate = self.fence_gate
+        if gate is not None:
+            gate.check(f"writeback.{r.type}")
+        crashpoint.maybe_crash(crashpoint.WRITEBACK_PRE_COMMIT)
+
+    def _post_commit(self) -> None:
+        gate = self.fence_gate
+        if gate is not None:
+            gate.commit()
+        crashpoint.maybe_crash(crashpoint.WRITEBACK_POST_COMMIT)
+
     # -- request handlers (async.go:77-137) ---------------------------------
 
     def _do_create(self, r: Request) -> None:
@@ -213,6 +245,7 @@ class AsyncClient:
             self._release_probe()  # deleted while queued: no write happened
             return
         self._mark(r, "request")
+        self._pre_commit(r)
         try:
             result = self._client.create(obj)
         except kerrors.AlreadyExistsError:
@@ -239,6 +272,7 @@ class AsyncClient:
         # fold the result's RV in atomically, never resurrecting a key
         # deleted (e.g. by owner GC) while the create was in flight
         self._store.fold_resource_version(result)
+        self._post_commit()
         self._on_write_ok(r)
 
     def _do_update(self, r: Request) -> None:
@@ -247,6 +281,7 @@ class AsyncClient:
             self._release_probe()  # deleted while queued: no write happened
             return
         self._mark(r, "request")
+        self._pre_commit(r)
 
         def attempt():
             current = self._store.get(r.key)
@@ -299,10 +334,12 @@ class AsyncClient:
             self._release_probe()  # vanished locally: no write landed
             return
         self._store.fold_resource_version(result)
+        self._post_commit()
         self._on_write_ok(r)
 
     def _do_delete(self, r: Request) -> None:
         self._mark(r, "request")
+        self._pre_commit(r)
         try:
             self._client.delete(r.key[0], r.key[1])
         except kerrors.NotFoundError:
@@ -311,6 +348,7 @@ class AsyncClient:
         except Exception as err:
             self._on_write_failure(r, err)
             return
+        self._post_commit()
         self._on_write_ok(r)
 
     # -- resilience hooks ----------------------------------------------------
@@ -365,7 +403,14 @@ class AsyncClient:
 
     def _ack_journal(self, r: Request) -> None:
         if self._journal is not None:
-            self._journal.ack(r.type, r.key[0], r.key[1])
+            try:
+                self._journal.ack(r.type, r.key[0], r.key[1])
+            except StaleEpochError:
+                # deposed between the write landing and the ack: leave
+                # the intent pending — the successor's replay is
+                # idempotent, losing the ack is safe; losing the intent
+                # would not be
+                logger.warning("fenced journal ack refused for %s", r.key)
 
     def replay_journal(self) -> int:
         """Re-enqueue every pending journaled intent through the normal

@@ -47,6 +47,7 @@ class ResourceReservationCache:
         # (resourcereservations.go:53-60)
         for obj in informer.list():
             self._store.put_if_absent(obj)
+        self._informer = informer
         self._cache = WriteBackCache(self._queue, self._store, informer)
         client = TypedClient(api, ResourceReservation.KIND)
         if rate_bucket is not None:
@@ -67,6 +68,15 @@ class ResourceReservationCache:
             to_wire=serde.rr_to_dict_v1beta2,
             registry=registry,
         )
+
+    def install_fence(self, gate) -> None:
+        """HA wiring: fence every reservation write-back (and journal
+        ack) behind the given :class:`~..ha.fencing.FencedWriter`, and
+        stamp journal records with the holder's epoch."""
+        self._async.fence_gate = gate
+        if self._journal is not None:
+            self._journal.fence_gate = gate
+            self._journal.epoch_source = gate.fence.epoch
 
     def add_change_observer(self, fn) -> None:
         """fn(old, new) on every semantic content change of the LOCAL
@@ -111,11 +121,12 @@ class ResourceReservationCache:
 
     def recover_from_journal(self) -> int:
         """Failover replay: apply intents journaled by a PREVIOUS
-        scheduler instance against this instance's lister-seeded store.
-        Exactly-once at the CRD level: intents whose write already
-        landed (the lister saw the object) — or whose object has since
-        been GC'd — are acked without a write; only genuinely-unlanded
-        intents are enqueued.  Returns the number of intents enqueued."""
+        scheduler instance against this instance's lister-seeded store,
+        or at a takeover, this replica's own intents diverted while it
+        was deposed.  Exactly-once at the CRD level: intents whose write
+        already landed (the lister saw the object) — or whose object has
+        since been GC'd — are acked without a write; only
+        genuinely-unlanded intents are enqueued.  Returns the number of intents enqueued."""
         if self._journal is None or self._journal.depth() == 0:
             return 0
         from ..types import serde
@@ -140,8 +151,16 @@ class ResourceReservationCache:
                     self._journal.ack(op, key[0], key[1])
                 continue
             if op == "create" and existing is not None:
-                # landed before the old instance died; lister seeded it
-                self._journal.ack(op, key[0], key[1])
+                if self._informer.get(key[0], key[1]) is not None:
+                    # landed before the old instance died; lister seeded it
+                    self._journal.ack(op, key[0], key[1])
+                else:
+                    # a warm replica's own diverted create (a deposed
+                    # leader re-elected): its store holds an object the
+                    # API server never received — write it.  The
+                    # reference acks this intent unwritten (ROADMAP C.5)
+                    self._queue.add_if_absent(create_request(existing))
+                    enqueued += 1
                 continue
             wire = intent.get("obj")
             if not wire:
@@ -193,6 +212,9 @@ class DemandCache:
             kind=Demand.KIND,
             registry=registry,
         )
+
+    def install_fence(self, gate) -> None:
+        self._async.fence_gate = gate
 
     def run(self) -> None:
         self._async.run()
@@ -316,7 +338,16 @@ class SafeDemandCache:
         self._registry = registry
         self._delegate: Optional[DemandCache] = None
         self._lock = threading.Lock()
+        self._fence_gate = None
         lazy_informer.on_ready(self._construct)
+
+    def install_fence(self, gate) -> None:
+        """HA wiring; applied immediately when the delegate exists, or
+        at lazy construction otherwise."""
+        with self._lock:
+            self._fence_gate = gate
+            if self._delegate is not None:
+                self._delegate.install_fence(gate)
 
     def _construct(self) -> None:
         with self._lock:
@@ -328,6 +359,8 @@ class SafeDemandCache:
                     rate_bucket=self._rate_bucket,
                     registry=self._registry,
                 )
+                if self._fence_gate is not None:
+                    cache.install_fence(self._fence_gate)
                 cache.run()
                 self._delegate = cache
 

@@ -14,6 +14,7 @@ Supported surface:
 - core/v1 pods (namespaced) and nodes (cluster-scoped)
 - sparkscheduler.palantir.com/v1beta2 resourcereservations
 - scaler.palantir.com/v1alpha2 demands
+- coordination.k8s.io/v1 leases (the HA fabric's election object)
 - apiextensions.k8s.io/v1 customresourcedefinitions (status carries the
   Established condition from the embedded registry)
 - ``?watch=1`` streams with resourceVersion resume and configurable
@@ -42,11 +43,15 @@ from ..kube.errors import (
 from ..kube.restbackend import _RESOURCES, RestAPIServer
 from ..analysis.guarded import guarded_by
 
+# (API group, version, plural) → kind, for every kind the REST backend
+# maps (the HA fabric's coordination.k8s.io/v1 Lease included)
 _PATHS = {
-    ("", "v1", "pods"): "Pod",
-    ("", "v1", "nodes"): "Node",
-    ("sparkscheduler.palantir.com", "v1beta2", "resourcereservations"): "ResourceReservation",
-    ("scaler.palantir.com", "v1alpha2", "demands"): "Demand",
+    (
+        "" if res.base == "/api/v1" else res.base.split("/")[2],
+        res.base.rsplit("/", 1)[1],
+        res.plural,
+    ): kind
+    for kind, res in _RESOURCES.items()
 }
 
 _ITEM_RE = re.compile(

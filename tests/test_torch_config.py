@@ -2,15 +2,16 @@
 turns on: ``Install.reference_only`` names exactly the subsystems the
 JAX package runs on the same config and the port does not have (all but
 resilience, provenance, delta-solve, class aggregation, the capacity
-observatory, the lifecycle ledger, the contention observatory and the policy
-engine, which the port has), and the server logs one warning for each at start: none
+observatory, the lifecycle ledger, the contention observatory, the policy
+engine and the HA fabric, which the port has), and the server logs one warning for each at start: none
 on examples/install.json, since every subsystem the reference runs by
 default is ported.  ``delta-solve`` (default true, as in the reference) and
 ``classes`` load and reach the engine, with
 ``provenance.parity-check-interval``; ``capacity`` and ``lifecycle``
 load with the reference's keys and defaults and reach the sampler and
 the ledger; ``policy`` loads into a ``PolicyConfig`` equal to the
-reference's and reaches the engine.  Also the two settings that now configure something:
+reference's and reaches the engine; ``ha`` loads into an ``HAConfig``
+equal to the reference's and, enabled, wires the fabric.  Also the two settings that now configure something:
 ``conversion-webhook`` (the CRD's conversion stanza) and
 ``unschedulable-pod-timeout-seconds`` (the marker)."""
 
@@ -30,7 +31,8 @@ from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("provenance", "capacity", "contention", "policy", "ha", "lifecycle", "concurrent", "classes")
 # the reference's subsystems the port has too
-PORTED = {"resilience", "provenance", "delta-solve", "classes", "capacity", "lifecycle", "contention", "policy"}
+PORTED = {"resilience", "provenance", "delta-solve", "classes", "capacity", "lifecycle", "contention", "policy",
+          "ha"}
 
 
 def _example() -> dict:
@@ -237,3 +239,49 @@ def test_policy_section_loads_as_in_the_reference(section):
             assert engine.ledger.default_band in ours.policy.bands
     finally:
         server.stop()
+
+
+_HA_FULL = {
+    "enabled": True, "lease-namespace": "kube-system", "lease-name": "sched-lease",
+    "lease-duration-seconds": 2, "renew-interval-seconds": 0.5, "identity": "replica-7",
+    "background": False,
+}
+
+
+@pytest.mark.parametrize(
+    "d",
+    [{}, _example(), {"ha": {"enabled": True}}, {"ha": _HA_FULL}],
+    ids=["default", "example", "enabled", "full-keys"],
+)
+def test_ha_section_loads_as_in_the_reference(d):
+    """``{"ha": {...}}`` loads into an HAConfig equal to the reference's
+    (its keys and defaults); an enabled one wires the fabric, its fence
+    on the write paths and the epoch sources, a disabled one nothing.
+    ``concurrent`` is still refused, naming its ROADMAP item."""
+    ours, theirs = Install.from_dict(d), JaxInstall.from_dict(d)
+    assert ours.ha.__dict__ == theirs.ha.__dict__
+    install = Install(fifo=True, binpack_algo="tpu-batch", ha=ours.ha)
+    server = init_server_with_clients(APIServer(), install, start_background=False, device="cpu")
+    try:
+        fabric = server.ha
+        assert (fabric is not None) == ours.ha.enabled
+        if fabric is not None:
+            assert server.extender.epoch_source == fabric.fence.epoch
+            assert server.lifecycle.epoch_source == fabric.fence.epoch
+            assert server.resource_reservation_cache._async.fence_gate is fabric.writer
+            assert server.resilience.journal.fence_gate is fabric.writer
+            assert fabric.elector._duration == ours.ha.lease_duration_seconds
+            if ours.ha.identity:
+                assert fabric.elector.identity == ours.ha.identity
+            assert fabric.status()["epoch"] == 0 and not fabric.is_leader()
+        else:
+            assert server.extender.epoch_source is None
+    finally:
+        server.stop()
+    with pytest.raises(ValueError, match=r"A\.4 \(concurrent admission\)"):
+        Install.from_dict(dict(d, concurrent={"enabled": True}))
+
+
+def test_ha_section_refuses_unknown_keys():
+    with pytest.raises(ValueError, match="ha"):
+        Install.from_dict({"ha": {"enabled": True, "lease_name": "x"}})

@@ -301,16 +301,17 @@ def test_cli_serves_the_example_config_on_cpu(tmp_path):
     assert proc.returncode == 0
 
 
-# (case id, config, ROADMAP item).  The ids are those the cases had when
-# ROADMAP numbered these items A.5 and A.8; the items are ROADMAP's
-# current numbers.  The provenance and resilience sections (config1,
-# config2, config10) load since both subsystems were ported, and so do
-# delta-solve and classes (config0, config9), lifecycle and capacity
-# (config4, config7; tests/test_torch_config.py), contention (config8,
-# test_contention_config_loads_and_serves below), and policy (config3;
-# tests/test_torch_config.py test_policy_section_loads_as_in_the_reference).
+# (case id, config, ROADMAP item).  The id is the one the case had when
+# ROADMAP numbered this item A.5; the item is ROADMAP's current number.
+# The provenance and resilience sections (config1, config2, config10)
+# load since both subsystems were ported, and so do delta-solve and
+# classes (config0, config9), lifecycle and capacity (config4, config7;
+# tests/test_torch_config.py), contention (config8,
+# test_contention_config_loads_and_serves below), policy (config3;
+# tests/test_torch_config.py test_policy_section_loads_as_in_the_reference)
+# and HA (config5; tests/test_torch_config.py
+# test_ha_section_loads_as_in_the_reference).
 _REFUSED = [
-    ("config5-A.8", {"ha": {"enabled": True}}, r"A\.6\.6 \(HA failover\)"),
     ("config6-A.5", {"concurrent": {"enabled": True}}, r"A\.4 \(concurrent admission\)"),
 ]
 

@@ -612,8 +612,9 @@ _BLOCKED_POLICY = textwrap.dedent(
             del sys.modules[name]
     sys.meta_path.insert(0, Refuse())
 
-    # the modules of the policy slice, each by name
-    for name in ("ha", "ha.crashpoint", "policy", "policy.classes", "policy.ordering", "policy.drf",
+    # the modules of the policy and HA slices, each by name
+    for name in ("ha", "ha.crashpoint", "ha.fencing", "ha.lease", "ha.reconcile", "ha.crashmatrix",
+                 "policy", "policy.classes", "policy.ordering", "policy.drf",
                  "policy.victims", "policy.preempt", "policy.engine"):
         importlib.import_module("k8s_spark_scheduler_tpu_torch." + name)
     from k8s_spark_scheduler_tpu_torch.config import Install, PolicyConfig, ResilienceConfig
@@ -645,6 +646,11 @@ _BLOCKED_POLICY = textwrap.dedent(
         assert state["preemption"]["evictionsTotal"] == 1 and state["preemption"]["journalDepth"] == 0
     finally:
         h.close()
+    # the HA fabric's planned handoff between two servers
+    from k8s_spark_scheduler_tpu_torch.ha.crashmatrix import CrashMatrix
+
+    report = CrashMatrix(nodes=2, device="cpu").run_handoff()
+    assert report["ok"] and report["deposedRefusals"] == 5, report
     bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not bad, bad
     print("POLICY-OK")
@@ -653,8 +659,9 @@ _BLOCKED_POLICY = textwrap.dedent(
 
 
 def test_policy_engine_runs_with_jax_and_reference_package_blocked():
-    """The policy slice (policy/, ha/crashpoint) imports and preempts
-    on the port's server with jax and the JAX package blocked."""
+    """The policy and HA slices (policy/, ha/) import, preempt on the
+    port's server and hand off between two servers with jax and the JAX
+    package blocked."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_POLICY],

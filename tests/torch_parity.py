@@ -24,6 +24,10 @@ turns on the scheduling-policy engine on both sides with the same
 ``PolicyConfig`` fields; ``lifecycle_record_body`` and
 ``lifecycle_summary_body`` drop the fields of a ``/lifecycle`` body that
 the serving process or the host's clock decides (``UNCOMPARED``).
+``HATwin`` turns on the HA fabric on both sides and builds a second
+replica of each package's server on the same API server: elections are
+stepped by the test (``background`` off) under the frozen virtual clock,
+and ``HATwin.schedule`` sends a Filter to the replica the test names.
 
 Both servers write reservations and demands back on worker threads, and
 a Filter or a delete that overtakes a pending write can decide
@@ -36,6 +40,7 @@ on settled state.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import urllib.error
 import urllib.request
@@ -43,10 +48,12 @@ from typing import List, Optional, Sequence, Tuple
 
 from k8s_spark_scheduler_tpu import timesource as jax_timesource
 from k8s_spark_scheduler_tpu.config import FifoConfig as JaxFifoConfig
+from k8s_spark_scheduler_tpu.config import HAConfig as JaxHAConfig
 from k8s_spark_scheduler_tpu.config import Install as JaxInstall
 from k8s_spark_scheduler_tpu.config import PolicyConfig as JaxPolicyConfig
 from k8s_spark_scheduler_tpu.scheduler import invariants as jax_invariants
 from k8s_spark_scheduler_tpu.server.http import ExtenderHTTPServer as JaxHTTPServer
+from k8s_spark_scheduler_tpu.server.wiring import init_server_with_clients as jax_init_server
 from k8s_spark_scheduler_tpu.testing.harness import Harness as JaxHarness
 from k8s_spark_scheduler_tpu.types import serde as jax_serde
 from k8s_spark_scheduler_tpu.types.extenderapi import ExtenderArgs as JaxArgs
@@ -54,12 +61,14 @@ from k8s_spark_scheduler_tpu.types.objects import Container, Node, ObjectMeta, P
 from k8s_spark_scheduler_tpu.types.resources import ZONE_LABEL, Resources
 from k8s_spark_scheduler_tpu_torch import timesource as port_timesource
 from k8s_spark_scheduler_tpu_torch.config import FifoConfig as PortFifoConfig
+from k8s_spark_scheduler_tpu_torch.config import HAConfig as PortHAConfig
 from k8s_spark_scheduler_tpu_torch.config import Install as PortInstall
 from k8s_spark_scheduler_tpu_torch.config import PolicyConfig as PortPolicyConfig
 from k8s_spark_scheduler_tpu_torch.convert import object_from_wire
 from k8s_spark_scheduler_tpu_torch.metrics import names as port_names
 from k8s_spark_scheduler_tpu_torch.scheduler import invariants as port_invariants
 from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer as PortHTTPServer
+from k8s_spark_scheduler_tpu_torch.server.wiring import init_server_with_clients as port_init_server
 from k8s_spark_scheduler_tpu_torch.testing.harness import Harness as PortHarness
 from k8s_spark_scheduler_tpu_torch.types import serde as port_serde
 from k8s_spark_scheduler_tpu_torch.types.extenderapi import ExtenderArgs as PortArgs
@@ -139,10 +148,11 @@ class Twin:
         dynamic_allocation_single_az: bool = False,
         check_invariants: bool = False,
         policy: Optional[dict] = None,
+        ha: Optional[dict] = None,
     ):
         """``policy``: ``PolicyConfig`` fields (e.g. ``{"enabled": True,
         "ordering": "drf"}``) set on both sides; None leaves the engine
-        off, as the defaults do."""
+        off, as the defaults do.  ``ha``: ``HAConfig`` fields, the same."""
         self.now = T0
         jax_timesource.set_source(lambda: self.now)
         port_timesource.set_source(lambda: self.now)
@@ -159,6 +169,7 @@ class Twin:
                 extra_install=JaxInstall(
                     fifo_config=JaxFifoConfig(default_enforce_after_pod_age=enforce_after_age),
                     policy=JaxPolicyConfig(**(policy or {})),
+                    ha=JaxHAConfig(**(ha or {})),
                     **common,
                 )
             )
@@ -166,6 +177,7 @@ class Twin:
                 extra_install=PortInstall(
                     fifo_config=PortFifoConfig(default_enforce_after_pod_age=enforce_after_age),
                     policy=PortPolicyConfig(**(policy or {})),
+                    ha=PortHAConfig(**(ha or {})),
                     **common,
                 ),
                 device="cpu",
@@ -392,6 +404,156 @@ class Twin:
         return self.port.server.metrics.get_counter(
             port_names.TPU_FASTPATH, {"path": "driver", "lane": "fast"}
         )
+
+
+# fields of a /status/ha body that name the replica or the host's clock:
+# its identity, the read's time, the lease's renewal time and the
+# takeover report's duration
+HA_UNCOMPARED = ("identity", "asOf", "renewedAt", "elapsedSeconds")
+
+
+def ha_status_body(body: dict) -> dict:
+    """A /status/ha body less ``HA_UNCOMPARED``, at any depth."""
+    if isinstance(body, dict):
+        return {k: ha_status_body(v) for k, v in body.items() if k not in HA_UNCOMPARED}
+    if isinstance(body, list):
+        return [ha_status_body(v) for v in body]
+    return body
+
+
+class HATwin(Twin):
+    """A Twin with the HA fabric on both sides and two replicas a side
+    on one API server: ``replica-a`` is the harness's server,
+    ``replica-b`` a second server built beside it with the same install.
+    Background renewal is off, so elections happen only in ``step`` /
+    ``step_down`` (on both sides, results equal), under the Twin's frozen
+    clock.  The capacity samplers' and lifecycle ledgers' threads are
+    stopped: ``drain`` drains every ledger at a point the test chooses,
+    so each transition is stamped with the epoch of that point."""
+
+    REPLICAS = ("replica-a", "replica-b")
+
+    def __init__(self, binpack_algo: str, lease_duration: float = 15.0):
+        self._replica_b = None
+        self._ha_http = {}
+        ha = dict(enabled=True, background=False, lease_duration_seconds=lease_duration)
+        super().__init__(binpack_algo, ha=dict(ha, identity="replica-a"))
+        try:
+            installs = [
+                dataclasses.replace(h.server.install, ha=config(**dict(ha, identity="replica-b")))
+                for h, config in ((self.jax, JaxHAConfig), (self.port, PortHAConfig))
+            ]
+            jax_b = jax_init_server(self.jax.api, installs[0], start_background=True, demand_poll_interval=0.02)
+            try:
+                port_b = port_init_server(self.port.api, installs[1], start_background=True,
+                                          demand_poll_interval=0.02, device="cpu")
+            except BaseException:
+                jax_b.stop()
+                raise
+            self._replica_b = (jax_b, port_b)
+            for server in self.servers():
+                server.capacity.stop()
+                server.lifecycle.stop()
+        except BaseException:
+            self.close()
+            raise
+        self.serving = "replica-a"
+
+    def close(self) -> None:
+        try:
+            for http in self._ha_http.values():
+                http.stop()
+            if self._replica_b is not None:
+                for server in self._replica_b:
+                    server.stop()
+        finally:
+            super().close()
+
+    def replica(self, name: str) -> tuple:
+        """(JAX server, port server) of the replica."""
+        return (self.jax.server, self.port.server) if name == "replica-a" else self._replica_b
+
+    def servers(self) -> list:
+        return [server for name in self.REPLICAS for server in self.replica(name)]
+
+    def step(self, name: str) -> bool:
+        """One election round of the replica on both sides; both must
+        agree whether it leads."""
+        jax_leader, port_leader = (s.ha.step() for s in self.replica(name))
+        assert jax_leader == port_leader, (name, jax_leader, port_leader)
+        return port_leader
+
+    def step_down(self, name: str) -> None:
+        for server in self.replica(name):
+            server.ha.elector.step_down()
+
+    def drain(self) -> None:
+        self.settle()
+        for server in self.servers():
+            server.lifecycle.drain(trigger="test")
+
+    def settle(self) -> None:
+        """Every replica's write-back queues drained, and the serving
+        replica's caches equal to its API server (a deposed replica's
+        cache holds what it reserved, not what its successor updates)."""
+        for h, server in ((self.jax, self.replica(self.serving)[0]), (self.port, self.replica(self.serving)[1])):
+            others = [s for name in self.REPLICAS for s in self.replica(name)]
+            assert h.wait_for_api(
+                lambda: not any(n for s in others for n in s.resource_reservation_cache.inflight_queue_lengths())
+                and not any(n for s in others for n in s.demand_cache.inflight_queue_lengths())
+                and _rr_content(server.resource_reservation_cache.list())
+                == _rr_content(h.api.list("ResourceReservation"))
+                and {(d.namespace, d.name) for d in h.api.list("Demand")}
+                == {(d.namespace, d.name) for d in server.demand_cache.list()},
+                timeout=10,
+            )
+
+    def schedule(self, wire: dict, node_names: Sequence[str], replica: Optional[str] = None) -> Optional[str]:
+        """Filter + bind through ``replica`` (default: the serving one)
+        on both sides; the results must be equal."""
+        self.settle()
+        results = []
+        for h, server, decode, args in (
+            (self.jax, self.replica(replica or self.serving)[0], jax_serde_decode, JaxArgs),
+            (self.port, self.replica(replica or self.serving)[1], object_from_wire, PortArgs),
+        ):
+            pod = decode(wire)
+            existing = server.pod_informer.get(pod.namespace, pod.name)
+            pod = h.api.create(pod) if existing is None else existing.deepcopy()
+            result = server.extender.predicate(args(pod=pod, node_names=list(node_names)))
+            if result.node_names:
+                bound = h.api.get("Pod", pod.namespace, pod.name)
+                bound.node_name, bound.phase = result.node_names[0], "Running"
+                h.api.update(bound)
+            results.append(result)
+        self._check(*results)
+        return results[1].node_names[0] if results[1].node_names else None
+
+    def get_on(self, name: str, path: str) -> Tuple[Tuple[int, dict], Tuple[int, dict]]:
+        """GET ``path`` from the replica's server in each package over
+        HTTP: ((status, body) JAX, (status, body) port)."""
+        out = []
+        for server, cls in zip(self.replica(name), (JaxHTTPServer, PortHTTPServer)):
+            http = self._ha_http.get(id(server))
+            if http is None:
+                http = self._ha_http[id(server)] = cls(server, port=0, host="127.0.0.1")
+                http.start()
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{http.port}{path}", timeout=30) as resp:
+                    out.append((resp.status, json.loads(resp.read())))
+            except urllib.error.HTTPError as err:
+                out.append((err.code, json.loads(err.read() or b"{}")))
+        return out[0], out[1]
+
+
+def _rr_content(rrs) -> dict:
+    return {
+        (rr.namespace, rr.name): (
+            sorted((k, v.node) for k, v in rr.spec.reservations.items()),
+            sorted(rr.status.pods.items()),
+        )
+        for rr in rrs
+    }
 
 
 def jax_serde_decode(wire: dict):
