@@ -104,7 +104,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``tpu-batch`` and ``tpu-batch-minimal-fragmentation``, a cuda server
    with the engine on, one with it off and a cpu server with it on, the
    1,000 queued drivers behind an enforced driver that fits nowhere;
-   three segments of 100 Filters, each posted to the two cuda servers in
+   three segments of 60 Filters, each posted to the two cuda servers in
    turns: (a) retries of queued drivers in random order, nothing changing
    between them; (b) the same with an unrelated reservation created and
    deleted before each (the change feed moves, the class digest cancels
@@ -166,11 +166,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    probe runs for them): a cuda server with ``priority-then-fifo``,
    backfill and preemption, a cuda server with the policy off and a cpu
    server with the policy on; 4 probes on all three (on and cpu bodies
-   equal), then 40 granted probes a side in blocks of 20 in turns, each
+   equal), then 16 granted probes a side in blocks of 8 in turns, each
    block posted to its own server alone after ``quiet()``, every probe
    of each on block then posted to the cpu server, bodies equal; p50 /
    p99, the warm-hit share and miss reasons, the backfill probes a
-   Filter with their host time, span medians; one block of 10 under
+   Filter with their host time, span medians; one block of 5 under
    ``drf`` and under ``fifo`` (each its own cuda server, after one
    probe), the ``drf`` block's bodies equal to a cpu server's with
    ``drf`` and the ``fifo`` engine's byte-equal to the policy-off
@@ -204,13 +204,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cold first Filter; the time to recover from b's last renewal to a's
    first answer); b, not stepped since, grants one probe whose
    write-back the read-through fence refuses and diverts to b's journal,
-   no reservation of b's reaching the API.  (e) the crash matrix
-   (``CrashMatrix(nodes=2)`` under ``tpu-batch``) on cuda, each of the
-   ten points outside the concurrent admission engine and the
+   no reservation of b's reaching the API; generation-2 collections
+   inside timed Filters are counted (``GcWatch``);
+13. concurrent: the concurrent admission engine (concurrent/) on phase
+   5's snapshot.  (a) under ``tpu-batch`` and
+   ``tpu-batch-minimal-fragmentation``, a cuda server with ``concurrent:
+   {enabled: true}`` and one without: 48 new drivers through
+   ``engine.predicate`` from 8 threads (tickets assigned in advance, each
+   grant bound inside its commit turn) and the same drivers through the
+   other server's serial extender in ticket order, every encoded body
+   byte-equal; speculation outcomes (``error`` must be 0), commit
+   results and the queue-kernel launches on the speculating threads'
+   own CUDA streams.  (b) under ``tpu-batch``, 1 and 8 HTTP client
+   threads against each server, 128 Filters a point: granted drivers
+   behind the queue, each retired, then queued drivers refused behind
+   an enforced driver that fits nowhere; decisions/s, p50 / p99,
+   speculation outcomes, commit results, the ticket wait's mean from
+   the engine's own histogram, the ``speculation.solve`` span p50 and
+   the launches on the speculators' streams.  (c) ``fifo_queue`` at the main path's inputs launched k =
+   1, 2, 4, 8 times at once on k streams, each batch timed by CUDA
+   events with each launch's own time, every result equal to the plain
+   version.  (d) the crash matrix (``CrashMatrix(nodes=2)`` under
+   ``tpu-batch``, its concurrent admission engine on in every cell) on
+   cuda, each of the thirteen points, the three ``concurrent.*`` points
+   again with the policy engine off (the crashed Filter's verdict solved,
+   and consumed before ``concurrent.commit-written``) and the
    two-replica handoff cell, each report ok and equal to the same cell
-   on cpu, with seconds and queue-kernel launches; generation-2
-   collections inside timed Filters are counted (``GcWatch``);
-13. the kernels line (times, bounds, launches) and the device result line.
+   on cpu, with seconds and queue-kernel launches;
+14. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -463,9 +484,11 @@ class PortServer:
     live = set()  # the servers built and not yet stopped
 
     def __init__(self, policy: str, device: str, nodes, queue, provenance=None, delta_solve: bool = True,
-                 observatories: bool = True, contention: bool = True, scheduling_policy=None):
-        from k8s_spark_scheduler_tpu_torch.config import (CapacityConfig, ContentionConfig, Install,
-                                                          LifecycleConfig, PolicyConfig, ProvenanceConfig)
+                 observatories: bool = True, contention: bool = True, scheduling_policy=None,
+                 concurrent: bool = False):
+        from k8s_spark_scheduler_tpu_torch.config import (CapacityConfig, ConcurrentConfig, ContentionConfig,
+                                                          Install, LifecycleConfig, PolicyConfig,
+                                                          ProvenanceConfig)
         from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
         from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
         from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
@@ -478,14 +501,16 @@ class PortServer:
         # included (`observatories` False turns the capacity observatory
         # and the ledger off, `contention` False the last;
         # `scheduling_policy` is a PolicyConfig, off by default as in the
-        # reference); the marker's scan is phase 6's, not a load on the
-        # timed probes
+        # reference; `concurrent` turns the concurrent admission engine on,
+        # off by default as in the reference); the marker's scan is phase
+        # 6's, not a load on the timed probes
         install = Install(binpack_algo=policy, fifo=True, provenance=provenance or ProvenanceConfig(),
                           resilience=server_resilience(device), delta_solve=delta_solve,
                           capacity=CapacityConfig(enabled=observatories),
                           lifecycle=LifecycleConfig(enabled=observatories),
                           contention=ContentionConfig(enabled=contention),
-                          policy=scheduling_policy or PolicyConfig())
+                          policy=scheduling_policy or PolicyConfig(),
+                          concurrent=ConcurrentConfig(enabled=concurrent))
         self.scheduler = init_server_with_clients(
             self.api, install, demand_poll_interval=0.5, unschedulable_polling_interval=3600.0,
             device=device,
@@ -1640,9 +1665,10 @@ def resilience_phase(seed: int, smi: str) -> None:
 # under distribute-evenly too, so the engine is held on against off and
 # cuda against cpu under every tensor-lane name
 DELTA_POLICIES = {"tpu-batch": "abc", "tpu-batch-minimal-fragmentation": "abc", "tpu-batch-distribute-evenly": "a"}
-# Filters a segment: 100 (it was 200 before phase ha joined the script,
-# which must end well inside its 1,200 s limit on a slow host)
-DELTA_FILTERS = 100
+# Filters a segment: 60 (it was 200 before phase ha joined the script and
+# 100 before phase concurrent did; the script must end well inside its
+# 1,200 s limit on a slow host)
+DELTA_FILTERS = 60
 DELTA_GRANT_EVERY = 10  # segment (c): every 10th Filter is an app that is granted and starts
 # the queued drivers' Filters of segments (a) and (b) the cpu server
 # answers too: its warm passes are the plain versions' suffixes, seconds a
@@ -2568,10 +2594,12 @@ def contention_phase(seed: int, smi: str) -> dict:
 
 POLICY_SERVER = "tpu-batch"
 POLICY_WARM = 4  # probes on the on, off and cpu servers, on and cpu bodies equal
-POLICY_PROBES = 40  # granted probes, each retired, on each of the on and off servers
-POLICY_BLOCK = 20  # in blocks in turns, each block to its own server alone, each on block then to the cpu server
+# granted probes, each retired, on each of the on and off servers (40
+# before phase concurrent, 24 before its (b) timed 128 Filters a point)
+POLICY_PROBES = 16
+POLICY_BLOCK = 8  # in blocks in turns, each block to its own server alone, each on block then to the cpu server
 ORDER_WARM = 1  # probes before the drf and fifo servers' block (the first a cold pass)
-ORDER_BLOCK = 10  # the drf and fifo servers' block
+ORDER_BLOCK = 5  # the drf and fifo servers' block
 POLICY_YOUNG = 100  # the newest queued drivers, younger than the starvation age: backfill probes them
 POLICY_BANDS = (("low", 0.2), ("normal", 0.6), ("high", 0.2))
 POLICY_TENANTS = 4
@@ -3000,11 +3028,8 @@ def ha_phase(seed: int, smi: str) -> dict:
     import tempfile
 
     from k8s_spark_scheduler_tpu_torch import timesource
-    from k8s_spark_scheduler_tpu_torch.ha import crashpoint
-    from k8s_spark_scheduler_tpu_torch.ha.crashmatrix import PORTED_POINTS, CrashMatrix
     from k8s_spark_scheduler_tpu_torch.ha.fencing import StaleEpochError
     from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
-    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
     from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
     from k8s_spark_scheduler_tpu_torch.testing.fake_kube_api import FakeKubeAPI
     from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
@@ -3271,10 +3296,78 @@ def ha_phase(seed: int, smi: str) -> dict:
         logging.disable(logging.NOTSET)
         gc.callbacks.remove(gcs)
 
-    # (e) the crash matrix on the card, each cell against the same cell on
-    # the CPU
+    return {chk: path_launches}
+
+
+# -- phase concurrent: the concurrent admission engine -----------------------
+
+CONCURRENT_POLICIES = ("tpu-batch", "tpu-batch-minimal-fragmentation")  # (a)
+CONCURRENT_DRIVERS = 48  # (a): new drivers a policy, through the engine from CONCURRENT_THREADS threads
+CONCURRENT_THREADS = 8
+CONCURRENT_CLIENTS = (1, 8)  # (b): HTTP client threads, under CONCURRENT_POLICIES[0]
+# (b): Filters a segment, client count and server: enough that the p99
+# is not the slowest Filter and each of 8 clients sends 16
+CONCURRENT_REQUESTS = 128
+CONCURRENT_STREAMS = (1, 2, 4, 8)  # (c): fifo_queue launches at once, each on its own stream
+CONCURRENT_REPS = 5  # (c): batches timed for each k
+# the kernel (variant) a policy's speculations launch: one plain launch
+# each, on the speculating thread's own stream
+SPECULATOR_KERNEL = {"tpu-batch": "fifo_queue_tightly", "tpu-batch-minimal-fragmentation": "fifo_queue_min_frag"}
+# commit results where the verdict was invalidated and the serial path re-solved
+CONFLICT_RESULTS = ("conflict", "queue-drift", "skip-drift", "candidate-drift", "pod-mismatch")
+
+
+def speculation_outcomes(server) -> dict:
+    """The server's speculation counts by outcome."""
+    from k8s_spark_scheduler_tpu_torch.metrics import names as mnames
+
+    prefix = mnames.CONCURRENT_SPECULATION_COUNT + "[outcome="
+    return {k[len(prefix):-1]: int(v) for k, v in server.scheduler.metrics.snapshot()["counters"].items()
+            if k.startswith(prefix)}
+
+
+def counts_since(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in sorted(after.items()) if v - before.get(k, 0)}
+
+
+def speculator_launches() -> dict:
+    """Queue-kernel launches (by module) on non-default CUDA streams since
+    the counts were last reset.  In this phase only the speculating
+    threads launch there, each on its own stream: commits, warm solves
+    and the observatory launch theirs on the default stream or launch no
+    queue kernel."""
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+
+    default = torch.cuda.default_stream().cuda_stream
+    streams = {h for counts in (qk.stream_launch_counts, mk.stream_launch_counts) for h in counts if h != default}
+    return {"queue": sum(qk.stream_launch_counts.get(h, 0) for h in streams),
+            "min_frag": sum(mk.stream_launch_counts.get(h, 0) for h in streams), "streams": len(streams)}
+
+
+def ticket_wait(server) -> tuple:
+    """(count, sum in s) of the engine's ticket-wait histogram."""
+    from k8s_spark_scheduler_tpu_torch.metrics import names as mnames
+
+    h = server.scheduler.metrics.collect()["histograms"].get((mnames.CONCURRENT_TICKET_WAIT_TIME, ()))
+    return (h["count"], h["sum"]) if h else (0, 0.0)
+
+
+def crash_matrix_cells(smi: str) -> int:
+    """Phase concurrent (d): every crash-matrix cell and the handoff cell
+    on cuda, each report against the same cell on cpu.  Returns the
+    cuda cells' queue-kernel launches on their Filters' path: the
+    checkpointed ones and the speculations' on their own streams."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.ha import crashpoint
+    from k8s_spark_scheduler_tpu_torch.ha.crashmatrix import PORTED_POINTS, CrashMatrix
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+
+    chk = "fifo_queue_tightly_checkpointed"
     t0 = time.perf_counter()
-    cells_launches = {"plain": 0, "checkpointed": 0}
+    cells_launches = {"plain": 0, "checkpointed": 0, "speculated": 0}
     logging.disable(logging.CRITICAL)  # each cell's kill -9 logs its stack traces
     try:
         for point in PORTED_POINTS:
@@ -3290,10 +3383,36 @@ def ha_phase(seed: int, smi: str) -> dict:
                     cells_launches["plain"] += cell[0]
                     cells_launches["checkpointed"] += cell[1]
             if not reports["cuda"]["ok"] or reports["cuda"] != reports["cpu"]:
-                raise SystemExit(f"phase ha: (e) cell {point}: cuda {reports['cuda']}, cpu {reports['cpu']}")
-            log(f"phase ha: (e) crash cell {point}: ok, crashed, recovered at epoch "
+                raise SystemExit(f"phase concurrent: (d) cell {point}: cuda {reports['cuda']}, cpu {reports['cpu']}")
+            log(f"phase concurrent: (d) crash cell {point}: ok, crashed, recovered at epoch "
                 f"{reports['cuda']['recoveredEpoch']}, report equal on cuda and cpu; cuda {seconds['cuda']:.2f} s "
                 f"(queue kernel: {cell[0]} warmup launches, {cell[1]} checkpointed Filter launches), cpu "
+                f"{seconds['cpu']:.2f} s")
+        # the window's cells with the policy engine off: the crashed
+        # Filter's verdict solved on its thread's stream, in flight or
+        # (commit-written) consumed as a hit before the death
+        for point in PORTED_POINTS:
+            if not point.startswith("concurrent."):
+                continue
+            reports, seconds = {}, {}
+            for device in ("cuda", "cpu"):
+                qk.reset_launch_counts()
+                mk.reset_launch_counts()
+                t = time.perf_counter()
+                reports[device] = CrashMatrix(nodes=2, device=device, binpack_algo=HA_MATRIX_BINPACK,
+                                              policy=False).run_point(point)
+                seconds[device] = time.perf_counter() - t
+                if device == "cuda":
+                    cell = (speculator_launches()["queue"], qk.launch_counts[chk])
+                    cells_launches["speculated"] += cell[0]
+                    cells_launches["checkpointed"] += cell[1]
+            if not reports["cuda"]["ok"] or reports["cuda"] != reports["cpu"]:
+                raise SystemExit(f"phase concurrent: (d) cell {point}, policy off: cuda {reports['cuda']}, "
+                                 f"cpu {reports['cpu']}")
+            log(f"phase concurrent: (d) crash cell {point}, policy engine off: ok, speculation "
+                f"{reports['cuda']['speculation']} before the crash, reservation present "
+                f"{reports['cuda']['reservationPresent']}, report equal on cuda and cpu; cuda {seconds['cuda']:.2f} "
+                f"s (queue kernel: {cell[0]} speculation launches on its own stream, {cell[1]} checkpointed), cpu "
                 f"{seconds['cpu']:.2f} s")
         handoff = {}
         for device in ("cuda", "cpu"):
@@ -3301,19 +3420,272 @@ def ha_phase(seed: int, smi: str) -> dict:
             handoff[device] = CrashMatrix(nodes=2, device=device, binpack_algo=HA_MATRIX_BINPACK).run_handoff()
             seconds[device] = time.perf_counter() - t
         if not handoff["cuda"]["ok"] or handoff["cuda"] != handoff["cpu"]:
-            raise SystemExit(f"phase ha: (e) handoff cell: cuda {handoff['cuda']}, cpu {handoff['cpu']}")
+            raise SystemExit(f"phase concurrent: (d) handoff cell: cuda {handoff['cuda']}, cpu {handoff['cpu']}")
         if crashpoint.armed() is not None:
-            raise SystemExit("phase ha: (e) a crash point stayed armed")
+            raise SystemExit("phase concurrent: (d) a crash point stayed armed")
     finally:
         logging.disable(logging.NOTSET)
-    path_launches += cells_launches["checkpointed"]
-    log(f"phase ha: (e) the two-replica handoff cell: ok, epoch {handoff['cuda']['handoffEpoch']}, deposedRefusals "
-        f"{handoff['cuda']['deposedRefusals']}, equal on cuda and cpu ({seconds['cuda']:.2f} / {seconds['cpu']:.2f} s); "
-        f"the {len(PORTED_POINTS)} cells and the handoff under {HA_MATRIX_BINPACK} in {time.perf_counter() - t0:.1f} s, "
-        f"the cuda cells launching the queue kernel {cells_launches['plain']} times at their servers' warmup and "
-        f"{cells_launches['checkpointed']} times checkpointed on their Filters (a cell's gang has no earlier "
-        f"driver, so its session has no queue to pass) | {smi}")
-    return {chk: path_launches}
+    log(f"phase concurrent: (d) the two-replica handoff cell: ok, epoch {handoff['cuda']['handoffEpoch']}, "
+        f"deposedRefusals {handoff['cuda']['deposedRefusals']}, equal on cuda and cpu ({seconds['cuda']:.2f} / "
+        f"{seconds['cpu']:.2f} s); the {len(PORTED_POINTS)} cells (each with the concurrent admission engine on; "
+        f"the cells' policy engine makes every speculation decline, as in the reference), the 3 window cells "
+        f"with the policy engine off and the handoff under "
+        f"{HA_MATRIX_BINPACK} in {time.perf_counter() - t0:.1f} s, the cuda cells launching the queue kernel "
+        f"{cells_launches['plain']} times at their servers' warmup, {cells_launches['speculated']} times on "
+        f"speculators' streams and {cells_launches['checkpointed']} times checkpointed on their Filters (a cell's "
+        f"gang has no earlier driver, so its session has no queue to pass) | {smi}")
+    return {"fifo_queue_tightly": cells_launches["speculated"],
+            "fifo_queue_tightly_checkpointed": cells_launches["checkpointed"]}
+
+
+def concurrent_launches(queue_args, smi: str) -> None:
+    """Phase concurrent (c): fifo_queue at the main path's inputs, k
+    launches at once on k streams, each batch timed by CUDA events (the
+    batch from before the first launch to after the last, and each
+    launch on its own stream), every result equal to the plain version."""
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+
+    want = qk.solve_queue_plain(*queue_args)
+    main = torch.cuda.current_stream()
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    for k in CONCURRENT_STREAMS:
+        streams = [torch.cuda.Stream() for _ in range(k)]
+        batch_ms, launch_ms = [], []
+        for rep in range(CONCURRENT_REPS + 1):  # the first batch warms the streams, untimed
+            begin, end = event(), event()
+            starts, stops = [event() for _ in streams], [event() for _ in streams]
+            outs = []
+            begin.record(main)
+            for stream, start, stop in zip(streams, starts, stops):
+                stream.wait_event(begin)
+                with torch.cuda.stream(stream):
+                    start.record(stream)
+                    outs.append(qk.fifo_queue(*queue_args))
+                    stop.record(stream)
+            for stop in stops:
+                main.wait_event(stop)
+            end.record(main)
+            torch.cuda.synchronize()
+            for i, out in enumerate(outs):
+                err = compare(out, want)
+                if err:
+                    raise SystemExit(f"phase concurrent: (c) k={k} launch {i} != plain (max |diff| {err})")
+            if rep:
+                batch_ms.append(begin.elapsed_time(end))
+                launch_ms += [start.elapsed_time(stop) for start, stop in zip(starts, stops)]
+        n_b, a_b = queue_args[0].shape[0], queue_args[3].shape[0]
+        log(f"phase concurrent: (c) fifo_queue_tightly N={n_b} A={a_b} ({int(queue_args[6].sum())} valid), {k} "
+            f"launches at once on {k} streams: batch median {statistics.median(batch_ms):.3f} ms (batches "
+            f"{', '.join(f'{x:.3f}' for x in batch_ms)}), a launch median {statistics.median(launch_ms):.3f} ms, "
+            f"max {max(launch_ms):.3f}; every result equal to the plain version | {smi}")
+
+
+def concurrent_phase(seed: int, smi: str, queue_args) -> dict:
+    """Phase concurrent (see the module docstring).  Returns the queue
+    kernels' launches on the phase's path: the speculations' plain
+    launches on their threads' streams and the cells' checkpointed ones;
+    raises SystemExit on any failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+    from k8s_spark_scheduler_tpu_torch.types import serde
+    from k8s_spark_scheduler_tpu_torch.types.extenderapi import ExtenderArgs
+
+    t_phase = time.perf_counter()
+    launches = {kname + suffix: 0 for kname in SPECULATOR_KERNEL.values() for suffix in ("", "_checkpointed")}
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    names, nodes, queue, rng, base = server_objects(seed)
+    made = [0]
+    servers = {}
+
+    def new_driver(tag: str):
+        """A new driver of the queue's distribution, younger than the queue."""
+        pod = Harness.static_allocation_spark_pods(
+            f"conc-{tag}", int(rng.randint(1, 32)), executor_cpu=str(int(rng.randint(1, 8))),
+            executor_mem=f"{int(rng.randint(2, 16))}Gi", creation_timestamp=base + N_APPS + made[0])[0]
+        made[0] += 1
+        return pod
+
+    def in_turn(server, pods, turns: int, fn):
+        """fn(server, pod, k) for every pod from `turns` threads, thread t
+        taking pods t, t + turns, ...; returns the results in order."""
+        out, errors = [None] * len(pods), []
+
+        def worker(t):
+            try:
+                for k in range(t, len(pods), turns):
+                    out[k] = fn(server, pods[k], k)
+            except BaseException as err:  # surfaced below
+                errors.append(err)
+
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(turns)]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join()
+        if errors:
+            raise errors[0]
+        return out
+
+    try:
+        # (a) equality: the engine from 8 threads against the serial extender
+        for policy in CONCURRENT_POLICIES:
+            t0 = time.perf_counter()
+            on = servers[policy, "on"] = PortServer(policy, "cuda", nodes, queue, concurrent=True)
+            off = servers[policy, "off"] = PortServer(policy, "cuda", nodes, queue)
+            engine = on.scheduler.concurrent
+            if engine is None or off.scheduler.concurrent is not None:
+                raise SystemExit("phase concurrent: the concurrent switch did not reach the servers")
+            drivers = [new_driver(f"{policy}-{i:02d}") for i in range(CONCURRENT_DRIVERS)]
+            for server in (on, off):
+                for pod in drivers:
+                    server.api.create(pod.deepcopy())
+            log(f"phase concurrent: (a) {policy}: a cuda server with the engine and one without ready in "
+                f"{time.perf_counter() - t0:.2f} s; {len(drivers)} new drivers behind {N_APPS} queued")
+            qk.reset_launch_counts()
+            mk.reset_launch_counts()
+            spec0, results0 = speculation_outcomes(on), engine.stats()["commit_results"]
+            tickets = [engine.gate.ticket() for _ in drivers]
+
+            def through_engine(server, pod, k):
+                stored = server.api.get("Pod", pod.namespace, pod.name).deepcopy()
+
+                def bind(result):
+                    if result.node_names:
+                        server.bind(stored, result.node_names[0])
+
+                result = engine.predicate(ExtenderArgs(pod=stored, node_names=names), ticket=tickets[k],
+                                          post_commit=bind)
+                return bytes(serde.encode_extender_filter_result(result))
+
+            t = time.perf_counter()
+            got = in_turn(on, drivers, CONCURRENT_THREADS, through_engine)
+            on_s = time.perf_counter() - t
+            spec_launched = speculator_launches()
+            plain = {**qk.launch_counts, **mk.launch_counts}
+
+            def serially(server, pod, k):
+                stored = server.api.get("Pod", pod.namespace, pod.name).deepcopy()
+                result = server.scheduler.extender.predicate(ExtenderArgs(pod=stored, node_names=names))
+                if result.node_names:
+                    server.bind(stored, result.node_names[0])
+                return bytes(serde.encode_extender_filter_result(result))
+
+            t = time.perf_counter()
+            want = in_turn(off, drivers, 1, serially)
+            off_s = time.perf_counter() - t
+            for k, (a, b) in enumerate(zip(got, want)):
+                if a != b:
+                    raise SystemExit(f"phase concurrent: (a) {policy} driver {k}: engine {a[:300]!r}, serial "
+                                     f"{b[:300]!r}")
+            granted = sum(bool(json.loads(body).get("NodeNames")) for body in want)
+            spec = counts_since(speculation_outcomes(on), spec0)
+            results = counts_since(engine.stats()["commit_results"], results0)
+            kname = SPECULATOR_KERNEL[policy]
+            kind = "min_frag" if kname == "fifo_queue_min_frag" else "queue"
+            if spec.get("error", 0) or not spec.get("solved") or spec_launched[kind] < 1:
+                raise SystemExit(f"phase concurrent: (a) {policy}: speculations {spec}, launches on the "
+                                 f"speculators' streams {spec_launched}")
+            launches[kname] += spec_launched[kind]
+            launches[kname + "_checkpointed"] += plain[kname + "_checkpointed"]  # the engine's commits
+            log(f"phase concurrent: (a) {policy}: {len(drivers)} drivers ({granted} granted) through the engine from "
+                f"{CONCURRENT_THREADS} threads in {on_s:.2f} s and serially in {off_s:.2f} s, every body "
+                f"byte-equal; speculations {spec} (error 0); commit results {results}; {spec_launched[kind]} "
+                f"{kname} launches on {spec_launched['streams']} speculator streams (all plain launches of the "
+                f"run: {plain}) | {smi}")
+            if policy != CONCURRENT_POLICIES[0]:
+                for side in ("on", "off"):
+                    servers.pop((policy, side)).stop()
+
+        # (b) timing over HTTP under the first policy, on against off
+        policy = CONCURRENT_POLICIES[0]
+        on, off = servers[policy, "on"], servers[policy, "off"]
+        engine = on.scheduler.concurrent
+        blocker = Harness.static_allocation_spark_pods(
+            "conc-blocker", 1, executor_cpu="97", creation_timestamp=base - 1.0)[0]
+        kname = SPECULATOR_KERNEL[policy]
+        for segment, granted in (("granted", True), ("refused", False)):
+            if not granted:
+                # an enforced driver at the head of the queue that fits
+                # nowhere: every queued driver's Filter is refused behind it
+                for server in (on, off):
+                    server.api.create(blocker.deepcopy())
+            for clients in CONCURRENT_CLIENTS:
+                pods = ([new_driver(f"{segment}-{clients}-{i:02d}") for i in range(CONCURRENT_REQUESTS)]
+                        if granted else [queue[int(rng.randint(0, N_APPS))] for _ in range(CONCURRENT_REQUESTS)])
+                lines = []
+                for side in (("on", "off") if clients % 2 else ("off", "on")):
+                    server, other = (on, off) if side == "on" else (off, on)
+                    if granted:
+                        for pod in pods:
+                            server.api.create(pod.deepcopy())
+                    qk.reset_launch_counts()
+                    mk.reset_launch_counts()
+                    spec0, results0 = speculation_outcomes(on), engine.stats()["commit_results"]
+                    waits0 = ticket_wait(on)
+                    _, cursor = on.scheduler.tracer.completed_since(2**62)
+
+                    def post(server, pod, k):
+                        ms, status, body = server.post(pod, names)
+                        if status != 200 or bool(json.loads(body).get("NodeNames")) != granted:
+                            raise SystemExit(f"phase concurrent: (b) {segment} {side} {pod.name}: {status} "
+                                             f"{body[:300]!r}")
+                        if granted:
+                            server.retire([pod])
+                        return ms
+
+                    other.pause_background()
+                    try:
+                        t = time.perf_counter()
+                        lat = in_turn(server, pods, clients, post)
+                        wall = time.perf_counter() - t
+                    finally:
+                        other.resume_background()
+                    line = (f"{side}: {len(pods) / wall:.1f} decisions/s, p50 {statistics.median(lat):.3f} ms, p99 "
+                            f"{float(np.percentile(lat, 99)):.3f} ms")
+                    if side == "on":
+                        traces, _ = on.scheduler.tracer.completed_since(cursor)
+                        solve_ms = [span["durationMs"] for span in
+                                    (find_span(tr["root"], "speculation.solve") for tr in traces) if span]
+                        spec = counts_since(speculation_outcomes(on), spec0)
+                        results = counts_since(engine.stats()["commit_results"], results0)
+                        launched = speculator_launches()
+                        if spec.get("error", 0):
+                            raise SystemExit(f"phase concurrent: (b) speculation errors {spec}")
+                        launches[kname] += launched["queue"]
+                        launches[kname + "_checkpointed"] += qk.launch_counts[kname + "_checkpointed"]
+                        waits = [a - b for a, b in zip(ticket_wait(on), waits0)]
+                        hits = results.get("seq-hit", 0) + results.get("memcmp-hit", 0)
+                        conflicts = sum(results.get(r, 0) for r in CONFLICT_RESULTS)
+                        line += (f"; speculations {spec}; commits hit {hits} / conflict {conflicts} / serial "
+                                 f"{results.get('serial', 0)}; ticket wait mean {waits[1] / waits[0] * 1e3:.3f} ms over "
+                                 f"{waits[0]} commits (the engine's histogram); "
+                                 f"speculation.solve p50 "
+                                 f"{statistics.median(solve_ms) if solve_ms else float('nan'):.3f} ms "
+                                 f"({len(solve_ms)} spans); {launched['queue']} {kname} launches on the "
+                                 f"speculators' streams")
+                    lines.append(line)
+                log(f"phase concurrent: (b) {policy} {segment}, {clients} client(s), {len(pods)} Filters a server: "
+                    + " | ".join(lines) + f" | {smi}")
+        if engine.speculator.inflight():
+            raise SystemExit("phase concurrent: a speculation is still in flight")
+    finally:
+        for server in servers.values():
+            server.stop()
+        logging.disable(logging.NOTSET)
+
+    # (c) the card's side: k launches at once on k streams
+    concurrent_launches(queue_args, smi)
+    # (d) the crash matrix, every cell with the engine on
+    for kname, n in crash_matrix_cells(smi).items():
+        launches[kname] += n
+    log(f"phase concurrent: the phase's path launched {launches} | {smi}")
+    return launches
 
 
 def session_stream(problem, n_earlier: int, smi: str) -> None:
@@ -3437,6 +3809,11 @@ def traced_device_time(fn):
     for server in paused:
         server.pause_background()
     join_request_threads()
+    # a speculation runs on its request's thread, so none is in flight now
+    for server in PortServer.live:
+        engine = server.scheduler.concurrent
+        if engine is not None and engine.speculator.inflight():
+            raise SystemExit("a speculation is in flight at the profiler's start")
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3865,9 +4242,9 @@ def main() -> int:
     n_valid = int(valid.sum())
     queue_bytes = 4 * (3 * n_b + n_b) + n_b + a_b * (4 * 3 * 2 + 4 + 1) + a_b * (1 + 4) + 4 * 3 * n_b
 
-    def timed(kname, kind, fn, plain, floor_fn, ops, n_bytes):
+    def timed(kname, kind, fn, plain_ms, floor_fn, ops, n_bytes):
+        """The kernel's entry; plain_ms is the one plain call its check made."""
         ms = [time_cuda(fn, 5) for _ in range(3)]
-        plain_ms = time_cuda(plain, 1)
         floor_ms = time_cuda(floor_fn, 5)
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
         log(f"phase main-path: {kname} N={n_b} A={a_b} ({n_valid} valid): "
@@ -3880,25 +4257,25 @@ def main() -> int:
     floor_args = tuple(x[:FLOOR_NODES] for x in queue_args[:3]) + queue_args[3:]
     for evenly, kname in ((False, "fifo_queue_tightly"), (True, "fifo_queue_evenly")):
         got = qk.fifo_queue(*queue_args, evenly=evenly)
-        check(kname, got, qk.solve_queue_plain(*queue_args, evenly=evenly), "the main-path inputs")
+        want, plain_ms = timed_once(lambda: qk.solve_queue_plain(*queue_args, evenly=evenly))
+        check(kname, got, want, "the main-path inputs")
         n_feasible = int(got[0].sum())
         ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * OPS_PER_NODE_FEASIBLE_APP)
         log(f"phase main-path: {kname}: {n_feasible} feasible; {queue_layout(qk, n_b, dev)}")
         kernels.append(timed(
-            kname, "queue", lambda: qk.fifo_queue(*queue_args, evenly=evenly),
-            lambda: qk.solve_queue_plain(*queue_args, evenly=evenly),
+            kname, "queue", lambda: qk.fifo_queue(*queue_args, evenly=evenly), plain_ms,
             lambda: qk.fifo_queue(*floor_args, evenly=evenly), ops, queue_bytes,
         ))
 
     got = mk.fifo_queue_min_frag(*queue_args)
-    check("fifo_queue_min_frag", got, mk.solve_queue_min_frag_plain(*queue_args), "the main-path inputs")
+    want, plain_ms = timed_once(lambda: mk.solve_queue_min_frag_plain(*queue_args))
+    check("fifo_queue_min_frag", got, want, "the main-path inputs")
     n_feasible = int(got[0].sum())
     log(f"phase main-path: fifo_queue_min_frag: {n_feasible} feasible; cluster of "
         f"{mk.CLUSTER_BLOCKS} blocks of {mk.THREADS} threads")
     ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * MF_OPS_PER_NODE_FEASIBLE_APP)
     kernels.append(timed(
-        "fifo_queue_min_frag", "min_frag", lambda: mk.fifo_queue_min_frag(*queue_args),
-        lambda: mk.solve_queue_min_frag_plain(*queue_args),
+        "fifo_queue_min_frag", "min_frag", lambda: mk.fifo_queue_min_frag(*queue_args), plain_ms,
         lambda: mk.fifo_queue_min_frag(*floor_args), ops, queue_bytes,
     ))
 
@@ -3948,8 +4325,8 @@ def main() -> int:
     for kname, (az_aware, minfrag) in SINGLE_AZ.items():
         flags = dict(az_aware=az_aware, minfrag=minfrag, strict=True)
         got = sk.fifo_queue_single_az(*az_arrays, *az_scalars, **flags)
-        check(kname, got, sk.solve_queue_single_az_plain(*az_arrays, *az_scalars, **flags),
-              "the main-path inputs")
+        want, plain_ms = timed_once(lambda: sk.solve_queue_single_az_plain(*az_arrays, *az_scalars, **flags))
+        check(kname, got, want, "the main-path inputs")
         n_placed, n_uncertain = int(got[0].sum()), int(got[3][: len(earlier)].sum())
         n_cross = int((got[1][: len(earlier)] == len(zones)).sum())
         log(f"phase main-path: {kname}: {n_placed} placed, {n_uncertain} of {len(earlier)} "
@@ -3960,8 +4337,7 @@ def main() -> int:
         work = MF_OPS_PER_NODE_FEASIBLE_APP if minfrag else OPS_PER_NODE_FEASIBLE_APP
         ops = n_b * a_b * (len(zones) + OPS_PER_NODE_VALID_APP) + n_placed * (n_b // len(zones) * work + 3 * n_b)
         kernels.append(timed(
-            kname, "single_az", lambda: sk.fifo_queue_single_az(*az_arrays, *az_scalars, **flags),
-            lambda: sk.solve_queue_single_az_plain(*az_arrays, *az_scalars, **flags),
+            kname, "single_az", lambda: sk.fifo_queue_single_az(*az_arrays, *az_scalars, **flags), plain_ms,
             lambda: sk.fifo_queue_single_az(*az_floor, *az_scalars, **flags), ops, az_bytes,
         ))
     for kind, lib in libraries.items():
@@ -4062,7 +4438,15 @@ def main() -> int:
     log(f"phase ha: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 13: results
+    # ---- phase concurrent: the concurrent admission engine through the server
+    t = time.perf_counter()
+    concurrent_path = concurrent_phase(args.seed, smi, queue_args)
+    for entry in kernels:
+        entry["launches"] += concurrent_path.get(entry["name"], 0)
+    log(f"phase concurrent: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 14: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

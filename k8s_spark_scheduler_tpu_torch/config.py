@@ -409,6 +409,48 @@ class HAConfig:
         )
 
 
+_CONCURRENT_KEYS = {"enabled", "speculation", "max-inflight-speculations", "multi-active"}
+
+
+@dataclass
+class ConcurrentConfig:
+    """Concurrent admission engine (concurrent/): optimistic speculative
+    solves committed through a FIFO commit gate.
+
+    Disabled (the default) wires nothing — Filter requests run the
+    serial extender exactly as before, byte-identical decisions.
+    Enabled, independent requests speculate in parallel against
+    seq-stamped snapshot bases (on the card, each on its request
+    thread's own CUDA stream) and commit in strict arrival order; the
+    commit gate revalidates every verdict, so decisions are *still*
+    byte-identical to the serial extender.
+    """
+
+    enabled: bool = False
+    # run the speculative solve at all; off = requests still serialize
+    # through the FIFO commit gate but never solve outside the lock
+    # (a degraded mode for conflict storms)
+    speculation: bool = True
+    # concurrent speculations beyond this bound skip straight to the
+    # serial commit path (memory bound: each holds a snapshot basis)
+    max_inflight_speculations: int = 8
+    # accepted and kept for the reference's configs, but nothing reads
+    # it yet (nor in the reference): the engine's make_intent /
+    # submit_intent forwarding path is not wired to any transport, so
+    # this does not switch multi-active operation on
+    multi_active: bool = False
+
+    @staticmethod
+    def from_dict(d: dict) -> "ConcurrentConfig":
+        _check_keys(d, _CONCURRENT_KEYS, "concurrent")
+        return ConcurrentConfig(
+            enabled=d.get("enabled", False),
+            speculation=d.get("speculation", True),
+            max_inflight_speculations=d.get("max-inflight-speculations", 8),
+            multi_active=d.get("multi-active", False),
+        )
+
+
 @dataclass
 class ConversionWebhookConfig:
     """Where the apiserver would reach the CRD conversion webhook
@@ -427,9 +469,7 @@ class ConversionWebhookConfig:
 # (the reference's default for its "enabled" flag, ROADMAP item).  A
 # section turns its subsystem on when its "enabled" (or that default)
 # is true.
-_UNPORTED_SECTIONS = {
-    "concurrent": (False, "ROADMAP A.4 (concurrent admission)"),
-}
+_UNPORTED_SECTIONS: Dict[str, Tuple[bool, str]] = {}
 # what the reference runs on a config that omits every key and this
 # package lacks: each unported section enabled by default —
 # (subsystem, ROADMAP item) pairs
@@ -461,6 +501,7 @@ _KNOWN_KEYS = {
     "contention",
     "policy",
     "ha",
+    "concurrent",
     *_UNPORTED_SECTIONS,
 }
 _FIFO_KEYS = {"default-enforce-after-pod-age-seconds", "enforce-after-pod-age-by-instance-group"}
@@ -545,6 +586,9 @@ class Install:
     # HA failover fabric: leader election + fencing + takeover
     # reconciliation (ha/) — disabled = single-replica, nothing wired
     ha: HAConfig = field(default_factory=HAConfig)
+    # concurrent admission engine: parallel speculative solves + FIFO
+    # commit gate (concurrent/) — disabled = serial extender, nothing wired
+    concurrent: ConcurrentConfig = field(default_factory=ConcurrentConfig)
     # subsystems the reference would run on this config and this package
     # lacks, as (subsystem, ROADMAP item); from_dict derives it from the
     # keys given, a directly built Install has the reference's defaults
@@ -615,5 +659,6 @@ class Install:
             contention=ContentionConfig.from_dict(d.get("contention") or {}),
             policy=PolicyConfig.from_dict(d.get("policy") or {}),
             ha=HAConfig.from_dict(d.get("ha") or {}),
+            concurrent=ConcurrentConfig.from_dict(d.get("concurrent") or {}),
             reference_only=_reference_only(d),
         )

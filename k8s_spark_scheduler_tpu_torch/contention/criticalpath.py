@@ -51,9 +51,8 @@ SPAN_SEGMENTS: Dict[str, str] = {
     "binpack": "solve",
     "fast_path.build_tensor": "solve",
     "executor.fast_reschedule": "solve",
-    # the reference's concurrent engine's speculative solve, which runs
-    # before the lock; this package has no such engine yet (ROADMAP
-    # A.4), and keeps the segment so the bodies match the reference's
+    # the concurrent engine's speculative solve (concurrent/
+    # speculation.py), which runs before the lock
     "speculation.solve": "speculate",
     "reservation.writeback": "write-back",
     "state.writeback.enqueue": "write-back",

@@ -33,11 +33,20 @@ Every incarnation's server runs on ``device`` (None = CUDA, which
 raises on a host without it; ``--device cpu`` from the command line)
 under ``binpack_algo`` (the reference's ``tightly-pack`` by default;
 ``tpu-batch`` serves every cell's driver Filter through the delta-solve
-session on ``device``).
-The reference's cells also run its concurrent admission engine; this
-package does not have one yet (ROADMAP A.4), so its cells run the serial
-extender and the three ``concurrent.*`` points are refused.  Sweep the
-other ten against the failover scenario's cluster shape::
+session on ``device``).  As in the reference, every cell's Filter
+traffic runs through the concurrent admission engine, so the three
+``concurrent.*`` points of the speculation→commit window sit on the
+live request path.  The cells also run the policy engine, as the
+reference's do, so each speculation there declines with
+``policy-engine`` and every commit is serial: those cells prove the
+window's exactly-once recovery for serial commits only.  With
+``policy=False`` (this package's own cells; the preemption points need
+the policy engine and refuse it) the three ``concurrent.*`` points die
+with a solved verdict in flight, and ``concurrent.commit-written`` after
+that verdict was consumed as a hit (its device tensors handed over to
+the commit's stream on the card); the report then carries the crashed
+incarnation's ``speculation`` counts and the audit requires them.
+Sweep all thirteen against the failover scenario's cluster shape::
 
     python -m k8s_spark_scheduler_tpu_torch.ha.crashmatrix --device cpu \\
         --scenario examples/sim/failover.json --json report.json
@@ -60,11 +69,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..config import HAConfig, Install, PolicyConfig, ResilienceConfig
+from ..config import ConcurrentConfig, HAConfig, Install, PolicyConfig, ResilienceConfig
 from ..device import DeviceLike
 from ..kube.apiserver import APIServer
 from ..kube.crd import DEMAND_CRD_NAME, demand_crd_spec
 from ..kube.errors import APIError
+from ..metrics import names as mnames
 from ..policy.victims import VictimCandidate, VictimPlan
 from ..scheduler import invariants
 from ..server.wiring import init_server_with_clients
@@ -91,15 +101,14 @@ _DIVERT_POINTS = {
     crashpoint.JOURNAL_PRE_APPEND,
     crashpoint.JOURNAL_POST_APPEND,
 }
-# the reference's speculation→commit window points (its concurrent
-# admission engine, not in this package yet): refused here
+# the speculation→commit window (concurrent/engine.py)
 _CONCURRENT_POINTS = {
     crashpoint.CONCURRENT_SPECULATION_SOLVED,
     crashpoint.CONCURRENT_COMMIT_REVALIDATED,
     crashpoint.CONCURRENT_COMMIT_WRITTEN,
 }
-# the points this package's cells run: every registered one but those
-PORTED_POINTS = tuple(p for p in crashpoint.registered_points() if p not in _CONCURRENT_POINTS)
+# the points this package's cells run: every registered one
+PORTED_POINTS = tuple(crashpoint.registered_points())
 
 
 def _wait(cond, timeout: float = 10.0, tick: float = 0.01) -> bool:
@@ -122,6 +131,7 @@ class CrashMatrix:
         lease_name: str = "tpu-gang-scheduler",
         device: DeviceLike = None,
         binpack_algo: str = "tightly-pack",
+        policy: bool = True,
     ):
         self.nodes = nodes
         self.node_cpu = node_cpu
@@ -129,6 +139,9 @@ class CrashMatrix:
         self.lease_name = lease_name
         self.device = device
         self.binpack_algo = binpack_algo
+        # run the policy engine in every incarnation (the reference's
+        # cells do); off, speculations solve and commits consume them
+        self.policy = policy
 
     # -- incarnation lifecycle -------------------------------------------
 
@@ -137,7 +150,7 @@ class CrashMatrix:
             fifo=True,
             binpack_algo=self.binpack_algo,
             resilience=ResilienceConfig(journal_path=journal_path),
-            policy=PolicyConfig(enabled=True, preemption_enabled=True),
+            policy=PolicyConfig(enabled=self.policy, preemption_enabled=self.policy),
             ha=HAConfig(
                 enabled=True,
                 background=False,
@@ -145,6 +158,10 @@ class CrashMatrix:
                 lease_duration_seconds=_LEASE_TTL_S,
                 identity=identity,
             ),
+            # every cell's Filter traffic runs through the concurrent
+            # admission engine, so the speculation→commit window's crash
+            # points sit on the live request path
+            concurrent=ConcurrentConfig(enabled=True),
         )
 
     def _boot(self, api: APIServer, identity: str, journal_path: str):
@@ -189,7 +206,7 @@ class CrashMatrix:
 
     @staticmethod
     def _schedule_app(server, api: APIServer, app_id: str, executors: int = 2) -> List[str]:
-        """Submit + schedule one gang through the real extender; binds
+        """Submit + schedule one gang through the concurrent engine; binds
         successes exactly as the kube-scheduler would.  Returns bound
         pod names."""
         pods = Harness.static_allocation_spark_pods(app_id, executors)
@@ -199,9 +216,7 @@ class CrashMatrix:
         bound = []
         for pod in pods:
             fresh = api.get(Pod.KIND, pod.namespace, pod.name)
-            result = server.extender.predicate(
-                ExtenderArgs(pod=fresh, node_names=list(node_names))
-            )
+            result = server.concurrent.predicate(ExtenderArgs(pod=fresh, node_names=list(node_names)))
             if result.node_names:
                 landed = api.get(Pod.KIND, pod.namespace, pod.name)
                 landed.node_name = result.node_names[0]
@@ -228,11 +243,8 @@ class CrashMatrix:
     # -- one matrix cell -------------------------------------------------
 
     def run_point(self, point: str) -> Dict:
-        if point in _CONCURRENT_POINTS:
-            raise ValueError(
-                f"crash point {point!r} lies in the concurrent admission engine, which this "
-                "package does not have yet: ROADMAP A.4"
-            )
+        if not self.policy and point in _PREEMPT_POINTS:
+            raise ValueError(f"crash point {point!r} needs the policy engine (policy=True)")
         journal_dir = tempfile.mkdtemp(prefix="crashmatrix-")
         journal_path = f"{journal_dir}/intents.jsonl"
         api = APIServer()
@@ -345,11 +357,35 @@ class CrashMatrix:
                 fired = _wait(lambda: crashpoint.armed() is None)
             return fired
 
+        if point in _CONCURRENT_POINTS:
+            # the speculation→commit window: the point fires on the
+            # Filter caller's thread inside engine.predicate — before
+            # the commit for speculation-solved / commit-revalidated,
+            # after the reservation write-back for commit-written
+            crashpoint.arm(point)
+            try:
+                self._schedule_app(server, api, "app-001")
+            except SimulatedCrash:
+                return True
+            finally:
+                if not self.policy:
+                    report["speculation"] = self._speculation(server)
+            return False
+
         # write-back commit and journal-ack points fire on the worker
         # thread during the very first reservation write
         crashpoint.arm(point)
         self._schedule_app(server, api, "app-001")
         return _wait(lambda: crashpoint.armed() is None)
+
+    @staticmethod
+    def _speculation(server) -> Dict[str, int]:
+        """The incarnation's solved speculations and the commits that
+        consumed one (a seq or memcmp hit)."""
+        counters = server.metrics.snapshot()["counters"]
+        solved = counters.get(f"{mnames.CONCURRENT_SPECULATION_COUNT}[outcome=solved]", 0)
+        results = server.concurrent.stats()["commit_results"]
+        return {"solved": int(solved), "hits": results.get("seq-hit", 0) + results.get("memcmp-hit", 0)}
 
     def _audit(self, server, api: APIServer, point: str, report: Dict) -> None:
         violations = [str(v) for v in invariants.check(server, raise_on_violation=False)]
@@ -371,6 +407,29 @@ class CrashMatrix:
                 except NotFoundError:
                     continue
                 violations.append(f"victim pod {name} still exists")
+        if point in _CONCURRENT_POINTS:
+            # exactly-once across the restart: a crash BEFORE the commit
+            # leaves zero reservation state (the gang was never
+            # admitted; the retry re-admits); a crash AFTER the
+            # reservation write leaves either the complete reservation
+            # or none (the bind never happened, so an unflushed write-
+            # back losing the race is still all-or-nothing) — never a
+            # half-committed gang
+            rr = cache.get("default", "app-001")
+            report["reservationPresent"] = rr is not None
+            if point != crashpoint.CONCURRENT_COMMIT_WRITTEN:
+                if rr is not None:
+                    violations.append("crash before commit left a reservation for app-001")
+            elif rr is not None and not rr.spec.reservations:
+                violations.append("app-001 reservation survived half-committed")
+            spec = report.get("speculation")
+            if spec is not None:
+                # policy off: the Filter died with its verdict in flight,
+                # or (commit-written) after consuming it
+                if spec["solved"] < 1:
+                    violations.append("no speculative verdict was in flight at the crash")
+                if point == crashpoint.CONCURRENT_COMMIT_WRITTEN and spec["hits"] < 1:
+                    violations.append("the crashed commit did not consume its verdict")
         if report["journalDepth"] != 0:
             violations.append(f"{report['journalDepth']} write intents still pending")
         if report["evictJournalDepth"] != 0:

@@ -4,12 +4,10 @@ reference package's ``ha/crashpoint.py``.
 ``maybe_crash("journal.post-append")`` sits at every point where a
 process death would leave interesting partial state: around the async
 write-back's API calls, both journals' append/ack, preemption commit,
-and lease renewal.  The registry below is the reference's whole sweep
-set; the three ``concurrent.*`` points belong to the concurrent
-admission engine, which this package does not have yet (ROADMAP A.4),
-so nothing here traverses them.  The crash-matrix harness
-(:mod:`.crashmatrix`) sweeps the others: scenario → crash at point k →
-cold-restart recovery → invariant audit.
+and lease renewal, and the concurrent admission engine's
+speculation→commit window.  The registry below is the reference's whole
+sweep set; the crash-matrix harness (:mod:`.crashmatrix`) sweeps it:
+scenario → crash at point k → cold-restart recovery → invariant audit.
 
 The disabled cost is ONE module-attribute read (``_ARMED is None``).
 Arming is one-shot: the first traversal of the armed point raises and

@@ -286,3 +286,37 @@ TAG_SEGMENT = "segment"
 TICK_INTERVAL_SECONDS = 30.0
 SLOW_LOG_THRESHOLD_SECONDS = 45.0
 STUCK_POD_LOG_THRESHOLD_SECONDS = 12 * 3600.0
+
+# concurrent admission engine (concurrent/): parallel speculative
+# solves + FIFO-ordered commit gate
+# speculation attempts, tagged outcome=solved|overlap|inflight-cap|
+# replay|not-driver|policy-engine|... (every decline names its reason)
+CONCURRENT_SPECULATION_COUNT = (
+    "foundry.spark.scheduler.tpu.concurrent.speculation.count"
+)
+# speculative work abandoned because the request deadline expired,
+# tagged phase=speculation-start|speculation-solved|commit-gate
+CONCURRENT_SPECULATION_CANCELLED = (
+    "foundry.spark.scheduler.tpu.concurrent.speculation.cancelled"
+)
+# commit-gate revalidation results, tagged result=seq-hit|memcmp-hit|
+# conflict|queue-drift|skip-drift|candidate-drift|serial
+CONCURRENT_COMMIT_RESULT = (
+    "foundry.spark.scheduler.tpu.concurrent.commit.result"
+)
+# commits whose speculative verdict was invalidated (re-solved under
+# the lock on the warm delta path) — the conflict-rate numerator
+CONCURRENT_COMMIT_CONFLICTS = (
+    "foundry.spark.scheduler.tpu.concurrent.commit.conflicts.count"
+)
+# time a request waited for its FIFO commit turn (seconds; histogram)
+CONCURRENT_TICKET_WAIT_TIME = (
+    "foundry.spark.scheduler.tpu.concurrent.ticket.wait.time"
+)
+# speculations currently in flight (gauge)
+CONCURRENT_INFLIGHT = "foundry.spark.scheduler.tpu.concurrent.inflight.count"
+# multi-active commit intents received, tagged result=committed|
+# stale-epoch (stale intents are refused before reaching the gate)
+CONCURRENT_INTENTS_FORWARDED = (
+    "foundry.spark.scheduler.tpu.concurrent.intents.forwarded.count"
+)

@@ -31,8 +31,10 @@ from .queue_kernel import (
     apply_flags,
     check_checkpoints,
     check_queue_args,
+    count_launch,
     gang_core_plain,
     last_axis_min,
+    reset_counts,
     stack_outputs,
     subtract_usage_plain,
     write_checkpoint,
@@ -52,9 +54,13 @@ LIBRARY = KernelLibrary("minfrag_kernel.cu", _declare)
 launch_counts = {"fifo_queue_min_frag": 0, "fifo_queue_min_frag_checkpointed": 0}
 
 
+# the same launches by the raw handle of the CUDA stream they went on
+# (queue_kernel.count_launch moves both under one lock)
+stream_launch_counts = {}
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    reset_counts(launch_counts, stream_launch_counts)
 
 
 # the kernel's launch: the node axis over one cluster of 8 blocks of 512
@@ -285,6 +291,7 @@ def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, 
     # the node planes when a block's nodes do not fit in its shared memory
     scratch = torch.empty((4 * n,), dtype=torch.int32, device=device)
     chk_base, chk_stride, chk_out = checkpoints
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = lib.fifo_queue_min_frag_launch(
             avail.data_ptr(), driver_rank.data_ptr(), exec_ok.data_ptr(),
@@ -295,9 +302,10 @@ def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, 
             None if usage is None else usage.data_ptr(), avail_after.data_ptr(), scratch.data_ptr(),
             chk_base, chk_stride, 0 if chk_out is None else chk_out.shape[0],
             None if chk_out is None else chk_out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"fifo_queue_min_frag kernel launch failed with CUDA error {err}")
-    launch_counts["fifo_queue_min_frag_checkpointed" if chk_out is not None else "fifo_queue_min_frag"] += 1
+    count_launch(launch_counts, stream_launch_counts,
+                 "fifo_queue_min_frag_checkpointed" if chk_out is not None else "fifo_queue_min_frag", stream)
     return feasible, driver_idx, usage, avail_after

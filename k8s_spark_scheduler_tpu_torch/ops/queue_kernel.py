@@ -31,6 +31,7 @@ loaded with ctypes, under ``<package>/_build`` (listed in .gitignore).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -62,9 +63,29 @@ launch_counts = {
 }
 
 
+# the same launches by the raw handle of the CUDA stream they went on
+# (the concurrent engine's speculations launch on their threads' own
+# streams); both counts move together, under one lock shared with the
+# min-frag kernel's counts, since several threads launch at once
+stream_launch_counts = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def reset_counts(counts: dict, by_stream: dict) -> None:
+    with _COUNT_LOCK:
+        for name in counts:
+            counts[name] = 0
+        by_stream.clear()
+
+
+def count_launch(counts: dict, by_stream: dict, name: str, stream: int) -> None:
+    with _COUNT_LOCK:
+        counts[name] += 1
+        by_stream[stream] = by_stream.get(stream, 0) + 1
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    reset_counts(launch_counts, stream_launch_counts)
 
 
 class Layout(NamedTuple):
@@ -324,6 +345,7 @@ def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, 
     usage = None if probe is None else torch.zeros((a,), dtype=torch.int32, device=device)
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
     chk_base, chk_stride, chk_out = checkpoints
+    stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         # global scratch only when a block's nodes do not fit in its shared memory
         in_shared = shared_bytes_or_raise(lib.fifo_queue_shared_bytes(n, None), "queue") > 0
@@ -338,10 +360,10 @@ def _launch(avail, driver_rank, exec_ok, drivers, executors, counts, app_valid, 
             None if scratch is None else scratch.data_ptr(),
             chk_base, chk_stride, 0 if chk_out is None else chk_out.shape[0],
             None if chk_out is None else chk_out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"fifo_queue kernel launch failed with CUDA error {err}")
     name = "fifo_queue_evenly" if evenly else "fifo_queue_tightly"
-    launch_counts[name + ("_checkpointed" if chk_out is not None else "")] += 1
+    count_launch(launch_counts, stream_launch_counts, name + ("_checkpointed" if chk_out is not None else ""), stream)
     return feasible, driver_idx, usage, avail_after

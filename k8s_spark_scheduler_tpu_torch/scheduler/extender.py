@@ -201,6 +201,13 @@ class SparkSchedulerExtender:
         # traces made during an SLO burn carry that context.  The value
         # is computed at ledger drain time, never on this path.
         self.slo_alert_source: Optional[Callable[[], str]] = None
+        # concurrent admission hook (concurrent/engine.py): installed
+        # for exactly one predicate call at a time (the commit gate
+        # serializes commits), consulted on the driver fast path with
+        # the commit-time basis — returns (outcome, zones) when the
+        # speculative verdict revalidates, None to run the normal solve.
+        # None (the default / serial operation) costs one attribute read.
+        self.speculation_intake = None
 
     # -- entry point ---------------------------------------------------------
 
@@ -710,6 +717,19 @@ class SparkSchedulerExtender:
             app_resources.executor_resources,
             app_resources.min_executor_count,
         )
+
+        # speculative-verdict intake first (concurrent/engine.py): the
+        # commit gate installed a verdict solved outside the lock;
+        # consume it only if it revalidates against THIS basis (seq →
+        # memcmp → conflict) — a conflict falls through to the warm
+        # delta solve below (the bounded re-solve), so decisions never
+        # depend on speculation
+        intake = self.speculation_intake
+        if intake is not None:
+            served = intake(driver, snap, node_names, earlier_apps, skip_allowed, current)
+            if served is not None:
+                tracing.add_tag("speculation", "hit")
+                return served
 
         # incremental lane first: a warm session skips the tensor build,
         # the sorts, the GCD scaling, the basis upload AND the

@@ -131,11 +131,20 @@ def _cache_lookup(pod: Pod):
     return key, hit
 
 
-def _cache_store(key, value) -> None:
+def _cache_store(key, value):
+    """Store ``value`` under ``key`` unless another thread stored first;
+    returns the entry the cache holds, so threads that parsed the same
+    pod version at once all share one AppDemand (the concurrent engine
+    revalidates a speculation by the identity of the queue's demands)."""
     with _spark_resources_lock:
+        held = _SPARK_RESOURCES_CACHE.get(key)
+        if held is not None:
+            _SPARK_RESOURCES_CACHE.move_to_end(key)
+            return held
         _SPARK_RESOURCES_CACHE[key] = value
         while len(_SPARK_RESOURCES_CACHE) > _SPARK_RESOURCES_CACHE_MAX:
             _SPARK_RESOURCES_CACHE.popitem(last=False)
+        return value
 
 
 def _cached_entry(pod: Pod):
@@ -164,7 +173,7 @@ def _cached_entry(pod: Pod):
         except AnnotationError as err:
             hit = err
         if key is not None:
-            _cache_store(key, hit)
+            hit = _cache_store(key, hit)
     if isinstance(hit, AnnotationError):
         raise AnnotationError(*hit.args)
     return hit

@@ -575,7 +575,12 @@ class _Handler(BaseHTTPRequestHandler):
         Shed requests answer immediately with a retriable all-nodes
         failure — an extender protocol failure would abort the whole
         scheduling cycle, a failed-nodes response just requeues the pod."""
-        predicate = self.scheduler.extender.predicate
+        # the concurrent admission engine (concurrent/engine.py) is a
+        # drop-in for extender.predicate: speculative solve on THIS
+        # request thread, then a FIFO-ordered commit through the serial
+        # extender — decisions stay byte-identical to serial operation
+        engine = self.scheduler.concurrent
+        predicate = engine.predicate if engine is not None else self.scheduler.extender.predicate
         kit = self.scheduler.resilience
         try:
             t_gate = time.perf_counter()

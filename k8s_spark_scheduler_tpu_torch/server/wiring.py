@@ -162,6 +162,7 @@ class Server:
     criticalpath: object = None  # CriticalPathAnalyzer (contention/criticalpath.py)
     policy: object = None  # PolicyEngine (policy/engine.py)
     ha: object = None  # HAFabric (ha/__init__.py)
+    concurrent: object = None  # ConcurrentAdmissionEngine (concurrent/engine.py)
     _warm_done: threading.Event = field(default_factory=threading.Event)
     _warm_stop: threading.Event = field(default_factory=threading.Event)
     _warm_error: Optional[BaseException] = None
@@ -614,6 +615,24 @@ def init_server_with_clients(
             metrics=metrics,
             renew_interval_seconds=install.ha.renew_interval_seconds,
             writer=gate,
+        )
+
+    # concurrent admission engine (concurrent/): speculative solves in
+    # parallel, commits through the FIFO gate.  Built AFTER the HA block
+    # so multi-active intents are stamped with the live fencing epoch;
+    # before the invariants wrapper is fine — commits run the serial
+    # extender, so the wrapped _predicate_locked still fires per commit.
+    if install.concurrent.enabled:
+        from ..concurrent import ConcurrentAdmissionEngine
+
+        epoch_source = None
+        if server.ha is not None:
+            epoch_source = server.ha.fence.epoch
+        server.concurrent = ConcurrentAdmissionEngine(
+            extender,
+            install.concurrent,
+            metrics=metrics,
+            epoch_source=epoch_source,
         )
 
     from ..scheduler import invariants

@@ -250,7 +250,12 @@ class Harness:
             pod = self.api.create(pod)
         else:
             pod = existing.deepcopy()
-        result = self.extender.predicate(ExtenderArgs(pod=pod, node_names=list(node_names)))
+        # route through the concurrent admission engine when wired —
+        # exactly what the HTTP layer does (server/http.py), so harness
+        # scheduling exercises the same speculate→commit path
+        engine = self.server.concurrent
+        predicate = engine.predicate if engine is not None else self.extender.predicate
+        result = predicate(ExtenderArgs(pod=pod, node_names=list(node_names)))
         if result.node_names:
             bound = self.api.get(Pod.KIND, pod.namespace, pod.name)
             bound.node_name = result.node_names[0]

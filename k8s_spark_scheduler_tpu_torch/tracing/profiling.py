@@ -17,8 +17,7 @@ mirrored onto the active trace span (``kernel:<name>``) so a span tree
 shows which kernel built mid-request.
 
 ``record.sync(*tensors)`` marks the end of the dispatch and waits for
-the device with ``torch.cuda.synchronize`` when a tensor lies on a CUDA
-device.  All of it runs only while the profiler is enabled: a disabled
+the current CUDA stream when a tensor lies on a CUDA device.  All of it runs only while the profiler is enabled: a disabled
 profiler hands out a shared no-op whose ``sync`` does nothing, so the
 solver path is then untouched.
 """
@@ -50,8 +49,11 @@ class _KernelRecord:
 
     def sync(self, *tensors: Any) -> None:
         self.t_dispatch = time.perf_counter()
+        # the dispatch's own stream only: a device-wide synchronize would
+        # also wait for other threads' launches on their streams (the
+        # concurrent engine's speculations)
         for device in {t.device for t in tensors if t.device.type == "cuda"}:
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
         self.t_end = time.perf_counter()
 
 

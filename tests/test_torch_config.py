@@ -3,7 +3,8 @@ turns on: ``Install.reference_only`` names exactly the subsystems the
 JAX package runs on the same config and the port does not have (all but
 resilience, provenance, delta-solve, class aggregation, the capacity
 observatory, the lifecycle ledger, the contention observatory, the policy
-engine and the HA fabric, which the port has), and the server logs one warning for each at start: none
+engine, the HA fabric and the concurrent admission engine, which the port
+has: since then none), and the server logs one warning for each at start: none
 on examples/install.json, since every subsystem the reference runs by
 default is ported.  ``delta-solve`` (default true, as in the reference) and
 ``classes`` load and reach the engine, with
@@ -11,7 +12,9 @@ default is ported.  ``delta-solve`` (default true, as in the reference) and
 load with the reference's keys and defaults and reach the sampler and
 the ledger; ``policy`` loads into a ``PolicyConfig`` equal to the
 reference's and reaches the engine; ``ha`` loads into an ``HAConfig``
-equal to the reference's and, enabled, wires the fabric.  Also the two settings that now configure something:
+equal to the reference's and, enabled, wires the fabric; ``concurrent``
+loads into a ``ConcurrentConfig`` equal to the reference's and, enabled,
+wires the engine (stamped with the fence's epoch under HA).  Also the two settings that now configure something:
 ``conversion-webhook`` (the CRD's conversion stanza) and
 ``unschedulable-pod-timeout-seconds`` (the marker)."""
 
@@ -32,7 +35,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("provenance", "capacity", "contention", "policy", "ha", "lifecycle", "concurrent", "classes")
 # the reference's subsystems the port has too
 PORTED = {"resilience", "provenance", "delta-solve", "classes", "capacity", "lifecycle", "contention", "policy",
-          "ha"}
+          "ha", "concurrent"}
 
 
 def _example() -> dict:
@@ -256,8 +259,7 @@ _HA_FULL = {
 def test_ha_section_loads_as_in_the_reference(d):
     """``{"ha": {...}}`` loads into an HAConfig equal to the reference's
     (its keys and defaults); an enabled one wires the fabric, its fence
-    on the write paths and the epoch sources, a disabled one nothing.
-    ``concurrent`` is still refused, naming its ROADMAP item."""
+    on the write paths and the epoch sources, a disabled one nothing."""
     ours, theirs = Install.from_dict(d), JaxInstall.from_dict(d)
     assert ours.ha.__dict__ == theirs.ha.__dict__
     install = Install(fifo=True, binpack_algo="tpu-batch", ha=ours.ha)
@@ -278,8 +280,42 @@ def test_ha_section_loads_as_in_the_reference(d):
             assert server.extender.epoch_source is None
     finally:
         server.stop()
-    with pytest.raises(ValueError, match=r"A\.4 \(concurrent admission\)"):
-        Install.from_dict(dict(d, concurrent={"enabled": True}))
+
+
+_CONCURRENT_FULL = {"enabled": True, "speculation": False, "max-inflight-speculations": 3, "multi-active": True}
+
+
+@pytest.mark.parametrize(
+    "d",
+    [{}, _example(), {"concurrent": {"enabled": True}}, {"concurrent": {"enabled": False}},
+     {"concurrent": _CONCURRENT_FULL}, {"concurrent": {"enabled": True}, "ha": {"enabled": True}}],
+    ids=["default", "example", "enabled", "disabled", "full-keys", "with-ha"],
+)
+def test_concurrent_section_loads_as_in_the_reference(d):
+    """``{"concurrent": {...}}`` loads into a ConcurrentConfig equal to
+    the reference's (its keys and defaults); an enabled one wires the
+    engine with its knobs (the fence's epoch as its epoch source when
+    HA is on), a disabled one nothing."""
+    ours, theirs = Install.from_dict(d), JaxInstall.from_dict(d)
+    assert ours.concurrent.__dict__ == theirs.concurrent.__dict__
+    assert ours.reference_only == ()
+    install = Install(fifo=True, binpack_algo="tpu-batch", ha=ours.ha, concurrent=ours.concurrent)
+    server = init_server_with_clients(APIServer(), install, start_background=False, device="cpu")
+    try:
+        engine = server.concurrent
+        assert (engine is not None) == ours.concurrent.enabled
+        if engine is not None:
+            assert engine._config is ours.concurrent
+            assert engine.speculator._max_inflight == ours.concurrent.max_inflight_speculations
+            assert engine._epoch_source == (server.ha.fence.epoch if server.ha is not None else None)
+        assert server.extender.speculation_intake is None
+    finally:
+        server.stop()
+
+
+def test_concurrent_section_refuses_unknown_keys():
+    with pytest.raises(ValueError, match="concurrent"):
+        Install.from_dict({"concurrent": {"enabled": True, "max_inflight_speculations": 2}})
 
 
 def test_ha_section_refuses_unknown_keys():

@@ -457,8 +457,8 @@ def test_analyzer_equals_the_reference_on_seeded_traces(seed):
 
 def test_span_segment_table_matches_the_reference_and_the_port():
     """The same segment table as the reference, and every classified
-    span name is one the port opens (the reference's concurrent-engine
-    span excepted: the port has no such engine)."""
+    span name is one the port opens (the concurrent engine's
+    ``speculation.solve`` too, since the port has the engine)."""
     assert port_cp.SPAN_SEGMENTS == jax_cp.SPAN_SEGMENTS
     assert port_cp.SEGMENT_NAMES == jax_cp.SEGMENT_NAMES
     source = []
@@ -469,8 +469,8 @@ def test_span_segment_table_matches_the_reference_and_the_port():
                     source.append(f.read())
     source = "\n".join(source)
     opened = [name for name in port_cp.SPAN_SEGMENTS if re.search(rf'"{re.escape(name)}"', source)]
-    assert sorted(set(port_cp.SPAN_SEGMENTS) - set(opened)) == ["speculation.solve"]
-    assert len(opened) == 11
+    assert sorted(set(port_cp.SPAN_SEGMENTS) - set(opened)) == []
+    assert len(opened) == 12
 
 
 def test_analyzer_observer_never_breaks_requests():

@@ -2,20 +2,16 @@
 ha/crashmatrix) against the reference's tests/test_ha_crashpoints.py,
 and each matrix cell against the JAX package's.
 
-The registry cases and the reference's representative subset run on the
-port's server stack on ``device="cpu"``: kill -9 at the armed point,
-cold-restart a successor on the same API server and journal files,
-audit invariants and exactly-once intent delivery.  Then every one of
-the ten points outside the concurrent admission engine runs through
-both packages' matrices, and the two reports must be equal (a cell's
-report holds no timing).  The reference's cells run its concurrent
-admission engine; the port has none yet (ROADMAP A.4), so the JAX side
-here runs a test-local matrix with that engine off, and the port refuses
-the three ``concurrent.*`` points."""
+The registry cases, the reference's representative subset and its three
+speculation→commit window cases run on the port's server stack on
+``device="cpu"``: kill -9 at the armed point, cold-restart a successor on
+the same API server and journal files, audit invariants and exactly-once
+intent delivery.  Then every one of the thirteen points runs through both
+packages' matrices, each with its concurrent admission engine on, and
+the two reports must be equal (a cell's report holds no timing)."""
 
 import pytest
 
-from k8s_spark_scheduler_tpu.config import ConcurrentConfig as JaxConcurrentConfig
 from k8s_spark_scheduler_tpu.ha import crashpoint as jax_crashpoint
 from k8s_spark_scheduler_tpu.ha.crashmatrix import CrashMatrix as JaxCrashMatrix
 from k8s_spark_scheduler_tpu_torch.ha import crashpoint
@@ -36,10 +32,9 @@ def _disarmed():
     jax_crashpoint.disarm()
 
 
-class SerialJaxCrashMatrix(JaxCrashMatrix):
-    """The reference's matrix with its concurrent admission engine off
-    (the serial extender, as the port's cells run it), under
-    ``binpack_algo``."""
+class BinpackJaxCrashMatrix(JaxCrashMatrix):
+    """The reference's matrix (its concurrent admission engine on, as in
+    the port's cells) under ``binpack_algo``."""
 
     def __init__(self, binpack_algo: str = "tightly-pack", **kw):
         super().__init__(**kw)
@@ -47,7 +42,6 @@ class SerialJaxCrashMatrix(JaxCrashMatrix):
 
     def _install(self, identity: str, journal_path: str):
         install = super()._install(identity, journal_path)
-        install.concurrent = JaxConcurrentConfig(enabled=False)
         install.binpack_algo = self.binpack_algo
         return install
 
@@ -61,7 +55,7 @@ def test_registry_covers_every_pipeline():
     assert points == jax_crashpoint.registered_points()
     for prefix in ("writeback.", "journal.", "preempt.", "lease.", "concurrent."):
         assert any(p.startswith(prefix) for p in points), prefix
-    assert PORTED_POINTS == tuple(p for p in points if not p.startswith("concurrent."))
+    assert PORTED_POINTS == tuple(points)
 
 
 def test_arm_unknown_point_rejected():
@@ -109,6 +103,13 @@ SUBSET = [
     crashpoint.LEASE_PRE_RENEW,
 ]
 
+# the speculation→commit window (concurrent/engine.py): every cell
+CONCURRENT_WINDOW = [
+    crashpoint.CONCURRENT_SPECULATION_SOLVED,
+    crashpoint.CONCURRENT_COMMIT_REVALIDATED,
+    crashpoint.CONCURRENT_COMMIT_WRITTEN,
+]
+
 
 @pytest.mark.parametrize("point", SUBSET)
 def test_crash_point_recovery(point):
@@ -123,6 +124,24 @@ def test_crash_point_recovery(point):
     assert report["staleCommits"] == 0
 
 
+@pytest.mark.parametrize("point", CONCURRENT_WINDOW)
+def test_concurrent_window_crash_is_exactly_once(point):
+    """Death inside the speculation→commit window: a crash before the
+    commit leaves no reservation (the gang was never admitted; the retry
+    re-admits); a crash after the reservation write leaves all or
+    nothing, never a half-committed gang.  The port's report equals the
+    reference's."""
+    report = CrashMatrix(nodes=2, device="cpu").run_point(point)
+    assert report["crashed"], f"{point}: crash never fired"
+    assert report["ok"], f"{point}: {report['violations']}"
+    assert report["recoveredEpoch"] == 2
+    assert report["journalDepth"] == 0
+    assert report["staleCommits"] == 0
+    if point != crashpoint.CONCURRENT_COMMIT_WRITTEN:
+        assert report["reservationPresent"] is False
+    assert report == JaxCrashMatrix(nodes=2).run_point(point)
+
+
 def test_mid_preemption_crash_finishes_the_eviction():
     """The sharpest cell: death between the first and second victim pod
     delete.  The successor must finish the half-evicted gang — pods
@@ -135,11 +154,12 @@ def test_mid_preemption_crash_finishes_the_eviction():
 @pytest.mark.parametrize("binpack", ["tightly-pack", "tpu-batch"])
 @pytest.mark.parametrize("point", PORTED_POINTS)
 def test_cell_report_equals_the_reference(point, binpack):
-    """Each of the ten cells, under the reference's ``tightly-pack`` and
-    under ``tpu-batch`` (each driver Filter through the delta-solve
-    session): the port's report on ``device="cpu"`` equals the JAX
-    package's (serial extender) key for key."""
-    theirs = SerialJaxCrashMatrix(binpack, nodes=2).run_point(point)
+    """Each of the thirteen cells, under the reference's ``tightly-pack``
+    and under ``tpu-batch`` (each driver Filter through the delta-solve
+    session), both matrices with their concurrent admission engine on:
+    the port's report on ``device="cpu"`` equals the JAX package's key
+    for key."""
+    theirs = BinpackJaxCrashMatrix(binpack, nodes=2).run_point(point)
     ours = CrashMatrix(nodes=2, device="cpu", binpack_algo=binpack).run_point(point)
     assert theirs["ok"], theirs["violations"]
     assert ours == theirs
@@ -147,5 +167,49 @@ def test_cell_report_equals_the_reference(point, binpack):
 
 @pytest.mark.parametrize("point", [p for p in crashpoint.registered_points() if p.startswith("concurrent.")])
 def test_concurrent_points_wait_for_the_concurrent_engine(point):
-    with pytest.raises(ValueError, match=r"ROADMAP A\.4"):
-        CrashMatrix(nodes=2, device="cpu").run_point(point)
+    """Each ``concurrent.*`` point fires inside the engine every cell
+    wires: on the Filter caller's thread, inside ``engine.predicate``."""
+    matrix = CrashMatrix(nodes=2, device="cpu")
+    assert matrix._install("replica-a", "intents.jsonl").concurrent.enabled
+    report = matrix.run_point(point)
+    assert report["crashed"] and report["ok"], report
+
+
+class NoPolicyJaxCrashMatrix(BinpackJaxCrashMatrix):
+    """The reference's matrix with its policy engine off, so its
+    speculations solve and its commits consume them."""
+
+    def _install(self, identity: str, journal_path: str):
+        install = super()._install(identity, journal_path)
+        install.policy.enabled = False
+        install.policy.preemption_enabled = False
+        return install
+
+
+@pytest.mark.parametrize("binpack", ["tpu-batch", "tpu-batch-minimal-fragmentation", "tpu-batch-distribute-evenly"])
+@pytest.mark.parametrize("point", CONCURRENT_WINDOW)
+def test_concurrent_window_with_a_live_verdict(point, binpack):
+    """The window's cells with the policy engine off, under each tensor
+    lane: the crashed Filter's speculation solved (its verdict in flight
+    at the first two points, consumed as a hit before
+    ``concurrent.commit-written``), recovery is exactly-once, and the
+    report equals the reference's cell with its policy engine off."""
+    ours = CrashMatrix(nodes=2, device="cpu", binpack_algo=binpack, policy=False).run_point(point)
+    assert ours["crashed"] and ours["ok"], ours
+    hit = point == crashpoint.CONCURRENT_COMMIT_WRITTEN
+    assert ours.pop("speculation") == {"solved": 1, "hits": int(hit)}
+    assert ours["reservationPresent"] is hit
+    assert ours == NoPolicyJaxCrashMatrix(binpack, nodes=2).run_point(point)
+
+
+def test_policy_off_refuses_the_preemption_points():
+    with pytest.raises(ValueError, match="policy engine"):
+        CrashMatrix(nodes=2, device="cpu", policy=False).run_point(crashpoint.PREEMPT_MID_EXECUTE)
+
+
+def test_policy_off_under_a_host_lane_flags_the_missing_verdict():
+    """``tightly-pack`` has no tensor solver: the speculator declines, so
+    a policy-off cell cannot show a live verdict and its audit says so."""
+    report = CrashMatrix(nodes=2, device="cpu", policy=False).run_point(crashpoint.CONCURRENT_COMMIT_WRITTEN)
+    assert report["crashed"] and not report["ok"]
+    assert "no speculative verdict was in flight at the crash" in report["violations"]

@@ -669,3 +669,77 @@ def test_policy_engine_runs_with_jax_and_reference_package_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "POLICY-OK" in proc.stdout
+
+
+_BLOCKED_CONCURRENT = textwrap.dedent(
+    """
+    import importlib, sys, threading
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    # the modules of the concurrent admission slice, each by name
+    for name in ("concurrent", "concurrent.commitgate", "concurrent.speculation", "concurrent.engine"):
+        importlib.import_module("k8s_spark_scheduler_tpu_torch." + name)
+    from k8s_spark_scheduler_tpu_torch.config import Install
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+    from k8s_spark_scheduler_tpu_torch.types.extenderapi import ExtenderArgs
+
+    install = Install.from_dict({"fifo": True, "binpack": "tpu-batch", "concurrent": {"enabled": True}})
+    h = Harness(extra_install=install, device="cpu")
+    try:
+        names = ["n1", "n2"]
+        for name in names:
+            h.new_node(name, cpu="8", memory="16Gi")
+        drivers = [h.create_pod(h.static_allocation_spark_pods(f"app-{i}", 1, creation_timestamp=1000.0 + i)[0])
+                   for i in range(4)]
+        engine = h.server.concurrent
+        tickets = [engine.gate.ticket() for _ in drivers]
+        results = [None] * len(drivers)
+
+        def run(i):
+            results[i] = engine.predicate(ExtenderArgs(pod=drivers[i], node_names=names), ticket=tickets[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(drivers))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert all(r is not None and r.node_names for r in results), results
+        stats = engine.stats()
+        assert stats["gate"]["committed"] == 4 and sum(stats["commit_results"].values()) == 4, stats
+    finally:
+        h.close()
+    # a crash cell in the speculation→commit window
+    from k8s_spark_scheduler_tpu_torch.ha.crashmatrix import CrashMatrix
+
+    report = CrashMatrix(nodes=2, device="cpu").run_point("concurrent.commit-written")
+    assert report["ok"] and report["crashed"], report
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("CONCURRENT-OK")
+    """
+)
+
+
+def test_concurrent_engine_runs_with_jax_and_reference_package_blocked():
+    """The concurrent admission slice (concurrent/) imports, commits four
+    drivers from four threads through the engine and runs a crash cell
+    of its window with jax and the JAX package blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CONCURRENT],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "CONCURRENT-OK" in proc.stdout
