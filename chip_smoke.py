@@ -231,7 +231,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and consumed before ``concurrent.commit-written``) and the
    two-replica handoff cell, each report ok and equal to the same cell
    on cpu, with seconds and queue-kernel launches;
-14. the kernels line (times, bounds, launches) and the device result line.
+14. sim: the discrete-event simulator (sim/) on the card.  (a) a scenario
+   built here: 10,000 nodes of 16 CPU / 32 Gi in three zones
+   (``bench.py:60``) under ``tpu-batch``, bursts of 6 gangs of 6–10
+   executors that outlive the run, every node but 5 cordoned at t = 1
+   (drivers queue behind the FIFO head), the cordon lifted at two-thirds
+   of the run (the queue drains), one node killed; run on cuda and on a
+   ``device="cpu"`` twin: digests equal, 0 violations on both, the
+   summary's queue depth max at least 5, at least one checkpointed
+   ``fifo_queue_tightly`` launch on the card; events, decisions, wall
+   seconds, host ms an event, decision-latency p50 / p99 (host clock) and
+   launches by kernel for each run.  (b) ``examples/sim/concurrent.json``
+   on cuda, on cpu and on cuda without its ``concurrent`` block: the
+   three digests equal, the speculations' launches on their own streams;
+15. the kernels line (times, bounds, launches) and the device result line.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -3688,6 +3701,115 @@ def concurrent_phase(seed: int, smi: str, queue_args) -> dict:
     return launches
 
 
+# -- phase sim: the discrete-event simulator on the card ---------------------
+
+SIM_NODES = 10_000  # bench.py:60: the bench's cluster size
+SIM_ZONES = ("zone1", "zone2", "zone3")
+SIM_OPEN = 5  # nodes the cordon at t = 1 leaves schedulable
+SIM_DURATION = 90.0  # virtual seconds of (a); the cordon lifts at two-thirds of it
+SIM_SEED = 15
+SIM_SCENARIO = "examples/sim/concurrent.json"  # (b)
+SIM_KERNEL = "fifo_queue_tightly"
+
+
+def sim_backlog_scenario(duration: float) -> dict:
+    """Phase sim (a): the bench's cluster (16 CPU / 32 Gi nodes in three
+    zones) under ``tpu-batch``, bursts of large gangs that outlive the run,
+    every node but SIM_OPEN cordoned at t = 1 so drivers queue behind the
+    FIFO head, the cordon lifted at two-thirds of the run so the queue
+    drains, and one node killed."""
+    cordoned = SIM_NODES - SIM_OPEN
+    return {
+        "name": "sim-backlog-10k", "seed": SIM_SEED, "duration": duration, "retry_interval": 15,
+        "binpack_algo": "tpu-batch", "fifo": True,
+        "cluster": {"nodes": SIM_NODES, "cpu": "16", "memory": "32Gi", "zones": list(SIM_ZONES)},
+        "workload": {"process": "burst", "burst_interval": duration / 2, "burst_size": 6, "burst_offset": 5,
+                     "executors": {"min": 6, "max": 10}, "dynamic_fraction": 0.0,
+                     "lifetime": {"min": 10 * duration, "max": 20 * duration}},
+        "faults": [
+            {"at": 1, "kind": "node_cordon", "count": cordoned},
+            {"at": round(duration * 2 / 3), "kind": "node_uncordon", "count": cordoned},
+            {"at": round(duration * 5 / 6), "kind": "node_kill", "count": 1},
+        ],
+    }
+
+
+def sim_phase(smi: str) -> dict:
+    """Phase sim (see the module docstring).  Returns the queue kernels'
+    launches of its cuda runs; raises SystemExit on any failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.sim import Scenario, Simulation
+
+    # every refused driver of the backlog logs a line a round, and (b)'s
+    # lease partition an error a renewal
+    logging.disable(logging.ERROR)
+    launches = {}
+
+    def run(what: str, spec: dict, device: str):
+        """One simulation; logs its figures and returns (result, launches
+        by kernel name, wall s)."""
+        for module in (qk, mk):
+            module.reset_launch_counts()
+        t = time.perf_counter()
+        result = Simulation(Scenario.from_dict(spec), device=device).run()
+        wall = time.perf_counter() - t
+        counts = {k: v for k, v in {**qk.launch_counts, **mk.launch_counts}.items() if v}
+        s = result.summary
+        lat = s["decision_latency_ms"]
+        log(f"phase sim: {what} on {device}: {s['events_logged']} events, {s['decisions']} decisions, "
+            f"{wall:.1f} s wall ({wall * 1e3 / max(s['events_logged'], 1):.1f} host ms an event), decision "
+            f"latency p50 {lat['p50']:.3f} / p99 {lat['p99']:.3f} ms (host clock), queue depth max "
+            f"{s['queue_depth']['max']}, violations {len(result.violations)}, launches {counts}, "
+            f"digest {result.digest} | {smi}")
+        if result.violations:
+            raise SystemExit(f"phase sim: {what} on {device}: violations {result.violations[:5]}")
+        if device == "cuda":
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        return result, counts
+
+    try:
+        # (a) a backlog at the bench's cluster size, cuda against a cpu twin
+        spec = sim_backlog_scenario(SIM_DURATION)
+        cuda, counts = run("(a) backlog", spec, "cuda")
+        cpu, _ = run("(a) backlog", spec, "cpu")
+        if cuda.digest != cpu.digest:
+            first = next((i for i, (x, y) in enumerate(zip(cuda.event_log, cpu.event_log)) if x != y), None)
+            raise SystemExit(f"phase sim: (a) digests differ on cuda and cpu (first differing event {first})")
+        depth = cuda.summary["queue_depth"]["max"]
+        if depth < SIM_OPEN:
+            raise SystemExit(f"phase sim: (a) queue depth max {depth} < {SIM_OPEN}: no backlog formed")
+        if counts.get(SIM_KERNEL + "_checkpointed", 0) < 1:
+            raise SystemExit(f"phase sim: (a) no checkpointed {SIM_KERNEL} launch on the card: {counts}")
+        log(f"phase sim: (a) {SIM_NODES} nodes, {SIM_DURATION:.0f} virtual s: digests equal on cuda and cpu, "
+            f"0 violations, queue depth max {depth}, {counts[SIM_KERNEL + '_checkpointed']} checkpointed "
+            f"{SIM_KERNEL} launches on the card")
+
+        # (b) the concurrent example on cuda, cpu, and cuda with the engine off
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), SIM_SCENARIO)) as f:
+            conc = json.load(f)
+        serial = {k: v for k, v in conc.items() if k != "concurrent"}
+        engine, _ = run("(b) concurrent.json", conc, "cuda")
+        spec_launches = speculator_launches()
+        host, _ = run("(b) concurrent.json", conc, "cpu")
+        off, _ = run("(b) concurrent.json without its concurrent block", serial, "cuda")
+        digests = {engine.digest, host.digest, off.digest}
+        if len(digests) != 1:
+            raise SystemExit(f"phase sim: (b) digests differ: engine {engine.digest}, cpu {host.digest}, "
+                             f"serial {off.digest}")
+        if spec_launches["queue"] < 1:
+            raise SystemExit(f"phase sim: (b) no speculation launched on its own stream: {spec_launches}")
+        log(f"phase sim: (b) {SIM_SCENARIO}: the engine's digest on cuda equal to cpu and to the serial "
+            f"extender's, {spec_launches['queue']} speculations' launches on {spec_launches['streams']} "
+            f"streams of their own")
+    finally:
+        logging.disable(logging.NOTSET)
+    return launches
+
+
 def session_stream(problem, n_earlier: int, smi: str) -> None:
     """Phase delta, step 3 at the library layer: one FifoSession on the
     card and one on the CPU fed the same stream of queues from the main
@@ -4446,7 +4568,15 @@ def main() -> int:
     log(f"phase concurrent: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 14: results
+    # ---- phase sim: the discrete-event simulator on the card
+    t = time.perf_counter()
+    sim_launches = sim_phase(smi)
+    for entry in kernels:
+        entry["launches"] += sim_launches.get(entry["name"], 0)
+    log(f"phase sim: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 15: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -320,3 +320,13 @@ CONCURRENT_INFLIGHT = "foundry.spark.scheduler.tpu.concurrent.inflight.count"
 CONCURRENT_INTENTS_FORWARDED = (
     "foundry.spark.scheduler.tpu.concurrent.intents.forwarded.count"
 )
+
+# sim runner decision instrumentation (sim/runner.py) — virtual-clock
+# scenario metrics, namespaced so the catalog contract covers them
+SIM_DECISION_LATENCY = "foundry.spark.scheduler.tpu.sim.decision.latency"
+SIM_QUEUE_DEPTH = "foundry.spark.scheduler.tpu.sim.queue.depth"
+# auditor coverage (sim/auditor.py): events audited / invariant hits
+SIM_AUDIT_EVENTS = "foundry.spark.scheduler.tpu.sim.audit.events"
+SIM_AUDIT_VIOLATIONS = (
+    "foundry.spark.scheduler.tpu.sim.audit.violations.count"
+)

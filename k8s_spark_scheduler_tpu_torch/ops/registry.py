@@ -99,5 +99,37 @@ def select_binpacker(
     return _REGISTRY.get(name, _REGISTRY[DEFAULT])
 
 
+# -- kernel chaos hook --------------------------------------------------------
+#
+# The simulator's kernel_fault injection point (the reference's hook, with
+# this package's semantics): when armed, the extender's two device lanes
+# (the tensor driver lane and the metadata lane of a queue solver) raise
+# the hook's KernelFault at their entry.  There is no lane to demote to:
+# the fault propagates out of the Filter exactly as a failed launch does
+# (the HTTP layer answers 500).  None (the default) costs one
+# module-attribute read per dispatch.
+
+
+class KernelFault(RuntimeError):
+    """A kernel fault injected through :func:`set_kernel_fault_hook`."""
+
+
+_kernel_fault_hook = None
+
+
+def set_kernel_fault_hook(fn) -> None:
+    """fn(lane_name) -> Optional[Exception]; None disarms."""
+    global _kernel_fault_hook
+    _kernel_fault_hook = fn
+
+
+def check_kernel_fault(lane: str) -> None:
+    fn = _kernel_fault_hook
+    if fn is not None:
+        err = fn(lane)
+        if err is not None:
+            raise err
+
+
 def available_binpackers() -> list[str]:
     return sorted(_REGISTRY.keys() | set(TPU_BATCH_NAMES))

@@ -11,9 +11,11 @@ single-AZ confinement, soft-reservation consumption.
 The tpu-batch* binpackers' queue solvers run on the device the server
 was built for: the tensor lane (``_try_fast_driver_path``) and the
 metadata lane (``_try_device_fifo``) never catch a solver error — a
-build, launch or solve failure propagates out of ``predicate``.  A lane
-declines only by its documented semantics: an inexact snapshot
-(``build_cluster_tensor`` returns None) or ``outcome.supported`` False.
+build, launch or solve failure propagates out of ``predicate``, and so
+does a ``KernelFault`` that the simulator's chaos hook raises at either
+lane's entry (``ops/registry.check_kernel_fault``).  A lane declines only
+by its documented semantics: an inexact snapshot (``build_cluster_tensor``
+returns None) or ``outcome.supported`` False.
 
 With the resilience kit (resilience/), a request whose deadline passed
 answers fail-fast at the next phase boundary (lock acquired, FIFO gate,
@@ -46,7 +48,7 @@ from ..metrics.registry import MetricsRegistry, default_registry
 from ..ops import capacity as cap
 from ..ops.efficiency import compute_avg_packing_efficiency
 from ..ops.nodesort import NodeSorter
-from ..ops.registry import SINGLE_AZ_MINIMAL_FRAGMENTATION, Binpacker
+from ..ops.registry import SINGLE_AZ_MINIMAL_FRAGMENTATION, Binpacker, check_kernel_fault
 from ..resilience import deadline as req_deadline
 from ..types.extenderapi import ExtenderArgs, ExtenderFilterResult
 from ..types.objects import Node, Pod
@@ -676,6 +678,7 @@ class SparkSchedulerExtender:
             or not self._fast_path_ok
         ):
             return None
+        check_kernel_fault("tensor_driver")
         from ..ops.fast_path import build_cluster_tensor
         from ..ops.sparkapp import AppDemand
 
@@ -805,6 +808,7 @@ class SparkSchedulerExtender:
                 queue_names.append(queued.name)
         if prov is not None:
             prov.note_context(queue_names=queue_names)
+        check_kernel_fault("device_fifo")
         outcome = solver.solve(
             metadata,
             driver_node_names,

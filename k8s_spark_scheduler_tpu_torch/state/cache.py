@@ -189,37 +189,47 @@ class AsyncClient:
                 continue
             r: Request = request_getter()
             try:
-                if self._breaker is not None and not self._breaker.allow():
-                    # breaker open and no probe due: don't touch the API
-                    # server at all — preserve the intent and move on
-                    self._divert(r, "journaled_breaker_open")
-                    continue
-                if r.type == CREATE:
-                    self._do_create(r)
-                elif r.type == UPDATE:
-                    self._do_update(r)
-                elif r.type == DELETE:
-                    self._do_delete(r)
-            except StaleEpochError as fe:
-                # deposed leader: the write is refused, never dropped —
-                # divert the intent to the journal so the successor's
-                # takeover replay owns it.  Not a breaker signal (the
-                # server was never touched).
-                logger.warning(
-                    "fenced write refused: %s %s (%s)", r.type, r.key, fe
-                )
-                self._release_probe()
-                self._divert(r, "journaled_fenced")
+                self._handle(r)
+            finally:
+                # a request stays in flight until its write is handled,
+                # not only until a worker takes it off the queue
+                # (ShardedUniqueQueue.queue_lengths counts unfinished
+                # tasks): a quiesce must not return mid-write
+                q.task_done()
+
+    def _handle(self, r: Request) -> None:
+        try:
+            if self._breaker is not None and not self._breaker.allow():
+                # breaker open and no probe due: don't touch the API
+                # server at all — preserve the intent and move on
+                self._divert(r, "journaled_breaker_open")
+                return
+            if r.type == CREATE:
+                self._do_create(r)
+            elif r.type == UPDATE:
+                self._do_update(r)
+            elif r.type == DELETE:
+                self._do_delete(r)
+        except StaleEpochError as fe:
+            # deposed leader: the write is refused, never dropped —
+            # divert the intent to the journal so the successor's
+            # takeover replay owns it.  Not a breaker signal (the
+            # server was never touched).
+            logger.warning(
+                "fenced write refused: %s %s (%s)", r.type, r.key, fe
+            )
+            self._release_probe()
+            self._divert(r, "journaled_fenced")
+        except Exception:
+            # worker must survive anything, but a failure reaching here
+            # is a programming error (client errors are handled in the
+            # per-request handlers) — surface it
+            logger.exception("async write-back worker failed on %s %s", r.type, r.key)
+            try:
+                self._release_probe()  # never wedge recovery on a bug
+                self._mark(r, "worker_error")
             except Exception:
-                # worker must survive anything, but a failure reaching here
-                # is a programming error (client errors are handled in the
-                # per-request handlers) — surface it
-                logger.exception("async write-back worker failed on %s %s", r.type, r.key)
-                try:
-                    self._release_probe()  # never wedge recovery on a bug
-                    self._mark(r, "worker_error")
-                except Exception:
-                    pass
+                pass
 
     def _pre_commit(self, r: Request) -> None:
         """HA fence + crash-injection gate before any API mutation.

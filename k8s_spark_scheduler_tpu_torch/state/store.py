@@ -310,7 +310,9 @@ class ShardedUniqueQueue:
         return list(self._queues)
 
     def queue_lengths(self) -> List[int]:
-        return [q.qsize() for q in self._queues]
+        """Requests in flight per shard: queued, or taken by a worker
+        that has not finished handling them (``task_done``)."""
+        return [q.unfinished_tasks for q in self._queues]
 
     def _get_queue(self, r: Request) -> _queue.Queue:
         return self._queues[self._bucket(r.key)]

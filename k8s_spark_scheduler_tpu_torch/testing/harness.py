@@ -42,6 +42,7 @@ class Harness:
         executor_prioritized_node_label=None,
         device: DeviceLike = None,
         delta_solve: bool = True,
+        unschedulable_polling_interval: float = 60.0,
     ):
         """`device` is where the tpu-batch* solvers run (None = CUDA);
         `delta_solve` turns the delta-solve engine on (the default, as in
@@ -68,6 +69,7 @@ class Harness:
             install,
             start_background=True,
             demand_poll_interval=0.02,
+            unschedulable_polling_interval=unschedulable_polling_interval,
             device=device,
         )
         self.extender = self.server.extender
@@ -292,14 +294,21 @@ class Harness:
         """Wait until async write-back queues drain and the local
         reservation cache agrees with the API server — makes
         timing-sensitive scenario tests deterministic (the transient
-        divergence is reference-equivalent but nondeterministic)."""
-        def rr_content(rrs):
+        divergence is reference-equivalent but nondeterministic).
+
+        Keys with a pending intent-journal entry are excluded from the
+        comparison: while the write-back breaker is open (API-server
+        outage) the local cache legitimately leads the API server by
+        exactly the journaled intents — that divergence IS the quiesced
+        state, and the simulator's lost-intent audit covers it."""
+        def rr_content(rrs, exclude):
             return {
                 (rr.namespace, rr.name): (
                     sorted((k, v.node) for k, v in rr.spec.reservations.items()),
                     sorted(rr.status.pods.items()),
                 )
                 for rr in rrs
+                if (rr.namespace, rr.name) not in exclude
             }
 
         def settled():
@@ -307,8 +316,10 @@ class Harness:
                 return False
             # compare full content (a popped-but-unapplied write has equal
             # key sets but differing specs)
-            local = rr_content(self.server.resource_reservation_cache.list())
-            remote = rr_content(self.api.list("ResourceReservation"))
+            kit = getattr(self.server, "resilience", None)
+            pending = kit.journal.pending_keys() if kit is not None else set()
+            local = rr_content(self.server.resource_reservation_cache.list(), pending)
+            remote = rr_content(self.api.list("ResourceReservation"), pending)
             return local == remote
         return self.wait_for_api(settled, timeout=timeout)
 

@@ -15,8 +15,8 @@ reference's tests/test_capacity.py, and the port against the reference:
   samples, the label-cardinality caps, the registry-series canary, the
   feed's wakeup, and the waste reporter's virtual-clock cleanup.
 
-The reference's simulator case (``test_capacity.py:572``) waits for the
-simulator's port (ROADMAP A.7).  The server-level Twin sequence over
+The reference's simulator case (``test_capacity.py:572``) is in
+tests/test_torch_sim_observatory.py.  The server-level Twin sequence over
 ``/state/capacity``, ``/slo`` and ``/lifecycle`` is in
 tests/test_torch_lifecycle.py.
 """

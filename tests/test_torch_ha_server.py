@@ -253,9 +253,10 @@ def test_racecheck_on_an_ha_server_through_a_handoff(monkeypatch):
 
 
 def test_guarded_registry_holds_the_fabric_declarations():
-    """Every module of the port imported: 48 ``@guarded_by`` classes (the
-    concurrent engine's three since it was ported), FenceState and
-    LeaderElector among them with the reference's declarations."""
+    """Every module of the port imported: 49 ``@guarded_by`` classes (the
+    concurrent engine's three and the simulator's VirtualClock since they
+    were ported), FenceState and LeaderElector among them with the
+    reference's declarations."""
     for root, _, names in os.walk(PORT_PKG):
         for n in names:
             if n.endswith(".py") and n != "__main__.py":
@@ -264,7 +265,7 @@ def test_guarded_registry_holds_the_fabric_declarations():
                 importlib.import_module(module)
     ours = {cls: decl for cls, decl in guarded.registry().items()
             if cls.__module__.startswith("k8s_spark_scheduler_tpu_torch.")}
-    assert len(ours) == 48, sorted(c.__name__ for c in ours)
+    assert len(ours) == 49, sorted(c.__name__ for c in ours)
     by_name = {cls.__name__: decl for cls, decl in ours.items()}
     assert by_name["FenceState"] == ("_lock", ("_epoch", "_highest", "_refusals", "_commits", "_stale_commits"))
     assert by_name["LeaderElector"] == ("_lock", ("_last_renewal", "_held"))

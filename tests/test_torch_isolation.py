@@ -402,6 +402,18 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         else:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 make()
+    # the simulator and its CLI: CUDA unless the caller asks for the CPU
+    from k8s_spark_scheduler_tpu_torch.sim import Scenario, Simulation
+    from k8s_spark_scheduler_tpu_torch.sim.__main__ import main as sim_main
+
+    smoke = os.path.join(REPO, "examples", "sim", "smoke.json")
+    if torch.cuda.is_available():
+        assert Simulation(Scenario.from_file(smoke)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Simulation(Scenario.from_file(smoke))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            sim_main(["--scenario", smoke, "--quiet"])
 
 
 def test_backend_must_match_device():
@@ -743,3 +755,77 @@ def test_concurrent_engine_runs_with_jax_and_reference_package_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "CONCURRENT-OK" in proc.stdout
+
+
+_BLOCKED_SIM = textwrap.dedent(
+    """
+    import importlib, json, sys
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    # the modules of the simulator slice, each by name
+    for name in ("sim", "sim.clock", "sim.workload", "sim.scenario", "sim.manifest", "sim.auditor",
+                 "sim.runner", "sim.__main__"):
+        importlib.import_module("k8s_spark_scheduler_tpu_torch." + name)
+    from k8s_spark_scheduler_tpu_torch.sim import Scenario, Simulation
+
+    digests = {}
+    for name, spec in json.loads(sys.argv[1]).items():
+        result = Simulation(Scenario.from_dict(spec), device="cpu").run()
+        assert result.violations == [], result.violations[:5]
+        digests[name] = result.digest
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("SIM-DIGESTS " + json.dumps(digests, sort_keys=True))
+    """
+)
+
+
+def test_simulator_runs_with_jax_and_reference_package_blocked():
+    """The simulator slice (sim/) imports and runs ``smoke.json`` and the
+    degraded chaos dict under ``tpu-batch`` with jax and the JAX package
+    blocked: smoke to the reference's digest, the chaos dict (whose
+    kernel fault answers errors in the port) to the port's own digest in
+    a process that has both packages."""
+    import json
+
+    from k8s_spark_scheduler_tpu.sim import Scenario as JaxScenario
+    from k8s_spark_scheduler_tpu.sim import Simulation as JaxSimulation
+    from k8s_spark_scheduler_tpu_torch.sim import Scenario, Simulation
+
+    with open(os.path.join(REPO, "examples", "sim", "smoke.json")) as f:
+        smoke = json.load(f)
+    chaos = {
+        "name": "degraded-smoke", "seed": 23, "duration": 300, "retry_interval": 15, "fifo": True,
+        "binpack_algo": "tpu-batch",
+        "cluster": {"nodes": 4, "cpu": "16", "memory": "32Gi", "zones": ["zone1", "zone2"]},
+        "workload": {"process": "burst", "burst_interval": 60, "burst_size": 2, "executors": {"min": 1, "max": 4},
+                     "dynamic_fraction": 0.9, "lifetime": {"min": 60, "max": 150}},
+        "autoscaler": {"enabled": True, "delay": 20, "max_nodes": 8},
+        "faults": [{"at": 55, "kind": "apiserver_outage", "duration": 60},
+                   {"at": 50, "kind": "kernel_fault", "duration": 130},
+                   {"at": 170, "kind": "apiserver_latency", "duration": 40},
+                   {"at": 230, "kind": "executor_storm", "apps": 1, "fraction": 0.5}],
+    }
+    specs = {"smoke": smoke, "chaos-tpu-batch": chaos}
+    want = {"smoke": JaxSimulation(JaxScenario.from_dict(smoke)).run().digest,
+            "chaos-tpu-batch": Simulation(Scenario.from_dict(chaos), device="cpu").run().digest}
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SIM, json.dumps(specs)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("SIM-DIGESTS "))
+    assert json.loads(line[len("SIM-DIGESTS "):]) == want

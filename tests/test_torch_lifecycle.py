@@ -16,9 +16,9 @@ the reference:
   ``/lifecycle`` from both servers on one frozen clock are equal, with
   the fields named in ``UNCOMPARED`` (tests/torch_parity.py) left out.
 
-The reference's simulator and policy-regression-gate cases
-(``test_lifecycle.py:344``, ``:414``, ``:496``, ``:582``) wait for the
-simulator's port (ROADMAP A.7).
+The reference's simulator case (``test_lifecycle.py:344``) is in
+tests/test_torch_sim_observatory.py; its policy-regression-gate cases
+(``:414``, ``:496``, ``:582``) wait for the lab's port (ROADMAP A.1).
 """
 
 import json

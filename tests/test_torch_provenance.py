@@ -19,8 +19,8 @@ the port, and the port against the reference:
 
 The reference's ``test_engine_parity_guard_runs_clean`` is in
 tests/test_torch_deltasolve.py with the rest of the delta-solve engine;
-``test_sim_replay_bundle_cli`` (the ``sim`` command line, A.7) has no
-counterpart yet.
+``test_sim_replay_bundle_cli`` (the ``sim`` command line) is in
+tests/test_torch_sim_smoke.py.
 """
 
 import json
