@@ -28,7 +28,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and must be exactly equal;
 4. main path: Filter decisions on a 10,000-node cluster in 3 zones with a
    1,000-deep pending queue, on the card and equal to the same calls on
-   the CPU: ``TpuFifoSolver`` tightly-pack, distribute-evenly and
+   the CPU (made in the twin process, below): ``TpuFifoSolver`` tightly-pack, distribute-evenly and
    minimal-fragmentation, ``TpuSingleAzFifoSolver`` single-AZ tightly-pack,
    az-aware and single-AZ minimal-fragmentation; one ``binpack_func`` call
    of every ``tpu-batch*`` binpacker; small snapshots checked against the
@@ -237,14 +237,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    executors that outlive the run, every node but 5 cordoned at t = 1
    (drivers queue behind the FIFO head), the cordon lifted at two-thirds
    of the run (the queue drains), one node killed; run on cuda and on a
-   ``device="cpu"`` twin: digests equal, 0 violations on both, the
+   ``device="cpu"`` twin (in the twin process): digests equal, 0 violations on both, the
    summary's queue depth max at least 5, at least one checkpointed
    ``fifo_queue_tightly`` launch on the card; events, decisions, wall
    seconds, host ms an event, decision-latency p50 / p99 (host clock) and
    launches by kernel for each run.  (b) ``examples/sim/concurrent.json``
-   on cuda, on cpu and on cuda without its ``concurrent`` block: the
-   three digests equal, the speculations' launches on their own streams;
-15. the kernels line (times, bounds, launches) and the device result line.
+   on cuda, on cpu (in the twin process) and on cuda without its
+   ``concurrent`` block: the three digests equal, the speculations'
+   launches on their own streams;
+15. lab: the policy lab (lab/) and its gate (tools/policy_regression.py)
+   on the card's host; the lab is host-only and launches no kernel.  (a)
+   ``examples/lab/smoke_synth.json`` (5,000 arrivals) synthesized and
+   written; ``smoke_matrix.json`` (12 nodes, 3 cells) in-process and
+   again over 2 spawned workers with 2 cells re-run in-process, every
+   digest equal to ``tests/baselines/matrix_smoke.json``'s; a spawned
+   worker's start-up time with the runner's initializer (started beside
+   those runs), and no CUDA context in it after a cell; the port's gate on the in-process
+   document exits 0, and 1 with one cell's KPI altered.  (b)
+   ``week_synth.json`` (100,000 arrivals over 604,800 virtual s) and the
+   two corner cells of ``full_matrix.json`` (96 nodes of 16 CPU / 64 Gi),
+   every axis off and every axis on, in-process, their digests equal to
+   the reference's (``LAB_CORNERS``).  Wall time and events/s a cell, the
+   parent's RSS, 0 launches in the phase;
+16. the kernels line (times, bounds, launches) and the device result line.
+
+The cpu halves of phase 4's decisions and of phase sim's simulations run
+in one spawned twin process (``CpuTwin``): started before phase 3, it
+computes them from the same seeds while this process drives the card,
+and is stopped after phase sim.  The comparisons are the same; only the
+host's idle cores do the cpu work.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -3734,9 +3755,10 @@ def sim_backlog_scenario(duration: float) -> dict:
     }
 
 
-def sim_phase(smi: str) -> dict:
-    """Phase sim (see the module docstring).  Returns the queue kernels'
-    launches of its cuda runs; raises SystemExit on any failure."""
+def sim_phase(smi: str, twin: CpuTwin) -> dict:
+    """Phase sim (see the module docstring).  Its cpu runs go to the twin
+    process, beside the cuda runs.  Returns the queue kernels' launches of
+    its cuda runs; raises SystemExit on any failure."""
     import logging
 
     from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
@@ -3749,14 +3771,25 @@ def sim_phase(smi: str) -> dict:
     launches = {}
 
     def run(what: str, spec: dict, device: str):
-        """One simulation; logs its figures and returns (result, launches
-        by kernel name, wall s)."""
+        """One simulation in this process; logs its figures and returns
+        (result, launches by kernel name)."""
         for module in (qk, mk):
             module.reset_launch_counts()
         t = time.perf_counter()
         result = Simulation(Scenario.from_dict(spec), device=device).run()
         wall = time.perf_counter() - t
         counts = {k: v for k, v in {**qk.launch_counts, **mk.launch_counts}.items() if v}
+        report(what, device, result, wall, counts)
+        return result, counts
+
+    def twin_run(what: str, pending):
+        """The twin's simulation on the cpu; logs its figures and returns
+        (result, no launches)."""
+        result, wall = pending.get(timeout=1800)
+        report(what, "cpu", result, wall, {})
+        return result, {}
+
+    def report(what: str, device: str, result, wall: float, counts: dict) -> None:
         s = result.summary
         lat = s["decision_latency_ms"]
         log(f"phase sim: {what} on {device}: {s['events_logged']} events, {s['decisions']} decisions, "
@@ -3769,13 +3802,17 @@ def sim_phase(smi: str) -> dict:
         if device == "cuda":
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
-        return result, counts
 
     try:
-        # (a) a backlog at the bench's cluster size, cuda against a cpu twin
+        # (a) a backlog at the bench's cluster size, cuda against a cpu
+        # twin; (b) the concurrent example on cuda, cpu, and cuda with the
+        # engine off.  The cpu runs start in the twin process now.
         spec = sim_backlog_scenario(SIM_DURATION)
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), SIM_SCENARIO)) as f:
+            conc = json.load(f)
+        twin_a, twin_b = twin.submit(twin_simulation, spec), twin.submit(twin_simulation, conc)
         cuda, counts = run("(a) backlog", spec, "cuda")
-        cpu, _ = run("(a) backlog", spec, "cpu")
+        cpu, _ = twin_run("(a) backlog (twin process)", twin_a)
         if cuda.digest != cpu.digest:
             first = next((i for i, (x, y) in enumerate(zip(cuda.event_log, cpu.event_log)) if x != y), None)
             raise SystemExit(f"phase sim: (a) digests differ on cuda and cpu (first differing event {first})")
@@ -3788,14 +3825,11 @@ def sim_phase(smi: str) -> dict:
             f"0 violations, queue depth max {depth}, {counts[SIM_KERNEL + '_checkpointed']} checkpointed "
             f"{SIM_KERNEL} launches on the card")
 
-        # (b) the concurrent example on cuda, cpu, and cuda with the engine off
-        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), SIM_SCENARIO)) as f:
-            conc = json.load(f)
         serial = {k: v for k, v in conc.items() if k != "concurrent"}
         engine, _ = run("(b) concurrent.json", conc, "cuda")
         spec_launches = speculator_launches()
-        host, _ = run("(b) concurrent.json", conc, "cpu")
         off, _ = run("(b) concurrent.json without its concurrent block", serial, "cuda")
+        host, _ = twin_run("(b) concurrent.json (twin process)", twin_b)
         digests = {engine.digest, host.digest, off.digest}
         if len(digests) != 1:
             raise SystemExit(f"phase sim: (b) digests differ: engine {engine.digest}, cpu {host.digest}, "
@@ -3808,6 +3842,184 @@ def sim_phase(smi: str) -> dict:
     finally:
         logging.disable(logging.NOTSET)
     return launches
+
+
+# -- phase lab: the policy lab and its regression gate on the card's host ----
+
+LAB_DIR = "examples/lab/"
+LAB_BASELINE = "tests/baselines/matrix_smoke.json"
+LAB_WORKERS = 2  # (a): spawned worker processes, as the CI gate's run
+LAB_VERIFY = 2  # (a): cells re-run in-process against the workers' digests
+# (b): full_matrix.json's two corner cells, every axis off and every axis
+# on, over the whole week trace: the reference's run_cell digest and event
+# count on the same trace
+LAB_CORNERS = {
+    "fifo-nopre-nobf-w-d5c449-as-off": (
+        "c3c1f6d228c29f26b8167890f4ac13c9d2e37706b31f55db8102b9123fc15f5b", 268_099),
+    "drf-pre-bf-w-d5c449-as120": (
+        "611d2acedb46d0b60cec6e259b8814983e76ab5573789c7873f183aa5dc1e20e", 285_273),
+}
+
+
+def rss_mib() -> tuple:
+    """(resident MiB from /proc/self/status, peak resident MiB from
+    getrusage) of this process."""
+    import resource
+
+    rss = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key == "VmRSS":
+                rss = int(value.split()[0]) / 1024
+    return rss, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+class LabWorker:
+    """One spawned lab worker, started with the runner's own initializer
+    (the lab's import and the trace's parse) while the parent goes on:
+    ``startup`` is the seconds from the pool's start to the worker's
+    first answer (the interpreter, this script's imports as the worker's
+    main module, torch among them, then the initializer)."""
+
+    def __init__(self, trace: str):
+        import multiprocessing
+
+        from k8s_spark_scheduler_tpu_torch.lab import runner
+
+        self.runner = runner
+        self.t0 = time.perf_counter()
+        self.answered = None
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            1, initializer=runner._worker_init, initargs=(trace, 0))
+        self.first = self.pool.apply_async(os.getpid, callback=self._answer)
+
+    def _answer(self, _pid) -> None:
+        self.answered = time.perf_counter()
+
+    def finish(self, cfg: dict) -> tuple:
+        """(start-up seconds, whether the worker has a CUDA context after
+        running the cell ``cfg``)."""
+        self.first.get(timeout=600)
+        self.pool.apply(self.runner._worker_run, ({"cfg": cfg},))
+        return self.answered - self.t0, self.pool.apply(torch.cuda.is_initialized)
+
+    def stop(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+def lab_phase(smi: str) -> None:
+    """Phase lab (see the module docstring).  The lab is host-only:
+    raises SystemExit on a digest that differs, a gate exit code that
+    differs, a worker with a CUDA context or a kernel launched."""
+    import tempfile
+
+    from k8s_spark_scheduler_tpu_torch.lab import MatrixSpec, SynthSpec, run_cell, run_matrix, synthesize
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+    from k8s_spark_scheduler_tpu_torch.ops import single_az_kernel as sk
+    from k8s_spark_scheduler_tpu_torch.sim.workload import dump_trace
+    from k8s_spark_scheduler_tpu_torch.tools import policy_regression
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def spec_of(name: str) -> dict:
+        with open(os.path.join(root, LAB_DIR, name)) as f:
+            return json.load(f)
+
+    def launched() -> int:
+        return sum(qk.launch_counts.values()) + sum(mk.launch_counts.values()) + sum(sk.launch_counts.values())
+
+    def cells_line(what: str, matrix: dict) -> None:
+        for c in matrix["cells"]:
+            log(f"phase lab: {what} {c['cell']}: {c['events']} events in {c['wallSeconds']:.3f} s "
+                f"({c['events'] / max(c['wallSeconds'], 1e-9):.0f} events/s), digest {c['digest'][:16]} | {smi}")
+
+    t_phase = time.perf_counter()
+    launches_before = launched()
+    rss_before = rss_mib()
+    with open(os.path.join(root, LAB_BASELINE)) as f:
+        baseline = [(c["cell"], c["digest"]) for c in json.load(f)["cells"]]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lab-") as workdir:
+        # (a) the smoke matrix: in-process, then over spawned workers
+        t = time.perf_counter()
+        apps = synthesize(SynthSpec.from_dict(spec_of("smoke_synth.json")))
+        trace = os.path.join(workdir, "smoke.jsonl")
+        dump_trace(apps, trace)
+        log(f"phase lab: (a) smoke_synth.json: {len(apps)} arrivals synthesized and written in "
+            f"{time.perf_counter() - t:.3f} s")
+        worker = LabWorker(trace)
+        try:
+            smoke = spec_of("smoke_matrix.json")
+            t = time.perf_counter()
+            local = run_matrix(MatrixSpec.from_dict(smoke), apps=apps)
+            log(f"phase lab: (a) smoke_matrix.json in-process: {len(local['cells'])} cells on "
+                f"{smoke['cluster']['nodes']} nodes in {time.perf_counter() - t:.3f} s")
+            cells_line("(a) in-process", local)
+            got = [(c["cell"], c["digest"]) for c in local["cells"]]
+            if got != baseline:
+                raise SystemExit(f"phase lab: (a) in-process digests {got} differ from {LAB_BASELINE}'s {baseline}")
+            t = time.perf_counter()
+            spread = run_matrix(MatrixSpec.from_dict(dict(smoke, trace=trace)), workers=LAB_WORKERS,
+                                verify=LAB_VERIFY)
+            wall = time.perf_counter() - t
+            verification = spread.get("verification", {})
+            got = [(c["cell"], c["digest"]) for c in spread["cells"]]
+            if got != baseline or not verification.get("ok") or len(verification.get("cells", [])) != LAB_VERIFY:
+                raise SystemExit(f"phase lab: (a) workers={LAB_WORKERS} verify={LAB_VERIFY}: digests {got}, "
+                                 f"verification {verification}")
+            log(f"phase lab: (a) workers={LAB_WORKERS} verify={LAB_VERIFY}: {wall:.3f} s (spawn, the workers' "
+                f"import and trace parse, the cells, {LAB_VERIFY} re-runs in-process); digests equal "
+                f"{LAB_BASELINE}'s and the in-process run's, verification ok")
+            cells_line(f"(a) workers={LAB_WORKERS}", spread)
+            startup, cuda_context = worker.finish(MatrixSpec.from_dict(smoke).expand()[0].cfg)
+        finally:
+            worker.stop()
+        log(f"phase lab: a spawned worker answered {startup:.3f} s after its start (the interpreter, this "
+            f"script's imports with torch's, the lab's import and a {len(apps)}-app trace parse; started "
+            f"beside the runs above); CUDA context in the worker after a cell: {cuda_context}")
+        if cuda_context:
+            raise SystemExit("phase lab: a lab worker opened a CUDA context")
+
+        # the port's gate on that document: 0, then 1 with one KPI altered
+        current = os.path.join(workdir, "matrix.json")
+        with open(current, "w") as f:
+            json.dump(local, f)
+        clean = policy_regression.main(["--matrix-current", current])
+        altered = json.loads(json.dumps(local))
+        altered["cells"][0]["kpis"]["wait_seconds"]["p50"] += 1.0
+        drifted = os.path.join(workdir, "drifted.json")
+        with open(drifted, "w") as f:
+            json.dump(altered, f)
+        drift = policy_regression.main(["--matrix-current", drifted])
+        if (clean, drift) != (0, 1):
+            raise SystemExit(f"phase lab: the gate exited {clean} on the smoke matrix (0 expected) and {drift} "
+                             "with one KPI altered (1 expected)")
+        log(f"phase lab: (a) the port's gate: exit 0 against {LAB_BASELINE}, exit 1 with "
+            f"{altered['cells'][0]['cell']}'s wait p50 altered")
+
+    # (b) the week trace's corner cells on full_matrix.json's 96 nodes
+    t = time.perf_counter()
+    week = synthesize(SynthSpec.from_dict(spec_of("week_synth.json")))
+    log(f"phase lab: (b) week_synth.json: {len(week)} arrivals synthesized in {time.perf_counter() - t:.3f} s")
+    full = MatrixSpec.from_dict(spec_of("full_matrix.json"))
+    cfgs = {c.cell_id: c.cfg for c in full.expand()}
+    for cell_id, (want, want_events) in LAB_CORNERS.items():
+        doc = run_cell(week, cfgs[cell_id]).to_dict()
+        log(f"phase lab: (b) {cell_id} on {full.cluster['nodes']} nodes: {doc['events']} events in "
+            f"{doc['wallSeconds']:.3f} s ({doc['events'] / max(doc['wallSeconds'], 1e-9):.0f} events/s), "
+            f"digest {doc['digest']} | {smi}")
+        if (doc["digest"], doc["events"]) != (want, want_events):
+            raise SystemExit(f"phase lab: (b) {cell_id}: digest {doc['digest']} ({doc['events']} events), "
+                             f"the reference's {want} ({want_events})")
+    if launched() != launches_before:
+        raise SystemExit(f"phase lab: {launched() - launches_before} kernel launches in a host-only phase")
+    rss_after = rss_mib()
+    log(f"phase lab: (b) the corner digests equal the reference's; parent RSS {rss_before[0]:.0f} MiB before, "
+        f"{rss_after[0]:.0f} MiB after, peak {rss_after[1]:.0f} MiB (the whole script's, getrusage); 0 kernel "
+        f"launches; "
+        f"the phase {time.perf_counter() - t_phase:.1f} s | {smi}")
 
 
 def session_stream(problem, n_earlier: int, smi: str) -> None:
@@ -4038,6 +4250,66 @@ def fifo_solvers(device: str):
     }
 
 
+class CpuTwin:
+    """One spawned process that computes the cpu halves of phase 4's and
+    phase sim's cuda-against-cpu comparisons while this process drives
+    the card: the same functions on the same inputs (made from the same
+    seeds), only in another process.  Started before phase 3 (its
+    interpreter and torch's import overlap the kernel checks) and stopped
+    after phase sim, so phase lab runs without it; ``submit`` queues a
+    task, answered in order by the one worker."""
+
+    def __init__(self):
+        import atexit
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1, initializer=twin_init)
+        atexit.register(self.stop)
+
+    def submit(self, fn, *args):
+        return self.pool.apply_async(fn, args)
+
+    def stop(self) -> None:
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+
+
+def twin_init() -> None:
+    # half the host's cores for its torch ops, the rest for the card's driver
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    # phase sim: every refused driver of the backlog logs a line a round
+    import logging
+
+    logging.disable(logging.ERROR)
+
+
+def twin_decisions(seed: int, n_decisions: dict) -> tuple:
+    """Phase 4's decisions on the CPU (the plain versions), in the twin:
+    ({policy: [outcome_key, ...]}, seconds)."""
+    from k8s_spark_scheduler_tpu_torch.ops.nodesort import NodeSorter
+
+    t = time.perf_counter()
+    metadata, earlier, skip, currents = build_snapshot(seed)
+    driver_order, executor_order = NodeSorter().potential_nodes(metadata, list(metadata))
+    keys = {
+        p: [outcome_key(solver.solve(metadata, driver_order, executor_order, earlier, skip, current))
+            for current in currents[: n_decisions[p]]]
+        for p, solver in fifo_solvers("cpu").items()
+    }
+    return keys, time.perf_counter() - t
+
+
+def twin_simulation(spec: dict) -> tuple:
+    """One simulation on the CPU, in the twin: (result, wall s)."""
+    from k8s_spark_scheduler_tpu_torch.sim import Scenario, Simulation
+
+    t = time.perf_counter()
+    result = Simulation(Scenario.from_dict(spec), device="cpu").run()
+    return result, time.perf_counter() - t
+
+
 def small_oracle_check(seed: int) -> int:
     """FIFO decisions on the card against the host oracles on small
     random snapshots, for every policy; returns the number of decisions
@@ -4149,6 +4421,12 @@ def main() -> int:
         for future in [pool.submit(lib.load) for lib in libraries.values()]:
             future.result()
     log(f"phase build: {len(libraries)} kernels ready in {time.perf_counter() - t0:.2f} s")
+
+    # the cpu halves of phase 4's decisions, computed beside phases 3-4
+    twin = CpuTwin()
+    n_decisions = {p: DECISIONS if p in ("tightly-pack", "distribute-evenly") else NEW_DECISIONS
+                   for p in POLICY_KERNEL}
+    cpu_decisions = twin.submit(twin_decisions, args.seed, n_decisions)
 
     # ---- phase 3: kernel vs plain on the card
     max_err = {"fifo_queue_tightly": 0, "fifo_queue_evenly": 0, "fifo_queue_min_frag": 0}
@@ -4298,9 +4576,7 @@ def main() -> int:
     n_checked = small_oracle_check(args.seed)
     log(f"phase main-path: {n_checked} small-snapshot FIFO decisions equal the host oracles")
 
-    solvers, cpu_solvers = fifo_solvers("cuda"), fifo_solvers("cpu")
-    n_decisions = {p: DECISIONS if p in ("tightly-pack", "distribute-evenly") else NEW_DECISIONS
-                   for p in solvers}
+    solvers = fifo_solvers("cuda")
     solve_ms = {p: [] for p in solvers}
     decisions = {p: [] for p in solvers}
     paths = {p: [] for p in solvers}
@@ -4335,10 +4611,13 @@ def main() -> int:
     for p in solvers:
         log(f"phase main-path: {p} last path per decision {paths[p]}")
 
-    # the same decisions on the CPU (the plain versions)
-    for p, solver in cpu_solvers.items():
-        for i, current in enumerate(currents[: n_decisions[p]]):
-            want = outcome_key(solver.solve(metadata, driver_order, executor_order, earlier, skip, current))
+    # the same decisions on the CPU (the plain versions), from the twin
+    t = time.perf_counter()
+    cpu_keys, twin_s = cpu_decisions.get(timeout=1800)
+    log(f"phase main-path: the cpu decisions took {twin_s:.1f} s in the twin process beside phases 3-4; "
+        f"waited {time.perf_counter() - t:.1f} s for them here")
+    for p in solvers:
+        for i, want in enumerate(cpu_keys[p]):
             if decisions[p][i] != want:
                 raise SystemExit(f"{p} decision {i} on cuda differs from cpu: {decisions[p][i]} vs {want}")
             if not want[1] or not want[2][0]:
@@ -4570,13 +4849,20 @@ def main() -> int:
 
     # ---- phase sim: the discrete-event simulator on the card
     t = time.perf_counter()
-    sim_launches = sim_phase(smi)
+    sim_launches = sim_phase(smi, twin)
+    twin.stop()
     for entry in kernels:
         entry["launches"] += sim_launches.get(entry["name"], 0)
     log(f"phase sim: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 15: results
+    # ---- phase lab: the policy lab and its gate (host-only: no launch)
+    t = time.perf_counter()
+    lab_phase(smi)
+    log(f"phase lab: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 16: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -282,6 +282,8 @@ TAG_LOCK = "lock"
 # the span phase that held a lock while another thread waited on it
 TAG_HOLDER = "holder"
 TAG_SEGMENT = "segment"
+# the policy-lab matrix cell a per-cell series belongs to
+TAG_CELL = "cell"
 
 TICK_INTERVAL_SECONDS = 30.0
 SLOW_LOG_THRESHOLD_SECONDS = 45.0
@@ -330,3 +332,15 @@ SIM_AUDIT_EVENTS = "foundry.spark.scheduler.tpu.sim.audit.events"
 SIM_AUDIT_VIOLATIONS = (
     "foundry.spark.scheduler.tpu.sim.audit.violations.count"
 )
+
+# policy lab (lab/): trace synthesis + matrix evaluation harness
+# apps emitted by one synthesizer invocation
+LAB_TRACE_APPS = "foundry.spark.scheduler.tpu.lab.trace.apps"
+# cells executed per matrix run
+LAB_MATRIX_CELLS = "foundry.spark.scheduler.tpu.lab.matrix.cells"
+# per-cell replay wall time (seconds; histogram, tagged cell=)
+LAB_CELL_WALL_TIME = "foundry.spark.scheduler.tpu.lab.cell.wall.time"
+# per-cell replay event count (gauge, tagged cell=)
+LAB_CELL_EVENTS = "foundry.spark.scheduler.tpu.lab.cell.events.count"
+# per-cell gang evictions (gauge, tagged cell=)
+LAB_CELL_EVICTIONS = "foundry.spark.scheduler.tpu.lab.cell.evictions.count"

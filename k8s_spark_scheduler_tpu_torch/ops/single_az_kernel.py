@@ -124,6 +124,29 @@ def _tightly_plain(cpu, mem, gpu, rank, exec_ok, dr, ex, k):
     return feasible, flat_idx, is_driver, torch.where(feasible[..., None], x, 0)
 
 
+def _pick_zone(f, nz, q, band, n_zones: int):
+    """The kernel's zone choice over [Z] vectors, in closed form: zones
+    are walked in order; the first feasible zone with a nonzero score
+    opens the choice, after it a feasible zone replaces the choice only
+    on a strictly higher score (so ties keep the earlier zone), and a
+    feasible zone whose score differs from the choice so far by at most
+    ``band`` flags the app uncertain.  Returns (zone [] int32, -1 =
+    none; uncertain [] bool)."""
+    dev = q.device
+    if not n_zones:
+        return torch.tensor(-1, dtype=torch.int32, device=dev), torch.tensor(False, device=dev)
+    z = torch.arange(n_zones, dtype=torch.int32, device=dev)
+    z0 = torch.where(f & nz, z, n_zones).min()  # the zone that opens the choice
+    live = f & (z >= z0)
+    running = torch.cummax(torch.where(live, q, torch.iinfo(torch.int32).min), 0).values
+    best_q = running[-1]
+    # the choice before each zone: the running best up to the zone before
+    before = torch.where(z > z0, torch.roll(running, 1), q)
+    uncertain = (live & (q != before) & (torch.abs(q - before) <= band)).any()
+    best_zone = torch.where(live & (q == best_q), z, n_zones).min()
+    return torch.where(best_zone < n_zones, best_zone, -1), uncertain
+
+
 def solve_queue_single_az_plain(
     avail: torch.Tensor,        # [N, 3] int32
     driver_rank: torch.Tensor,  # [N] int32 (BIG = not a driver candidate)
@@ -194,21 +217,17 @@ def solve_queue_single_az_plain(
             f, flat_idx, is_driver, x = _tightly_plain(cpu, mem, gpu, zone_rank, zone_ok, dr, ex, k)
             q, nz = score(cpu, mem, gpu, x, x, is_driver, dr, ex)
 
-        best_q = torch.tensor(0, dtype=torch.int32, device=dev)
-        best_zone = torch.tensor(-1, dtype=torch.int32, device=dev)
-        uncertain = torch.tensor(False, device=dev)
-        chosen_x = torch.zeros(n, dtype=torch.int32, device=dev)
-        chosen_driver = torch.zeros(n, dtype=torch.bool, device=dev)
-        chosen_idx = torch.tensor(n, dtype=torch.int32, device=dev)
-        for z in range(n_zones):
-            first = best_zone < 0
-            better = f[z] & torch.where(first, nz[z], q[z] > best_q)
-            uncertain = uncertain | (f[z] & ~first & (q[z] != best_q) & (torch.abs(q[z] - best_q) <= band))
-            best_q = torch.where(better, q[z], best_q)
-            best_zone = torch.where(better, z, best_zone)
-            chosen_x = torch.where(better, x[z], chosen_x)
-            chosen_driver = torch.where(better, is_driver[z], chosen_driver)
-            chosen_idx = torch.where(better, flat_idx[z], chosen_idx)
+        best_zone, uncertain = _pick_zone(f, nz, q, band, n_zones)
+        found = best_zone >= 0
+        pick = best_zone.clamp(min=0).to(torch.int64).reshape(1)
+        if n_zones:
+            chosen_x = torch.where(found, x.index_select(0, pick)[0], 0)
+            chosen_driver = is_driver.index_select(0, pick)[0] & found
+            chosen_idx = torch.where(found, flat_idx.index_select(0, pick)[0], n)
+        else:
+            chosen_x = torch.zeros(n, dtype=torch.int32, device=dev)
+            chosen_driver = torch.zeros(n, dtype=torch.bool, device=dev)
+            chosen_idx = torch.tensor(n, dtype=torch.int32, device=dev)
         if az_aware:
             fc, idx_c, driver_c, x_c = _tightly_plain(cpu, mem, gpu, driver_rank, exec_ok, dr, ex, k)
             use_cross = (best_zone < 0) & fc

@@ -132,7 +132,8 @@ def main(argv=None) -> int:
                 result.summary.get("contention"), f, indent=2, sort_keys=True
             )
         # SLO scorecard (same schema as a live GET /slo): the input to
-        # the policy-regression gate (tools/policy_regression.py)
+        # the policy-regression gate (python -m
+        # k8s_spark_scheduler_tpu_torch.tools.policy_regression --current)
         if result.summary.get("slo") is not None:
             with open(os.path.join(args.out, "scorecard.json"), "w") as f:
                 json.dump(result.summary["slo"], f, indent=2, sort_keys=True)

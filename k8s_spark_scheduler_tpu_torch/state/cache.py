@@ -314,12 +314,16 @@ class AsyncClient:
             if (
                 self._journal is not None
                 and r.key in self._journal.pending_keys()
-            ):
-                # journaled replay: the object's create was collapsed
-                # into this update intent while diverted (latest-wins per
-                # key) and never landed — upsert it.  The store holds the
-                # full newest content; _do_create acks the pending intent
-                # (create and update share the upsert ack class).
+            ) or self._never_landed(r.key):
+                # the object's create was collapsed into this update and
+                # never landed — upsert it.  Either the intent was
+                # journaled while diverted (latest-wins per key), or a
+                # failed create's retry found this update already queued
+                # for the key (the unique queue keeps one request a key)
+                # and the server has never acknowledged the object.  The
+                # store holds the full newest content; _do_create acks
+                # any pending intent (create and update share the upsert
+                # ack class).
                 self._do_create(Request(r.key, CREATE, r.retry_count))
                 return
             # the server authoritatively lacks the object (owner GC beat
@@ -360,6 +364,21 @@ class AsyncClient:
             return
         self._post_commit()
         self._on_write_ok(r)
+
+    def _never_landed(self, key) -> bool:
+        """True when the server has never acknowledged the local object:
+        no create response and no informer event has folded a
+        resourceVersion into it (the store keeps the known one across
+        local puts), so a NotFound for it is taken as a create that never
+        landed, not an owner GC.  One case reads wrong: a create that did
+        land but whose response was lost (a client timeout), deleted by
+        an owner GC before the informer's add or delete event reached the
+        store.  The update then re-creates the object, an orphan whose
+        owner is gone, where the reference would drop it; the API
+        server's garbage collector deletes such an object again, since
+        its owner reference names a missing owner."""
+        obj = self._store.get(key)
+        return obj is not None and not obj.meta.resource_version
 
     # -- resilience hooks ----------------------------------------------------
 

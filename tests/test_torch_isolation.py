@@ -829,3 +829,63 @@ def test_simulator_runs_with_jax_and_reference_package_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = next(x for x in proc.stdout.splitlines() if x.startswith("SIM-DIGESTS "))
     assert json.loads(line[len("SIM-DIGESTS "):]) == want
+
+
+_BLOCKED_LAB = textwrap.dedent(
+    """
+    import importlib, json, os, sys, tempfile
+
+    BLOCKED = ("jax", "jaxlib", "k8s_spark_scheduler_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    # the modules of the lab slice and its gate, each by name
+    for name in ("lab", "lab.spec", "lab.synth", "lab.engine", "lab.report", "lab.runner",
+                 "lab.__main__", "tools", "tools.policy_regression"):
+        importlib.import_module("k8s_spark_scheduler_tpu_torch." + name)
+    from k8s_spark_scheduler_tpu_torch.lab import MatrixSpec, SynthSpec, run_matrix, synthesize
+    from k8s_spark_scheduler_tpu_torch.tools.policy_regression import main as gate_main
+
+    with open(os.path.join("examples", "lab", "smoke_synth.json")) as f:
+        apps = synthesize(SynthSpec.from_dict(json.load(f)))
+    with open(os.path.join("examples", "lab", "smoke_matrix.json")) as f:
+        matrix = run_matrix(MatrixSpec.from_dict(json.load(f)), apps=apps)
+    path = os.path.join(tempfile.mkdtemp(), "matrix.json")
+    with open(path, "w") as f:
+        json.dump(matrix, f)
+    code = gate_main(["--matrix-current", path])
+    assert code == 0, code
+    bad = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not bad, bad
+    print("LAB-DIGESTS " + json.dumps([c["digest"] for c in matrix["cells"]]))
+    """
+)
+
+
+def test_lab_and_gate_run_with_jax_and_reference_package_blocked():
+    """The lab slice (lab/ and tools/policy_regression) imports and runs
+    the committed smoke matrix in-process with jax and the JAX package
+    blocked, to the committed baseline's digests, and the port's gate
+    passes that document against the baseline."""
+    import json
+
+    with open(os.path.join(REPO, "tests", "baselines", "matrix_smoke.json")) as f:
+        want = [c["digest"] for c in json.load(f)["cells"]]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_LAB],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "policy-regression(matrix): PASS 3 cells byte-identical" in proc.stdout
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("LAB-DIGESTS "))
+    assert json.loads(line[len("LAB-DIGESTS "):]) == want

@@ -18,7 +18,9 @@ the reference:
 
 The reference's simulator case (``test_lifecycle.py:344``) is in
 tests/test_torch_sim_observatory.py; its policy-regression-gate cases
-(``:414``, ``:496``, ``:582``) wait for the lab's port (ROADMAP A.1).
+(``:414``, ``:496``, ``:582``) are in tests/test_torch_lab_gate.py, run
+through the port's gate (``k8s_spark_scheduler_tpu_torch/tools/
+policy_regression.py``) and the reference's.
 """
 
 import json

@@ -204,7 +204,9 @@ def test_update_not_found_is_not_a_breaker_signal():
             raise NotFoundError("gone: owner GC beat the update")
 
     store = ObjectStore()
-    rr = ResourceReservation(meta=ObjectMeta(name="a", namespace="d"))
+    # the server acknowledged the object once (its create landed), so a
+    # NotFound now means it was deleted there
+    rr = ResourceReservation(meta=ObjectMeta(name="a", namespace="d", resource_version=5))
     store.put(rr)
     breaker = CircuitBreaker(failure_threshold=1)
     journal = IntentJournal()
@@ -223,6 +225,63 @@ def test_update_not_found_is_not_a_breaker_signal():
     assert breaker.state == "closed"
     assert journal.depth() == 0  # dropped, never journaled
 
+
+
+@pytest.mark.parametrize("with_journal", [True, False], ids=["journal", "no-journal"])
+def test_failed_create_collapsed_into_a_queued_update_still_lands(with_journal):
+    """A create that fails while an update for the same key is already
+    queued has its retry collapsed into that update (the unique queue
+    keeps one request a key).  The update then meets NotFound: the
+    server never acknowledged the object, so it is created, not dropped
+    as an owner GC (the simulator's apiserver_latency fault lost such
+    reservations and never quiesced)."""
+    from k8s_spark_scheduler_tpu_torch.kube.errors import NotFoundError
+    from k8s_spark_scheduler_tpu_torch.state.cache import AsyncClient
+    from k8s_spark_scheduler_tpu_torch.state.store import (
+        ObjectStore,
+        ShardedUniqueQueue,
+        create_request,
+        update_request,
+    )
+    from k8s_spark_scheduler_tpu_torch.types.objects import ObjectMeta, ResourceReservation
+
+    class FlakyServer:
+        """Every key's first create times out; updates of an object it
+        does not hold answer NotFound."""
+
+        def __init__(self):
+            self.objects, self.creates = {}, 0
+
+        def create(self, obj):
+            self.creates += 1
+            if self.creates == 1:
+                raise APIError("client timeout (create)")
+            obj.meta.resource_version = 7
+            self.objects[(obj.meta.namespace, obj.meta.name)] = obj
+            return obj
+
+        def update(self, obj):
+            if (obj.meta.namespace, obj.meta.name) not in self.objects:
+                raise NotFoundError("not found")
+            return obj
+
+    store, queue, server = ObjectStore(), ShardedUniqueQueue(1), FlakyServer()
+    rr = ResourceReservation(meta=ObjectMeta(name="a", namespace="d"))
+    store.put(rr)
+    journal = IntentJournal() if with_journal else None
+    client = AsyncClient(client=server, queue=queue, object_store=store,
+                         breaker=CircuitBreaker(failure_threshold=3), journal=journal)
+    # the worker has taken the create; the extender queues an update
+    assert queue.try_add_if_absent(update_request(rr))
+    client._do_create(create_request(rr))  # times out; its retry collapses
+    (pending,) = queue.get_consumers()
+    assert pending.qsize() == 1
+    client._do_update(pending.get_nowait()())
+    assert ("d", "a") in server.objects
+    assert store.get(("d", "a")).meta.resource_version == 7
+    assert pending.qsize() == 0
+    if journal is not None:
+        assert journal.depth() == 0
 
 # -- intent journal -----------------------------------------------------------
 

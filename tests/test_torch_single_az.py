@@ -391,6 +391,38 @@ def test_plain_single_az_queue_many_zones_matches_scan(variant):
     assert got[0].any() and (got[1][got[0]] < MANY_ZONES).any()
 
 
+def _zone_walk(f, nz, q, band):
+    """The Pallas kernel's zone choice as it walks the zones in order."""
+    best_q, best_zone, uncertain = 0, -1, False
+    for z in range(len(q)):
+        first = best_zone < 0
+        if f[z] and not first and q[z] != best_q and abs(q[z] - best_q) <= band:
+            uncertain = True
+        if f[z] and (nz[z] if first else q[z] > best_q):
+            best_q, best_zone = q[z], z
+    return best_zone, uncertain
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_pick_zone_closed_form_matches_the_zone_walk(seed):
+    """The plain version's closed-form zone choice equals the kernel's
+    walk over the zones: the opening zone needs a nonzero score, later
+    zones a strictly higher one (ties keep the earlier zone), and a
+    near score flags uncertain; with no zones, no choice."""
+    rng = random.Random(seed)
+    for _ in range(500):
+        n_zones = rng.randint(0, 9)
+        f = [rng.random() < 0.6 for _ in range(n_zones)]
+        nz = [rng.random() < 0.6 for _ in range(n_zones)]
+        q = [rng.randint(0, 12) for _ in range(n_zones)]
+        band = rng.randint(0, 5)
+        zone, uncertain = sk._pick_zone(
+            torch.tensor(f, dtype=torch.bool), torch.tensor(nz, dtype=torch.bool),
+            torch.tensor(q, dtype=torch.int32), torch.tensor(band, dtype=torch.int32), n_zones,
+        )
+        assert (int(zone), bool(uncertain)) == _zone_walk(f, nz, q, band), (f, nz, q, band)
+
+
 def many_zone_snapshot(rng, n_nodes=MANY_ZONES + 40):
     """random_snapshot's cluster and apps with the nodes spread over
     MANY_ZONES zone labels."""
