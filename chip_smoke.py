@@ -5,9 +5,9 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device: the card's name, CUDA version, name and power limit;
-2. build: the three kernels from ``ops/csrc/`` (queue_kernel.cu,
-   minfrag_kernel.cu, single_az_kernel.cu; one nvcc each, all started
-   together, sm_90a);
+2. build: the four kernels from ``ops/csrc/`` (queue_kernel.cu,
+   minfrag_kernel.cu, single_az_kernel.cu, class_kernel.cu; one nvcc
+   each, all started together, sm_90a);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card, on randomized queues (ragged N, k = 0, zero-resource
    executors, negative availability, invalid apps, zone id -1, a problem
@@ -259,12 +259,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    every axis off and every axis on, in-process, their digests equal to
    the reference's (``LAB_CORNERS``).  Wall time and events/s a cell, the
    parent's RSS, 0 launches in the phase;
-16. the kernels line (times, bounds, launches) and the device result line.
+16. classes: class-compressed stepping (ops/class_kernel.py, the
+   reference's native class solver on the card).  (a) bench.py's class
+   lane inputs (``class_fleet``: seed 20, 24 machine shapes, 2 %
+   near-duplicates, 5 % not exec_ok) at 100,000 nodes x 10,000 apps:
+   under tightly, evenly and min-frag the class kernel against the row
+   kernel, byte-equal, both timed by CUDA events, the four evidence
+   values and the compression.  (b) The same fleet at 20,480 x 1,000:
+   each class kernel against its plain version (computed in the twin),
+   outputs, every checkpoint (stride 64) and the evidence, a suffix pass
+   from the checkpoint at position 384 too, and against the row kernel;
+   timed beside the row kernel.  (c) A class-mode ``FifoSession`` and a
+   row-mode one on the card replay one random delta stream at 20,480
+   nodes (pops, appends, executor edits, availability churn with a
+   reload), equal at every step, per policy, with ``class_stats``.  (d)
+   Phase 5's HTTP snapshot on a ``tpu-batch`` server with ``classes:
+   {min-nodes: 0}`` against one with class stepping off: 4 queued
+   drivers' Filters byte-equal, the class kernel launched on the first.
+   (c) and (d) are the class kernels' main path (launches counted there);
+17. the kernels line (times, bounds, launches) and the device result line.
 
-The cpu halves of phase 4's decisions and of phase sim's simulations run
-in one spawned twin process (``CpuTwin``): started before phase 3, it
-computes them from the same seeds while this process drives the card,
-and is stopped after phase sim.  The comparisons are the same; only the
+The cpu halves of phase 4's decisions, of phase sim's simulations and of
+phase classes (b) run in one spawned twin process (``CpuTwin``): started
+before phase 3, it computes them from the same seeds while this process
+drives the card, and is stopped after phase sim.  The comparisons are the same; only the
 host's idle cores do the cpu work.
 
 Needs CUDA: without it the script exits with an error before any phase.
@@ -320,8 +338,13 @@ FLOOR_NODES = 1024  # one node a thread: the kernel's serial per-app floor
 CSRC = "k8s_spark_scheduler_tpu_torch/ops/csrc/"
 PALLAS = "k8s_spark_scheduler_tpu/ops/pallas_queue.py:"
 SOURCES = {"queue": CSRC + "queue_kernel.cu", "min_frag": CSRC + "minfrag_kernel.cu",
-           "single_az": CSRC + "single_az_kernel.cu"}
-REPLACES = {"queue": PALLAS + "681", "min_frag": PALLAS + "614", "single_az": PALLAS + "525"}
+           "single_az": CSRC + "single_az_kernel.cu", "classes": CSRC + "class_kernel.cu",
+           "classes_min_frag": CSRC + "class_kernel.cu"}
+# the class kernels replace no Pallas kernel: they stand for the reference's
+# native class steps (native/fifo_solver.cpp step_app_plain_classes,
+# step_app_minfrag_classes), which the port does not carry
+REPLACES = {"queue": PALLAS + "681", "min_frag": PALLAS + "614", "single_az": PALLAS + "525",
+            "classes": "native/fifo_solver.cpp:946", "classes_min_frag": "native/fifo_solver.cpp:1150"}
 # (az_aware, minfrag) of each single-AZ kernel variant
 SINGLE_AZ = {"fifo_queue_single_az_tightly": (False, False),
              "fifo_queue_single_az_az_aware": (True, False),
@@ -519,10 +542,10 @@ class PortServer:
 
     def __init__(self, policy: str, device: str, nodes, queue, provenance=None, delta_solve: bool = True,
                  observatories: bool = True, contention: bool = True, scheduling_policy=None,
-                 concurrent: bool = False):
-        from k8s_spark_scheduler_tpu_torch.config import (CapacityConfig, ConcurrentConfig, ContentionConfig,
-                                                          Install, LifecycleConfig, PolicyConfig,
-                                                          ProvenanceConfig)
+                 concurrent: bool = False, classes=None):
+        from k8s_spark_scheduler_tpu_torch.config import (CapacityConfig, ClassesConfig, ConcurrentConfig,
+                                                          ContentionConfig, Install, LifecycleConfig,
+                                                          PolicyConfig, ProvenanceConfig)
         from k8s_spark_scheduler_tpu_torch.kube.apiserver import APIServer
         from k8s_spark_scheduler_tpu_torch.kube.crd import DEMAND_CRD_NAME, demand_crd_spec
         from k8s_spark_scheduler_tpu_torch.server.http import ExtenderHTTPServer
@@ -544,7 +567,8 @@ class PortServer:
                           lifecycle=LifecycleConfig(enabled=observatories),
                           contention=ContentionConfig(enabled=contention),
                           policy=scheduling_policy or PolicyConfig(),
-                          concurrent=ConcurrentConfig(enabled=concurrent))
+                          concurrent=ConcurrentConfig(enabled=concurrent),
+                          classes=classes or ClassesConfig())
         self.scheduler = init_server_with_clients(
             self.api, install, demand_poll_interval=0.5, unschedulable_polling_interval=3600.0,
             device=device,
@@ -1740,9 +1764,9 @@ def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -
     resumed from every checkpoint against the whole-queue pass.  Then the
     tightly-pack and min-frag launches at 20,480 nodes (the main path's
     cluster twice over, the same 1,000 apps), whole queue and a 640-app
-    suffix, against their plain versions and timed: the class-compressed
-    stepping question (ROADMAP A.3b) asks what a launch costs at the
-    reference's 20,000-node threshold.  Returns {kernel name: (ms runs,
+    suffix, against their plain versions and timed: what a row-level
+    launch costs at the reference's 20,000-node class threshold (phase
+    classes sets the class kernels beside it).  Returns {kernel name: (ms runs,
     plain ms, bytes bound ms, operations bound ms)} at the main path's
     inputs."""
     from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
@@ -4022,6 +4046,290 @@ def lab_phase(smi: str) -> None:
         f"the phase {time.perf_counter() - t_phase:.1f} s | {smi}")
 
 
+# -- phase classes: class-compressed stepping ---------------------------------------
+
+CLASSES_NODES, CLASSES_APPS = 100_000, 10_000  # (a): bench.py:1130-1168, the reference's class lane
+CLASSES_CHECK_NODES, CLASSES_CHECK_APPS = 20_480, 1_000  # (b), (c): the 10,240 bucket twice, past 20,000
+CLASSES_STRIDE = 64  # the session's checkpoint stride (ops/deltasolve.py)
+CLASSES_SUFFIX = 6 * CLASSES_STRIDE  # (b): the suffix pass starts at this queue position
+CLASSES_STREAM_STEPS = 10  # (c): delta-stream steps a policy
+CLASSES_SERVER_FILTERS = 4  # (d): queued drivers' Filters on each server
+CLASSES_REPS = 3  # CUDA-event timings of each launch
+CLASSES_ODD_CASES = ((7, 20), (300, 100), (2000, 300))  # random_queue's odd inputs
+CLASS_POLICIES = {0: "tightly-pack", 1: "distribute-evenly", 2: "minimal-fragmentation"}
+ROW_KERNEL = {0: "fifo_queue_tightly", 1: "fifo_queue_evenly", 2: "fifo_queue_min_frag"}
+
+
+def class_fleet(n: int, a: int):
+    """bench.py:1153-1168's class-lane inputs at n nodes x a apps: seed 20,
+    24 machine shapes, 2 % near-duplicates one unit off, 5 % not exec_ok;
+    (avail, driver_rank, exec_ok, packed [a, 8])."""
+    rng = np.random.RandomState(20)
+    shapes = rng.randint(20, 200, size=(24, 3)).astype(np.int32)
+    avail = shapes[rng.randint(0, 24, size=n)].copy()
+    near = rng.choice(n, size=max(1, n // 50), replace=False)
+    avail[near, rng.randint(0, 3, size=len(near))] += 1
+    rank = np.arange(n, dtype=np.int32)
+    rng.shuffle(rank)
+    eok = rng.rand(n) > 0.05
+    drv = rng.randint(0, 3, size=(a, 3)).astype(np.int32)
+    exe = rng.randint(1, 5, size=(a, 3)).astype(np.int32)
+    cnt = rng.randint(1, 8, size=a).astype(np.int32)
+    packed = np.hstack([drv, exe, cnt[:, None], np.ones((a, 1), np.int32)]).astype(np.int32)
+    return avail, rank, eok, packed
+
+
+def twin_classes_plain() -> dict:
+    """Phase classes (b)'s plain halves, in the twin: per policy the class
+    pass's plain version over the whole queue (outputs, checkpoints,
+    evidence, seconds) and over the suffix from its own checkpoint at
+    CLASSES_SUFFIX."""
+    from k8s_spark_scheduler_tpu_torch.ops import class_kernel as ck
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_session import MAX_CHECKPOINTS, class_pass
+
+    avail, rank, eok, packed = class_fleet(CLASSES_CHECK_NODES, CLASSES_CHECK_APPS)
+    n = avail.shape[0]
+    a_t, e_t = torch.as_tensor(avail), torch.as_tensor(eok)
+    cand = ck.candidates(torch.as_tensor(rank))
+    out = {}
+    for p in CLASS_POLICIES:
+        chk = torch.full((MAX_CHECKPOINTS, n, 3), -7, dtype=torch.int32)
+        st = ck.ClassState(n, "cpu")
+        t = time.perf_counter()
+        f, d, after = class_pass(p, a_t, cand, e_t, packed, st, True, chk_base=0, chk_stride=CLASSES_STRIDE,
+                                 chk_out=chk)
+        seconds = time.perf_counter() - t
+        start = chk[CLASSES_SUFFIX // CLASSES_STRIDE - 1].clone()
+        chk_s = torch.full((MAX_CHECKPOINTS, n, 3), -7, dtype=torch.int32)
+        st_s = ck.ClassState(n, "cpu")
+        fs, ds, after_s = class_pass(p, start, cand, e_t, packed[CLASSES_SUFFIX:], st_s, True,
+                                     chk_base=CLASSES_SUFFIX, chk_stride=CLASSES_STRIDE, chk_out=chk_s)
+        out[p] = {"whole": tuple(x.numpy() for x in (f, d, after, chk)), "evidence": st.evidence(),
+                  "seconds": seconds, "suffix": tuple(x.numpy() for x in (fs, ds, after_s, chk_s)),
+                  "suffix_evidence": st_s.evidence()}
+    return out
+
+
+def class_launch_total() -> dict:
+    from k8s_spark_scheduler_tpu_torch.ops import class_kernel as ck
+
+    return dict(ck.launch_counts)
+
+
+def classes_phase(seed: int, smi: str, plain: dict, device: str = "cuda") -> list:
+    """Phase classes (see the module docstring): (a) the class kernels
+    against the row kernels at 100,000 x 10,000, (b) against their plain
+    version at 20,480 x 1,000 (`plain`: twin_classes_plain's result, from
+    the twin), (c) class-mode
+    sessions against row-mode ones, (d) the server with class stepping on
+    against off.  Returns the class kernels' entries of the kernels line;
+    raises SystemExit on any failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.config import ClassesConfig
+    from k8s_spark_scheduler_tpu_torch.ops import class_kernel as ck
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_session import (MAX_CHECKPOINTS, FifoSession, class_pass,
+                                                                 queue_pass)
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+
+    def row_and_class(p, planes, rank_t, eok_t, cand, packed):
+        """One row-kernel and one class-kernel pass (a fresh partition):
+        outputs, the evidence."""
+        st = ck.ClassState(planes.shape[0], dev)
+        got = class_pass(p, planes, cand, eok_t, packed, st, True)
+        want = queue_pass(p, planes, rank_t, eok_t, packed)
+        torch.cuda.synchronize()
+        return got, want, st.evidence()
+
+    def times(p, planes, rank_t, eok_t, cand, packed):
+        st = ck.ClassState(planes.shape[0], dev)
+        cls_ms = [time_cuda(lambda: class_pass(p, planes, cand, eok_t, packed, st, True), 1)
+                  for _ in range(CLASSES_REPS)]
+        row_ms = [time_cuda(lambda: queue_pass(p, planes, rank_t, eok_t, packed), 1) for _ in range(CLASSES_REPS)]
+        return cls_ms, row_ms
+
+    # odd inputs first (random_queue: negative availability, k = 0, zero
+    # requests, invalid apps, non-candidates): each class kernel against
+    # its plain version and the row kernel
+    for ci, (n, a) in enumerate(CLASSES_ODD_CASES):
+        arrays = random_queue(np.random.RandomState(seed * 1000 + 990 + ci), n, a)
+        packed = np.hstack([arrays[3], arrays[4], arrays[5][:, None], arrays[6][:, None]]).astype(np.int32)
+        planes, rank_t, eok_t = on(dev, arrays[:3])
+        cand = ck.candidates(rank_t)
+        for p in CLASS_POLICIES:
+            got, want, ev = row_and_class(p, planes, rank_t, eok_t, cand, packed)
+            st = ck.ClassState(n, "cpu")
+            ref = class_pass(p, planes.cpu(), cand.cpu(), eok_t.cpu(), packed, st, True)
+            if compare(got, want) or compare(got, on(dev, ref)) or ev != st.evidence():
+                raise SystemExit(f"phase classes: {ck.KERNEL_NAMES[p]} differs from its plain version or "
+                                 f"{ROW_KERNEL[p]} on odd inputs N={n} A={a}")
+        log(f"phase classes: odd inputs N={n} A={a}: the class kernels equal their plain version (outputs, "
+            f"evidence) and the row kernels")
+
+    # (a) the reference's bench shape: class kernel = row kernel, both timed
+    avail, rank, eok, packed = class_fleet(CLASSES_NODES, CLASSES_APPS)
+    planes, rank_t, eok_t = on(dev, (avail, rank, eok))
+    cand = ck.candidates(rank_t)
+    for p, name in CLASS_POLICIES.items():
+        got, want, ev = row_and_class(p, planes, rank_t, eok_t, cand, packed)
+        if compare(got, want):
+            raise SystemExit(f"phase classes: (a) {ck.KERNEL_NAMES[p]} differs from {ROW_KERNEL[p]} at "
+                             f"{CLASSES_NODES} x {CLASSES_APPS}")
+        cls_ms, row_ms = times(p, planes, rank_t, eok_t, cand, packed)
+        log(f"phase classes: (a) {name} {CLASSES_NODES} x {CLASSES_APPS}: {int(got[0].sum())} feasible, class "
+            f"kernel byte-equal to the row kernel; class {statistics.median(cls_ms):.3f} ms (runs "
+            f"{', '.join(f'{x:.3f}' for x in cls_ms)}), row {statistics.median(row_ms):.3f} ms (runs "
+            f"{', '.join(f'{x:.3f}' for x in row_ms)}); evidence {ev}, compression "
+            f"{CLASSES_NODES / ev['classes_initial']:.1f} nodes a class | {smi}")
+    del planes, rank_t, eok_t, cand
+
+    # (b) against the plain version at 20,480 x 1,000: whole queue and a
+    # suffix from a checkpoint, every checkpoint compared
+    avail, rank, eok, packed = class_fleet(CLASSES_CHECK_NODES, CLASSES_CHECK_APPS)
+    n = avail.shape[0]
+    planes, rank_t, eok_t = on(dev, (avail, rank, eok))
+    cand = ck.candidates(rank_t)
+    n_valid = int(packed[:, 7].sum())
+    n_bytes = 4 * 3 * n * 2 + n + 4 * int(cand.shape[0]) + packed.nbytes + 5 * packed.shape[0]
+    timing, max_err = {}, {}
+    for p, name in CLASS_POLICIES.items():
+        kname = ck.KERNEL_NAMES[p]
+        want = plain[p]
+        chk = torch.full((MAX_CHECKPOINTS, n, 3), -7, dtype=torch.int32, device=dev)
+        st = ck.ClassState(n, dev)
+        got = class_pass(p, planes, cand, eok_t, packed, st, True, chk_base=0, chk_stride=CLASSES_STRIDE,
+                         chk_out=chk)
+        torch.cuda.synchronize()
+        got_np = tuple(x.cpu().numpy() for x in got + (chk,))
+        max_err[kname] = compare(got + (chk,), on(dev, want["whole"]))
+        if max_err[kname] or st.evidence() != want["evidence"]:
+            raise SystemExit(f"phase classes: (b) {kname} differs from its plain version (outputs and checkpoints "
+                             f"by {max_err[kname]}, evidence {st.evidence()} vs {want['evidence']})")
+        start = chk[CLASSES_SUFFIX // CLASSES_STRIDE - 1].clone()
+        chk_s = torch.full((MAX_CHECKPOINTS, n, 3), -7, dtype=torch.int32, device=dev)
+        st_s = ck.ClassState(n, dev)
+        got_s = class_pass(p, start, cand, eok_t, packed[CLASSES_SUFFIX:], st_s, True, chk_base=CLASSES_SUFFIX,
+                           chk_stride=CLASSES_STRIDE, chk_out=chk_s)
+        torch.cuda.synchronize()
+        got_s_np = tuple(x.cpu().numpy() for x in got_s + (chk_s,))
+        if not all(np.array_equal(g, w) for g, w in zip(got_s_np, want["suffix"])) \
+                or st_s.evidence() != want["suffix_evidence"]:
+            raise SystemExit(f"phase classes: (b) {kname}'s suffix pass differs from its plain version")
+        if not (np.array_equal(got_s_np[0], got_np[0][CLASSES_SUFFIX:])
+                and np.array_equal(got_s_np[1], got_np[1][CLASSES_SUFFIX:])
+                and np.array_equal(got_s_np[2], got_np[2])
+                and np.array_equal(got_s_np[3][CLASSES_SUFFIX // CLASSES_STRIDE:],
+                                   got_np[3][CLASSES_SUFFIX // CLASSES_STRIDE:])):
+            raise SystemExit(f"phase classes: (b) {kname}'s suffix pass differs from the whole-queue pass")
+        row = queue_pass(p, planes, rank_t, eok_t, packed)
+        if compare(got, row):
+            raise SystemExit(f"phase classes: (b) {kname} differs from {ROW_KERNEL[p]}")
+        cls_ms, row_ms = times(p, planes, rank_t, eok_t, cand, packed)
+        ev = st.evidence()
+        # the app's capacity formula once a class instead of once a node
+        ops = n_valid * ev["classes_last"] * OPS_PER_NODE_VALID_APP
+        timing[kname] = (cls_ms, want["seconds"] * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3)
+        log(f"phase classes: (b) {name} {n} x {CLASSES_CHECK_APPS}: {kname} equal to its plain version (outputs, "
+            f"{MAX_CHECKPOINTS} checkpoint slots, evidence {ev}), its suffix pass from position {CLASSES_SUFFIX} "
+            f"too (evidence {st_s.evidence()}), and to {ROW_KERNEL[p]}; class {statistics.median(cls_ms):.3f} ms "
+            f"(runs {', '.join(f'{x:.3f}' for x in cls_ms)}), row {statistics.median(row_ms):.3f} ms (runs "
+            f"{', '.join(f'{x:.3f}' for x in row_ms)}), plain {want['seconds'] * 1e3:.1f} ms (twin) | {smi}")
+
+    # (c) and (d) are the class kernels' main path: every count at 0 first
+    ck.reset_launch_counts()
+
+    # (c) a class-mode session and a row-mode one on the card replay one
+    # random delta stream (tests/test_torch_class_compression.py's ops)
+    for p, name in CLASS_POLICIES.items():
+        rng = np.random.RandomState(seed * 100 + p)
+        cls_s, row_s = FifoSession(device=dev), FifoSession(device=dev)
+        cls_s.set_classes(True)
+        basis = avail.copy()
+        rows = packed.copy()
+        for s in (cls_s, row_s):
+            s.load(basis, rank, eok, p, stride=CLASSES_STRIDE)
+        ops = []
+        for step in range(CLASSES_STREAM_STEPS):
+            op = int(rng.randint(0, 5)) if step else -1
+            if op == 0 and len(rows) > 1:
+                rows = rows[1:]
+            elif op == 1:
+                k = int(rng.randint(1, 4))
+                more = np.hstack([rng.randint(0, 3, size=(k, 3)), rng.randint(1, 5, size=(k, 3)),
+                                  rng.randint(1, 8, size=(k, 1)), np.ones((k, 1))]).astype(np.int32)
+                rows = np.vstack([rows, more])
+            elif op == 2:
+                rows = rows.copy()
+                rows[int(rng.randint(0, len(rows))), 3:6] = rng.randint(1, 5, size=3)
+            elif op == 3:
+                basis = np.maximum(basis + rng.randint(-20, 21, size=basis.shape), 0).astype(np.int32)
+                for s in (cls_s, row_s):
+                    s.load(basis, rank, eok, p, stride=CLASSES_STRIDE)
+            got, want = cls_s.solve(rows), row_s.solve(rows)
+            if not (np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+                    and torch.equal(got[3], want[3])):
+                raise SystemExit(f"phase classes: (c) {name} step {step} (op {op}): the class-mode session "
+                                 f"differs from the row-mode session")
+            ops.append(f"{op}:{got[0]}")
+        log(f"phase classes: (c) {name} at {n} nodes: class-mode and row-mode sessions equal at every step of "
+            f"{CLASSES_STREAM_STEPS} (op:resume {' '.join(ops)}); class_stats {cls_s.class_stats()} | {smi}")
+
+    # (d) the server path: one tpu-batch server stepping by class
+    # (min-nodes 0) against one with class mode off (min-nodes above the
+    # cluster), queued drivers' Filters byte-equal
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    names, nodes, queue, rng, base = server_objects(seed)
+    servers = {}
+    try:
+        servers["on"] = PortServer("tpu-batch", device, nodes, queue, classes=ClassesConfig(min_nodes=0))
+        servers["off"] = PortServer("tpu-batch", device, nodes, queue)
+        before = class_launch_total()
+        lat = {"on": [], "off": []}
+        for f in range(CLASSES_SERVER_FILTERS):
+            pod = queue[int(rng.randint(N_APPS // 2, N_APPS))]
+            answers = {}
+            for side in (("on", "off") if f % 2 else ("off", "on")):
+                ms, status, body = servers[side].post(pod, names)
+                answers[side] = (status, body)
+                lat[side].append(ms)
+            if answers["on"] != answers["off"] or answers["on"][0] != 200:
+                raise SystemExit(f"phase classes: (d) Filter {f}: on {answers['on'][1][:300]!r}, "
+                                 f"off {answers['off'][1][:300]!r}")
+        after = class_launch_total()
+        rose = after["fifo_queue_classes_tightly"] - before["fifo_queue_classes_tightly"]
+        sessions = list(servers["on"].scheduler.extender.delta_engine._sessions.values())
+        if rose < 1 or not sessions or not all(s.use_classes for s in sessions):
+            raise SystemExit(f"phase classes: (d) the class kernel launched {rose} times on the class-mode server")
+        off_sessions = list(servers["off"].scheduler.extender.delta_engine._sessions.values())
+        if any(s.use_classes for s in off_sessions):
+            raise SystemExit("phase classes: (d) the server with class mode off stepped by class")
+        log(f"phase classes: (d) tpu-batch server, {N_NODES} nodes x {N_APPS} queued drivers: "
+            f"{CLASSES_SERVER_FILTERS} queued drivers' Filters byte-equal with class stepping on and off; "
+            f"{rose} class-kernel launches on the on server; ms on {', '.join(f'{x:.1f}' for x in lat['on'])}, "
+            f"off {', '.join(f'{x:.1f}' for x in lat['off'])}; session class_stats "
+            f"{sessions[0].native.class_stats()} | {smi}")
+    finally:
+        for server in servers.values():
+            server.stop()
+        logging.disable(logging.NOTSET)
+
+    launches = class_launch_total()
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise SystemExit(f"phase classes: {missing} not launched on the main path ((c) and (d))")
+    log(f"phase classes: launches on the main path ((c) and (d)) {launches}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    entries = []
+    for p in CLASS_POLICIES:
+        kname = ck.KERNEL_NAMES[p]
+        ms, plain_ms, t_bytes, t_ops = timing[kname]
+        entries.append(kernel_entry(kname, "classes_min_frag" if p == 2 else "classes", launches[kname],
+                                    max_err[kname], ms, plain_ms, t_bytes, t_ops))
+    return entries
+
+
 def session_stream(problem, n_earlier: int, smi: str) -> None:
     """Phase delta, step 3 at the library layer: one FifoSession on the
     card and one on the CPU fed the same stream of queues from the main
@@ -4251,13 +4559,13 @@ def fifo_solvers(device: str):
 
 
 class CpuTwin:
-    """One spawned process that computes the cpu halves of phase 4's and
-    phase sim's cuda-against-cpu comparisons while this process drives
-    the card: the same functions on the same inputs (made from the same
-    seeds), only in another process.  Started before phase 3 (its
-    interpreter and torch's import overlap the kernel checks) and stopped
-    after phase sim, so phase lab runs without it; ``submit`` queues a
-    task, answered in order by the one worker."""
+    """One spawned process that computes the cpu halves of phase 4's,
+    phase sim's and phase classes (b)'s cuda-against-cpu comparisons
+    while this process drives the card: the same functions on the same
+    inputs (made from the same seeds), only in another process.  Started
+    before phase 3 (its interpreter and torch's import overlap the kernel
+    checks) and stopped after phase sim, so phase lab runs without it;
+    ``submit`` queues a task, answered in order by the one worker."""
 
     def __init__(self):
         import atexit
@@ -4366,8 +4674,10 @@ def ptxas_report(build_log: str):
     function in nvcc's -Xptxas=-v output."""
     out, entry, spills = [], None, None
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(\d+)(fifo_queue\w*?_kernel)I(\w*?)EEv", line)
-        if m:
+        m = re.search(r"Compiling entry function '\w*?(\d+)(fifo_queue\w*?_kernel)(?:I(\w*?)EEv|E)", line)
+        if m and m.group(3) is None:  # not a template (the class kernel)
+            entry = m.group(2)
+        elif m:
             entry = f"{m.group(2)}<{','.join(re.findall(r'L[bi](\d+)E', m.group(3) + 'E'))}>"
         elif "spill stores" in line:
             spills = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -4398,6 +4708,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the GPU only", file=sys.stderr)
         return 2
 
+    from k8s_spark_scheduler_tpu_torch.ops import class_kernel as ck
     from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
     from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
     from k8s_spark_scheduler_tpu_torch.ops import single_az_kernel as sk
@@ -4416,7 +4727,7 @@ def main() -> int:
 
     # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    libraries = {"queue": qk.LIBRARY, "min_frag": mk.LIBRARY, "single_az": sk.LIBRARY}
+    libraries = {"queue": qk.LIBRARY, "min_frag": mk.LIBRARY, "single_az": sk.LIBRARY, "classes": ck.LIBRARY}
     with ThreadPoolExecutor(len(libraries)) as pool:
         for future in [pool.submit(lib.load) for lib in libraries.values()]:
             future.result()
@@ -4427,6 +4738,8 @@ def main() -> int:
     n_decisions = {p: DECISIONS if p in ("tightly-pack", "distribute-evenly") else NEW_DECISIONS
                    for p in POLICY_KERNEL}
     cpu_decisions = twin.submit(twin_decisions, args.seed, n_decisions)
+    # phase classes (b)'s plain passes, next in the twin's queue
+    classes_plain = twin.submit(twin_classes_plain)
 
     # ---- phase 3: kernel vs plain on the card
     max_err = {"fifo_queue_tightly": 0, "fifo_queue_evenly": 0, "fifo_queue_min_frag": 0}
@@ -4850,6 +5163,7 @@ def main() -> int:
     # ---- phase sim: the discrete-event simulator on the card
     t = time.perf_counter()
     sim_launches = sim_phase(smi, twin)
+    classes_plain = classes_plain.get(timeout=1800)  # long done: queued before phase sim's runs
     twin.stop()
     for entry in kernels:
         entry["launches"] += sim_launches.get(entry["name"], 0)
@@ -4860,6 +5174,12 @@ def main() -> int:
     t = time.perf_counter()
     lab_phase(smi)
     log(f"phase lab: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase classes: class-compressed stepping on the card
+    t = time.perf_counter()
+    kernels += classes_phase(args.seed, smi, classes_plain)
+    log(f"phase classes: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
     # ---- phase 16: results

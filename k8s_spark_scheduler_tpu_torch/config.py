@@ -165,13 +165,13 @@ _CLASSES_KEYS = {"enabled", "min-nodes"}
 @dataclass
 class ClassesConfig:
     """Equivalence-class node aggregation (state/classindex.py): the
-    O(1) class-digest warm tier of the delta-solve engine.
+    O(1) class-digest warm tier of the delta-solve engine, and
+    class-compressed stepping of its sessions (ops/class_kernel.py).
 
     Decisions are byte-identical enabled or disabled, so ``enabled`` is
     an operator kill switch, not a semantics switch.  ``min_nodes`` is
-    where the reference starts class-compressed stepping; this package
-    steps node by node at every size (ROADMAP A.3b) and logs one warning
-    when a session reaches it."""
+    the node count from which a session steps by node class instead of
+    node by node, as in the reference."""
 
     enabled: bool = True
     min_nodes: int = 20000

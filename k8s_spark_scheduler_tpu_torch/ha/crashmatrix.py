@@ -465,6 +465,9 @@ class CrashMatrix:
             self._drain(server_a)
 
             server_b = self._boot(api, "replica-b", f"{journal_dir}/b.jsonl")
+            # the leader renews first: the lease TTL is wall clock, and on a
+            # loaded host scheduling, draining and the boot may outlast it
+            server_a.ha.step()
             server_b.ha.step()  # standby: observes epoch 1, stays follower
             if server_b.ha.is_leader():
                 violations.append("standby replica-b claimed leadership under a live lease")

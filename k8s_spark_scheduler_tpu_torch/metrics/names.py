@@ -174,8 +174,7 @@ DELTASOLVE_SESSIONS = "foundry.spark.scheduler.tpu.deltasolve.sessions"
 DELTASOLVE_SESSION_BYTES = "foundry.spark.scheduler.tpu.deltasolve.session.bytes"
 
 # equivalence-class aggregation (state/classindex.py): fleet shape
-# diversity and compression health (the reference's names; this package
-# has no class-compressed stepping yet, ROADMAP A.3b)
+# diversity and compression health (the reference's names)
 # distinct node equivalence classes in the mirror (gauge)
 CLASSES_COUNT = "foundry.spark.scheduler.tpu.classes.count"
 # nodes per class

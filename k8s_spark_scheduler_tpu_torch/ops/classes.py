@@ -8,8 +8,8 @@ FIRST-OCCURRENCE order, as the reference's one-pass hash assigns them,
 so the first row of each class is its representative and class ids
 agree with the reference's element for element.  The capacity
 observatory's class lane runs its multiplicity-weighted probes over the
-classes; class-compressed stepping (ROADMAP A.3b) can reuse the same
-grouping.
+classes.  Class-compressed stepping (``ops/class_kernel.py``) groups
+the same way, in its own kernel, by exact (triple, exec_ok) equality.
 """
 
 from __future__ import annotations

@@ -55,10 +55,12 @@ code (tightly-pack, distribute-evenly, minimal-fragmentation) on either
 device: the session's passes are the solver's own queue kernels on CUDA
 and their plain versions on the CPU, and decisions equal the cold
 solve's either way.  The single-AZ solvers miss ``unsupported``, as in
-the reference.  The reference's class-compressed stepping (its native
-``set_classes``) is not here: sessions step row by row at every fleet
-size, and the first session at ``classes_min_nodes`` nodes or more logs
-one warning that names ROADMAP A.3b.
+the reference.  As in the reference, a session loaded with
+``classes_min_nodes`` nodes or more (and classes enabled) steps by node
+class (``FifoSession.set_classes``: the class kernels of
+``ops/class_kernel.py`` on CUDA, their plain version on the CPU), every
+other session node by node; its partition rebuilds are counted into
+``…tpu.classes.rebuild.count``.
 """
 
 from __future__ import annotations
@@ -111,6 +113,11 @@ class _Session:
     # building bare TensorSnapshots); the tier then stands aside.
     class_digest: tuple = (-1, -1)
     class_rev: int = -1
+    # class-compressed stepping (FifoSession.set_classes); last_rebuilds
+    # tracks the session's partition-rebuild counter, so the engine counts
+    # each rebuild once into CLASSES_REBUILD_COUNT
+    use_classes: bool = False
+    last_rebuilds: int = 0
 
 
 @guarded_by("_lock", "_sessions", "_stats", "_resume_depths", "_parity_count")
@@ -143,11 +150,11 @@ class DeltaSolveEngine:
         self.parity_hooks = None  # (on_ok, on_mismatch) callables
         self._parity_count = 0
         # equivalence-class aggregation (Install.classes): the O(1)
-        # digest warm tier below.  Set at wiring before serving starts,
-        # only read here — no lock needed.
+        # digest warm tier below, and class-compressed stepping for
+        # sessions of classes_min_nodes nodes or more.  Set at wiring
+        # before serving starts, only read here — no lock needed.
         self.classes_enabled = True
         self.classes_min_nodes = 20000
-        self._warned_class_stepping = False
 
     # -- availability --------------------------------------------------------
 
@@ -361,13 +368,18 @@ class DeltaSolveEngine:
 
         lane = f"{lane_of(solver.device)}-session"
         solver.last_queue_lane = lane
-        kernel = "fifo_queue_min_frag" if policy_code == 2 else "fifo_queue"
+        kernel = ("fifo_queue_min_frag" if policy_code == 2 else "fifo_queue") + ("_classes" if sess.use_classes else "")
         with tracing.child_span("fifo_gate", {"lane": lane, "earlierApps": n_earlier}) as gate_span:
             with default_profiler.profile(kernel, lane=lane, shape_key=(sess.nb, n_earlier)) as rec:
                 resume, feasible, didx, avail_after = sess.native.solve(packed)
                 rec.sync(avail_after)
             gate_span.tag("resumeFrom", int(resume))
             gate_span.tag("warm", warm)
+            if sess.use_classes and self._metrics is not None:
+                rebuilds = sess.native.class_stats()["rebuilds"]
+                if rebuilds > sess.last_rebuilds:
+                    self._metrics.counter(mnames.CLASSES_REBUILD_COUNT, inc=float(rebuilds - sess.last_rebuilds))
+                    sess.last_rebuilds = rebuilds
             if warm:
                 self._record_warm(resume)
                 if self.parity_interval:
@@ -587,14 +599,10 @@ class DeltaSolveEngine:
                 stride=_DEFAULT_STRIDE,
             )
         nb = int(problem.avail.shape[0])
-        if self.classes_enabled and nb >= self.classes_min_nodes and not self._warned_class_stepping:
-            self._warned_class_stepping = True
-            logger.warning(
-                "a delta-solve session holds %d nodes (classes.min-nodes %d); the reference "
-                "steps such fleets by node class, this package steps node by node "
-                "(ROADMAP A.3b: class-compressed stepping); decisions are equal either way",
-                nb, self.classes_min_nodes,
-            )
+        # class-compressed stepping at scale (the reference's rule);
+        # always set, so a reused evictee never keeps the previous mode
+        use_classes = self.classes_enabled and nb >= self.classes_min_nodes
+        native.set_classes(use_classes)
         na = apps.driver.shape[0]
         sess = _Session(
             native=native,
@@ -611,6 +619,7 @@ class DeltaSolveEngine:
             content_key=snap.content_key,
             class_digest=getattr(snap, "class_digest", (-1, -1)),
             class_rev=getattr(snap, "class_rev", -1),
+            use_classes=use_classes,
         )
         with self._lock:
             racecheck.note_access(self, "_sessions")

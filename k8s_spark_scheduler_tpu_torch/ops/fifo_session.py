@@ -29,6 +29,15 @@ where the caller's packed rows and its blocked-driver check live.
 7. a queue equal to the cached one (resume == its length) is served
    with no launch at all.
 
+Class mode (``set_classes(True)``, the reference's ``fifo_sess_set_classes``)
+steps the suffix by node class instead (``class_kernel``: one launch of
+``fifo_queue_classes`` or ``fifo_queue_min_frag_classes``, with the same
+checkpoints).  The class partition must mirror the planes the launch
+starts from: it is kept only when the resume position is the one it was
+left at (``cls_pos``, the warm tail resume), and rebuilt in the launch
+otherwise; ``set_classes`` and ``load`` always drop it.  ``class_stats``
+reads the partition's lifetime counters as the reference reads them.
+
 Verdicts of the reused prefix come from the cached run.  On a CPU
 device the same bookkeeping calls the kernels' plain versions, through
 the same wrappers.  The prefix compare is byte for byte, so a caller
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .class_kernel import ClassState, candidates, fifo_queue_classes, fifo_queue_min_frag_classes
 from .minfrag_kernel import fifo_queue_min_frag
 from .queue_kernel import fifo_queue
 
@@ -89,6 +99,53 @@ def queue_pass(
     if policy_code == POLICY_MINFRAG:
         return fifo_queue_min_frag(*args, **chk)
     return fifo_queue(*args, evenly=policy_code == POLICY_EVENLY, **chk)
+
+
+def class_pass(
+    policy_code: int,
+    avail: torch.Tensor,
+    cand: torch.Tensor,
+    exec_ok: torch.Tensor,
+    packed: np.ndarray,  # [A, 8] int32: d0..2 e0..2 count valid
+    state: ClassState,
+    rebuild: bool,
+    chk_base: int = 0,
+    chk_stride: int = 0,
+    chk_out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the policy's class kernel (its plain version for CPU
+    tensors) over session-format packed rows, on avail's device, with
+    queue_pass's outputs and checkpoints; `state` is updated in place."""
+    apps = torch.as_tensor(np.ascontiguousarray(packed, dtype=np.int32), device=avail.device)
+    chk = dict(chk_base=chk_base, chk_stride=chk_stride, chk_out=chk_out)
+    if policy_code == POLICY_MINFRAG:
+        return fifo_queue_min_frag_classes(avail, cand, exec_ok, apps, state, rebuild, **chk)
+    return fifo_queue_classes(avail, cand, exec_ok, apps, state, rebuild, evenly=policy_code == POLICY_EVENLY,
+                              **chk)
+
+
+def solve_packed_classes(
+    policy_code: int,
+    avail,        # [Nb, 3] int32 basis (array or tensor; not mutated)
+    driver_rank,  # [Nb] int32
+    exec_ok,      # [Nb] bool
+    packed: np.ndarray,  # [A, 8] int32
+    device: DeviceLike = None,
+) -> Tuple[np.ndarray, np.ndarray, torch.Tensor, dict]:
+    """Stateless class-compressed pass of a session-format packed queue,
+    the counterpart of the reference's ``native.fifo.solve_packed_classes``:
+    (feasible [A] bool, driver_idx [A] int32) on the host, avail_after
+    [Nb, 3] int32 on `device` (None = CUDA), all equal to
+    solve_packed_cold's, and the compression evidence ``{"classes_initial",
+    "rebuilds", "overlay_peak", "classes_last"}``."""
+    device = resolve_device(device)
+    basis = _device_array(avail, torch.int32, device)
+    rank = _device_array(driver_rank, torch.int32, device)
+    state = ClassState(int(basis.shape[0]), device)
+    feasible, didx, after = class_pass(
+        policy_code, basis, candidates(rank), _device_array(exec_ok, torch.bool, device), packed, state, True,
+    )
+    return feasible.cpu().numpy(), didx.cpu().numpy(), after, state.evidence()
 
 
 def solve_packed_cold(
@@ -144,6 +201,41 @@ class FifoSession:
         self._feas = np.zeros(0, bool)
         self._didx = np.zeros(0, np.int32)
         self.na = 0
+        # class mode: the partition (built at the first class-mode launch),
+        # the queue position it mirrors (-1: none) and the candidates in
+        # rank order (sorted at the first class-mode launch after a load)
+        self.use_classes = False
+        self._classes: Optional[ClassState] = None
+        self._cls_pos = -1
+        self._cand: Optional[torch.Tensor] = None
+
+    def set_classes(self, enable: bool) -> bool:
+        """Turn class-compressed stepping on or off (the reference's
+        ``set_classes``); decisions are equal either way.  The partition
+        is rebuilt at the next class-mode launch.  Returns True: the mode
+        is always supported."""
+        self.use_classes = bool(enable)
+        self._cls_pos = -1
+        return True
+
+    def class_stats(self) -> dict:
+        """The partition's evidence as the reference reads it:
+        ``{"classes_last", "rebuilds", "overlay_peak", "overlay_now"}``,
+        zeros until class mode has stepped."""
+        if self._classes is None:
+            return {"classes_last": 0, "rebuilds": 0, "overlay_peak": 0, "overlay_now": 0}
+        return self._classes.stats()
+
+    def _class_state(self) -> ClassState:
+        """The partition's state for the loaded node axis (the lifetime
+        counters carry over a reload with another node count)."""
+        st = self._classes
+        if st is None or st.n != self.nb:
+            st = ClassState(self.nb, self.device, meta=None if st is None else st.meta)
+            self._classes = st
+        if self._cand is None:
+            self._cand = candidates(self.driver_rank)
+        return st
 
     def load(self, basis, driver_rank, exec_ok, policy_code: int, stride: int = 64) -> None:
         """(Re)load the basis: scaled availability [Nb, 3] at queue
@@ -167,6 +259,8 @@ class FifoSession:
         self._feas = np.zeros(0, bool)
         self._didx = np.zeros(0, np.int32)
         self.na = 0
+        self._cls_pos = -1
+        self._cand = None
 
     def solve(self, packed: np.ndarray) -> Tuple[int, np.ndarray, np.ndarray, torch.Tensor]:
         """(resume, feasible [A] bool, driver_idx [A] int32, avail_after
@@ -217,11 +311,19 @@ class FifoSession:
         didx = np.empty(na, np.int32)
         feas[:r] = self._feas[:r]
         didx[:r] = self._didx[:r]
-        if r < na:
+        if r < na and self.use_classes:
+            # the partition mirrors the planes at r only if it was left there
+            state = self._class_state()
+            f, d, after = class_pass(
+                self.policy, start, self._cand, self.exec_ok, apps[r:], state, self._cls_pos != r,
+                chk_base=r, chk_stride=self.stride, chk_out=self._chk,
+            )
+        elif r < na:
             f, d, after = queue_pass(
                 self.policy, start, self.driver_rank, self.exec_ok, apps[r:],
                 chk_base=r, chk_stride=self.stride, chk_out=self._chk,
             )
+        if r < na:
             feas[r:] = f.cpu().numpy()
             didx[r:] = d.cpu().numpy()
             self.n_chk = (na - 1) // self.stride
@@ -229,6 +331,10 @@ class FifoSession:
         else:
             # 7. nothing to solve: the planes at r are the answer
             self.tail = start
+        if self.use_classes:
+            # the partition mirrors the new tail unless the queue was cut
+            # back to a checkpoint with nothing to step (no rebuild ran)
+            self._cls_pos = na if (r < na or self._cls_pos == r) else -1
         self._apps = apps.copy()
         self._feas = feas
         self._didx = didx
@@ -242,9 +348,12 @@ class FifoSession:
     def mem_bytes(self) -> int:
         """Bytes the session holds: the device planes (basis, ranks,
         eligibility, the checkpoint buffer, the tail when it is not the
-        basis) and the host cache of rows and verdicts."""
-        tensors = [self.basis, self.driver_rank, self.exec_ok, self._chk]
+        basis, the class partition and the ranked candidates once class
+        mode has stepped) and the host cache of rows and verdicts."""
+        tensors = [self.basis, self.driver_rank, self.exec_ok, self._chk, self._cand]
         if self.tail is not None and self.tail is not self.basis:
             tensors.append(self.tail)
         device_bytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        if self._classes is not None:
+            device_bytes += self._classes.mem_bytes()
         return int(device_bytes + self._apps.nbytes + self._feas.nbytes + self._didx.nbytes)

@@ -339,6 +339,7 @@ def init_server_with_clients(
         breaker=resilience_kit.breaker,
         journal=resilience_kit.journal,
         registry=metrics,
+        owners=pod_informer,
     )
     # intents journaled by a previous instance (durable journal-path)
     # replay through the idempotent write path before any scheduling
@@ -356,6 +357,7 @@ def init_server_with_clients(
         install.async_client.max_retry_count,
         rate_bucket=rate_bucket,
         registry=metrics,
+        owners=pod_informer,
     )
     demand_manager = DemandManager(demand_cache, binpacker, install.instance_group_label, event_log)
     start_demand_gc(pod_informer, demand_manager)

@@ -133,6 +133,11 @@ class AsyncClient:
     instead of being dropped at max retries.  The journal is replayed
     through this same queue when a probe write succeeds (breaker closes)
     or a recovery nudge arrives.
+
+    ``owners`` (the pod informer, or None) is where an object's owner pod
+    is looked up before a NotFound update re-creates an object the server
+    never acknowledged (``_never_landed``): with the owner gone, the
+    update is dropped as an owner GC's, as the reference drops it.
     """
 
     def __init__(
@@ -147,8 +152,10 @@ class AsyncClient:
         kind: str = "",
         to_wire=None,
         registry=None,
+        owners=None,
     ):
         self._client = client
+        self._owners = owners
         self._queue = queue
         self._store = object_store
         self._max_retry_count = max_retry_count
@@ -314,7 +321,7 @@ class AsyncClient:
             if (
                 self._journal is not None
                 and r.key in self._journal.pending_keys()
-            ) or self._never_landed(r.key):
+            ) or (self._never_landed(r.key) and self._owners_alive(r.key)):
                 # the object's create was collapsed into this update and
                 # never landed — upsert it.  Either the intent was
                 # journaled while diverted (latest-wins per key), or a
@@ -370,15 +377,29 @@ class AsyncClient:
         no create response and no informer event has folded a
         resourceVersion into it (the store keeps the known one across
         local puts), so a NotFound for it is taken as a create that never
-        landed, not an owner GC.  One case reads wrong: a create that did
-        land but whose response was lost (a client timeout), deleted by
-        an owner GC before the informer's add or delete event reached the
-        store.  The update then re-creates the object, an orphan whose
-        owner is gone, where the reference would drop it; the API
-        server's garbage collector deletes such an object again, since
-        its owner reference names a missing owner."""
+        landed, not an owner GC.  A create that did land but whose
+        response was lost (a client timeout) reads the same; if an owner
+        GC deleted it before the informer's events reached the store,
+        ``_owners_alive`` tells the two apart."""
         obj = self._store.get(key)
         return obj is not None and not obj.meta.resource_version
+
+    def _owners_alive(self, key) -> bool:
+        """Whether every pod the local object names as its owner is still
+        in the owner store (same name and uid).  An owner GC deletes the
+        object only after its owner is gone, so a missing owner means a
+        NotFound is the GC's: the update must not re-create the object.
+        True without an owner store or owner references."""
+        obj = self._store.get(key)
+        if self._owners is None or obj is None:
+            return True
+        for ref in obj.meta.owner_references:
+            if ref.kind != "Pod":
+                continue
+            pod = self._owners.get(obj.meta.namespace, ref.name)
+            if pod is None or (ref.uid and pod.meta.uid != ref.uid):
+                return False
+        return True
 
     # -- resilience hooks ----------------------------------------------------
 

@@ -1,9 +1,9 @@
 """Node equivalence-class index (Firmament/Borg-style aggregation), a
 copy of the reference package's ``state/classindex.py``.  In the
 reference it is the state-layer companion of the native
-class-compressed solver; this package keeps row-level stepping (ROADMAP
-A.3b) and uses the index for the delta-solve engine's class-digest warm
-tier (``ops/deltasolve.py``).
+class-compressed solver; here it serves the delta-solve engine's
+class-digest warm tier (``ops/deltasolve.py``), whose sessions step by
+class with their own partition (``ops/class_kernel.py``).
 
 Real fleets have a few dozen machine shapes, so the 100k-node table
 collapses to a small set of classes.  This index maintains, O(1) per

@@ -40,6 +40,7 @@ class ResourceReservationCache:
         breaker=None,
         journal=None,
         registry=None,
+        owners=None,
     ):
         self._queue = ShardedUniqueQueue(RESERVATION_WRITER_SHARDS)
         self._store = ObjectStore()
@@ -67,6 +68,7 @@ class ResourceReservationCache:
             kind=ResourceReservation.KIND,
             to_wire=serde.rr_to_dict_v1beta2,
             registry=registry,
+            owners=owners,
         )
 
     def install_fence(self, gate) -> None:
@@ -193,6 +195,7 @@ class DemandCache:
         max_retry_count: int = 5,
         rate_bucket=None,
         registry=None,
+        owners=None,
     ):
         self._queue = ShardedUniqueQueue(DEMAND_WRITER_SHARDS)
         self._store = ObjectStore()
@@ -211,6 +214,7 @@ class DemandCache:
             max_retry_count,
             kind=Demand.KIND,
             registry=registry,
+            owners=owners,
         )
 
     def install_fence(self, gate) -> None:
@@ -330,8 +334,10 @@ class SafeDemandCache:
         max_retry_count: int = 5,
         rate_bucket=None,
         registry=None,
+        owners=None,
     ):
         self._lazy = lazy_informer
+        self._owners = owners
         self._api = api
         self._max_retry_count = max_retry_count
         self._rate_bucket = rate_bucket
@@ -358,6 +364,7 @@ class SafeDemandCache:
                     self._max_retry_count,
                     rate_bucket=self._rate_bucket,
                     registry=self._registry,
+                    owners=self._owners,
                 )
                 if self._fence_gate is not None:
                     cache.install_fence(self._fence_gate)

@@ -19,7 +19,7 @@ tests/test_class_compression.py, and the port against the reference:
   (the reference's analytics-parity cases).
 
 The reference's class-compressed stepping tests (the stateless and
-session class solves) wait for ROADMAP A.3b.
+session class solves) are tests/test_torch_class_compression.py's.
 """
 
 import numpy as np

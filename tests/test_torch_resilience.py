@@ -283,6 +283,85 @@ def test_failed_create_collapsed_into_a_queued_update_still_lands(with_journal):
     if journal is not None:
         assert journal.depth() == 0
 
+
+@pytest.mark.parametrize("with_journal", [True, False], ids=["journal", "no-journal"])
+def test_landed_create_with_a_lost_response_is_not_recreated_after_owner_gc(with_journal):
+    """A create that landed on the server but whose response was lost (a
+    client timeout) leaves the local object without a resourceVersion, as
+    a create that never landed does.  If the owner pod is then deleted and
+    the owner GC deletes the object before the informer's events reach the
+    store, the queued update meets NotFound: the owner is gone, so the
+    update is dropped, as the reference drops it, and no orphan is
+    re-created.  With the owner alive the same update re-creates it."""
+    from k8s_spark_scheduler_tpu_torch.kube.errors import NotFoundError
+    from k8s_spark_scheduler_tpu_torch.state.cache import AsyncClient
+    from k8s_spark_scheduler_tpu_torch.state.store import (
+        ObjectStore,
+        ShardedUniqueQueue,
+        create_request,
+        update_request,
+    )
+    from k8s_spark_scheduler_tpu_torch.types.objects import (
+        ObjectMeta,
+        OwnerReference,
+        Pod,
+        ResourceReservation,
+    )
+
+    class LossyServer:
+        """The first create lands but its response is lost; updates of an
+        object it does not hold answer NotFound."""
+
+        def __init__(self):
+            self.objects, self.creates = {}, 0
+
+        def create(self, obj):
+            self.creates += 1
+            obj = obj.deepcopy()
+            obj.meta.resource_version = 7
+            self.objects[(obj.meta.namespace, obj.meta.name)] = obj
+            if self.creates == 1:
+                raise APIError("client timeout (create)")
+            return obj
+
+        def update(self, obj):
+            if (obj.meta.namespace, obj.meta.name) not in self.objects:
+                raise NotFoundError("not found")
+            return obj
+
+    class Pods:
+        def __init__(self, *pods):
+            self.pods = {(p.meta.namespace, p.meta.name): p for p in pods}
+
+        def get(self, namespace, name):
+            return self.pods.get((namespace, name))
+
+    for owner_gone in (True, False):
+        driver = Pod(meta=ObjectMeta(name="drv", namespace="d", uid="uid-drv"))
+        owners, server, store, queue = Pods(driver), LossyServer(), ObjectStore(), ShardedUniqueQueue(1)
+        rr = ResourceReservation(meta=ObjectMeta(
+            name="a", namespace="d", owner_references=[OwnerReference("Pod", "drv", "uid-drv")]))
+        store.put(rr)
+        client = AsyncClient(client=server, queue=queue, object_store=store,
+                             breaker=CircuitBreaker(failure_threshold=3),
+                             journal=IntentJournal() if with_journal else None, owners=owners)
+        assert queue.try_add_if_absent(update_request(rr))
+        client._do_create(create_request(rr))  # lands, but the response is lost
+        assert ("d", "a") in server.objects and not store.get(("d", "a")).meta.resource_version
+        if owner_gone:
+            # the driver finished: its pod is deleted and the owner GC
+            # deletes the reservation, before any informer event arrives
+            del owners.pods[("d", "drv")]
+            del server.objects[("d", "a")]
+        (pending,) = queue.get_consumers()
+        while pending.qsize():
+            client._do_update(pending.get_nowait()())
+        if owner_gone:
+            assert ("d", "a") not in server.objects and server.creates == 1
+        else:
+            assert ("d", "a") in server.objects and server.creates == 1  # the update found it
+
+
 # -- intent journal -----------------------------------------------------------
 
 

@@ -68,10 +68,27 @@ def assert_same_run(ours, theirs) -> None:
     assert outcome_counts(ours.event_log) == outcome_counts(theirs.event_log)
 
 
+def run_reference_clean(spec: dict):
+    """run_reference for a caller that requires a run with no violation:
+    the run stops, failing, at the event that records the first one.  A
+    run the reference's write-back breaks (ROADMAP C.11: a lost intent on
+    a loaded host) would otherwise wait out its 30 s quiesce at every later
+    event, ~1,000 s for ``degraded.json``, to fail the same way."""
+    sim = JaxSimulation(JaxScenario.from_dict(spec))
+    process = sim._process
+
+    def checked(label, decisions):
+        process(label, decisions)
+        assert sim.auditor.violations == [], sim.auditor.violations[:5]
+
+    sim._process = checked
+    return sim, sim.run()
+
+
 def parity(spec: dict):
     """Run ``spec`` on both sides and hold them equal; returns (port
     simulation, port result, reference result)."""
     sim, ours = run_port(spec)
-    _, theirs = run_reference(spec)
+    _, theirs = run_reference_clean(spec)
     assert_same_run(ours, theirs)
     return sim, ours, theirs
