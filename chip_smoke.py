@@ -104,7 +104,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``tpu-batch`` and ``tpu-batch-minimal-fragmentation``, a cuda server
    with the engine on, one with it off and a cpu server with it on, the
    1,000 queued drivers behind an enforced driver that fits nowhere;
-   three segments of 60 Filters, each posted to the two cuda servers in
+   three segments of 40 Filters, each posted to the two cuda servers in
    turns: (a) retries of queued drivers in random order, nothing changing
    between them; (b) the same with an unrelated reservation created and
    deleted before each (the change feed moves, the class digest cancels
@@ -170,7 +170,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    block posted to its own server alone after ``quiet()``, every probe
    of each on block then posted to the cpu server, bodies equal; p50 /
    p99, the warm-hit share and miss reasons, the backfill probes a
-   Filter with their host time, span medians; one block of 5 under
+   Filter with their host time, span medians; one block of 3 under
    ``drf`` and under ``fifo`` (each its own cuda server, after one
    probe), the ``drf`` block's bodies equal to a cpu server's with
    ``drf`` and the ``fifo`` engine's byte-equal to the policy-off
@@ -216,7 +216,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    byte-equal; speculation outcomes (``error`` must be 0), commit
    results and the queue-kernel launches on the speculating threads'
    own CUDA streams.  (b) under ``tpu-batch``, 1 and 8 HTTP client
-   threads against each server, 128 Filters a point: granted drivers
+   threads against each server, 64 Filters a point: granted drivers
    behind the queue, each retired, then queued drivers refused behind
    an enforced driver that fits nowhere; decisions/s, p50 / p99,
    speculation outcomes, commit results, the ticket wait's mean from
@@ -277,7 +277,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    {min-nodes: 0}`` against one with class stepping off: 4 queued
    drivers' Filters byte-equal, the class kernel launched on the first.
    (c) and (d) are the class kernels' main path (launches counted there);
-17. the kernels line (times, bounds, launches) and the device result line.
+17. mesh: ``GangPacker`` and the whole-queue programs with the node axis
+   sharded over a ``torch.distributed`` process group (parallel/), each
+   world in spawned processes.  (a) one NCCL rank on the card at phase
+   4's inputs (10,240 x 1,024, 1,000 valid apps): ``GangPacker(use_mesh=
+   True)`` under tightly-pack and distribute-evenly, its decisions and
+   ``avail_after`` equal to the unsharded ``GangPacker`` (one
+   ``fifo_queue`` launch) and its placements to ``solve_queue(...,
+   with_placements=True)``; the sharded ``solve_queue_min_frag`` and the
+   az-aware and min-frag strict ``solve_queue_single_az`` at 10,240 x 16
+   equal to the unsharded programs; ms a solve (host clock to a
+   synchronize, median of 3 after a warm one) and collectives a solve
+   beside the unsharded time.  (b) ``entry.dryrun_multichip`` in gloo
+   worlds of 2 and 4 ranks whose shards share the card: every check of
+   the dry run (the mesh solve, both single-AZ scans and the min-frag
+   scan equal to the unsharded programs, the 10,240-node bucket's
+   decisions equal to the unsharded program), its scaling curve and each
+   rank's shard bytes;
+18. the kernels line (times, bounds, launches) and the device result line.
 
 The cpu halves of phase 4's decisions, of phase sim's simulations and of
 phase classes (b) run in one spawned twin process (``CpuTwin``): started
@@ -291,6 +308,7 @@ Needs CUDA: without it the script exits with an error before any phase.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import faulthandler
 import gc
 import json
@@ -1723,10 +1741,10 @@ def resilience_phase(seed: int, smi: str) -> None:
 # under distribute-evenly too, so the engine is held on against off and
 # cuda against cpu under every tensor-lane name
 DELTA_POLICIES = {"tpu-batch": "abc", "tpu-batch-minimal-fragmentation": "abc", "tpu-batch-distribute-evenly": "a"}
-# Filters a segment: 60 (it was 200 before phase ha joined the script and
-# 100 before phase concurrent did; the script must end well inside its
-# 1,200 s limit on a slow host)
-DELTA_FILTERS = 60
+# Filters a segment: 40 (it was 200 before phase ha joined the script,
+# 100 before phase concurrent did and 60 before phase mesh did; the script
+# must end well inside its 1,200 s limit on a slow host)
+DELTA_FILTERS = 40
 DELTA_GRANT_EVERY = 10  # segment (c): every 10th Filter is an app that is granted and starts
 # the queued drivers' Filters of segments (a) and (b) the cpu server
 # answers too: its warm passes are the plain versions' suffixes, seconds a
@@ -2657,7 +2675,7 @@ POLICY_WARM = 4  # probes on the on, off and cpu servers, on and cpu bodies equa
 POLICY_PROBES = 16
 POLICY_BLOCK = 8  # in blocks in turns, each block to its own server alone, each on block then to the cpu server
 ORDER_WARM = 1  # probes before the drf and fifo servers' block (the first a cold pass)
-ORDER_BLOCK = 5  # the drf and fifo servers' block
+ORDER_BLOCK = 3  # the drf and fifo servers' block (5 before phase mesh joined the script)
 POLICY_YOUNG = 100  # the newest queued drivers, younger than the starvation age: backfill probes them
 POLICY_BANDS = (("low", 0.2), ("normal", 0.6), ("high", 0.2))
 POLICY_TENANTS = 4
@@ -3363,9 +3381,10 @@ CONCURRENT_POLICIES = ("tpu-batch", "tpu-batch-minimal-fragmentation")  # (a)
 CONCURRENT_DRIVERS = 48  # (a): new drivers a policy, through the engine from CONCURRENT_THREADS threads
 CONCURRENT_THREADS = 8
 CONCURRENT_CLIENTS = (1, 8)  # (b): HTTP client threads, under CONCURRENT_POLICIES[0]
-# (b): Filters a segment, client count and server: enough that the p99
-# is not the slowest Filter and each of 8 clients sends 16
-CONCURRENT_REQUESTS = 128
+# (b): Filters a segment, client count and server: each of 8 clients
+# sends 8 (128 before phase mesh joined the script; the p99 is then
+# interpolated between the two slowest Filters)
+CONCURRENT_REQUESTS = 64
 CONCURRENT_STREAMS = (1, 2, 4, 8)  # (c): fifo_queue launches at once, each on its own stream
 CONCURRENT_REPS = 5  # (c): batches timed for each k
 # the kernel (variant) a policy's speculations launch: one plain launch
@@ -4330,6 +4349,127 @@ def classes_phase(seed: int, smi: str, plain: dict, device: str = "cuda") -> lis
     return entries
 
 
+# -- phase mesh: GangPacker on a node-axis mesh ----------------------------------
+
+MESH_SMALL_APPS = 16  # (a): min-frag and single-AZ at 10,240 x 16, the dry run's north-star shape
+MESH_REPS = 3  # (a): timed solves of each 16-app program and of the fifo_queue launch
+MESH_DRYRUN_RANKS = (2, 4)  # (b): gloo worlds whose ranks share the card
+
+
+def mesh_rank(mesh, problem, az_inputs) -> list:
+    """Phase mesh (a), in a world of one NCCL rank on the card: the sharded
+    programs against the unsharded ones on phase 4's inputs.  Returns the
+    log lines (the script logs them)."""
+    from k8s_spark_scheduler_tpu_torch.models.gang_packer import GangPacker, GangPackerConfig
+    from k8s_spark_scheduler_tpu_torch.ops import batch_solver as bs
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+
+    qk.LIBRARY.load()  # built by the script: the file is there, nothing compiles
+    dev = mesh.device
+    n = problem.avail.shape[0]
+    whole = lambda xs: [torch.as_tensor(x, device=dev) for x in xs]
+
+    def timed(fn, reps):
+        """(output, median ms, collectives a call) over `reps` calls, host
+        clock around each up to a synchronize."""
+        ms, before = [], mesh.collectives
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, statistics.median(ms), (mesh.collectives - before) // reps
+
+    def same(got, want, what):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                raise SystemExit(f"phase mesh: (a) {what}: output {i} differs from the unsharded program")
+
+    lines = [f"(a) a world of {mesh.size} {mesh.backend} rank on {torch.cuda.get_device_name(dev)}"]
+    # 10,240 x 16 first: the first collective sets NCCL up, so each program
+    # runs once untimed
+    queue = (problem.avail, problem.driver_rank, problem.exec_ok, problem.driver, problem.executor,
+             problem.count, problem.app_valid)
+    small = [x[:MESH_SMALL_APPS] for x in queue[3:]]
+    node = [mesh.shard(x) for x in queue[:3]]
+    axis = mesh.axis(n)
+    mf = lambda: bs.solve_queue_min_frag(*node, *map(mesh.replicate, small), axis=axis)
+    mf_plain = lambda: bs.solve_queue_min_frag(*whole(queue[:3] + tuple(small)))
+    timed(mf, 1)
+    got, mesh_ms, spent = timed(mf, MESH_REPS)
+    want, plain_ms, _ = timed(mf_plain, MESH_REPS)
+    same((got.feasible, got.driver_idx, mesh.gather_nodes(got.avail_after), mesh.gather_nodes(got.exec_counts, 1)),
+         (want.feasible, want.driver_idx, want.avail_after, want.exec_counts), "solve_queue_min_frag")
+    lines.append(f"(a) solve_queue_min_frag N={n} A={MESH_SMALL_APPS}: {int(got.feasible.sum())} feasible, equal to "
+                 f"the unsharded program; {mesh_ms:.1f} ms a solve ({spent} collectives), unsharded {plain_ms:.1f} ms")
+    arrays, (scale_c, scale_g, n_zones) = az_inputs
+    zone_masks = np.stack([arrays[3] == z for z in range(n_zones)])
+    az_node = [arrays[i] for i in (0, 1, 2)]
+    az_apps = [x[:MESH_SMALL_APPS] for x in arrays[4:8]]
+    az_eff = list(arrays[8:12])
+    for name, flags in (("az-aware", dict(az_aware=True)), ("min-frag strict", dict(minfrag=True, strict=True))):
+        az = lambda: bs.solve_queue_single_az(
+            *map(mesh.shard, az_node), mesh.shard(zone_masks, 1), *map(mesh.replicate, az_apps),
+            *map(mesh.shard, az_eff), scale_c, scale_g, axis=axis, **flags)
+        got, mesh_ms, spent = timed(az, MESH_REPS)
+        want, plain_ms, _ = timed(lambda: bs.solve_queue_single_az(
+            *whole(az_node), torch.as_tensor(zone_masks, device=dev), *whole(az_apps), *whole(az_eff),
+            scale_c, scale_g, **flags), MESH_REPS)
+        same(tuple(got[:4]) + (mesh.gather_nodes(got.avail_after),), want, f"solve_queue_single_az {name}")
+        lines.append(f"(a) solve_queue_single_az {name} N={n} A={MESH_SMALL_APPS} zones={n_zones}: "
+                     f"{int(got.feasible.sum())} placed, equal to the unsharded program; {mesh_ms:.1f} ms a solve "
+                     f"({spent} collectives), unsharded {plain_ms:.1f} ms")
+    # the main path's inputs: one timed solve of the mesh GangPacker (seconds)
+    n_valid = int(problem.app_valid.sum())
+    for policy in ("tightly-pack", "distribute-evenly"):
+        evenly = policy == "distribute-evenly"
+        packer = GangPacker(GangPackerConfig(assignment_policy=policy, use_mesh=True), mesh=mesh)
+        single = GangPacker(GangPackerConfig(assignment_policy=policy), device=dev)
+        got, mesh_ms, spent = timed(lambda: packer.solve(problem), 1)
+        single.solve(problem)
+        want, single_ms, _ = timed(lambda: single.solve(problem), MESH_REPS)
+        same((got.feasible, got.driver_idx, got.avail_after), (want.feasible, want.driver_idx, want.avail_after),
+             f"GangPacker(use_mesh=True) {policy} against the fifo_queue launch")
+        placed, plain_ms, _ = timed(lambda: bs.solve_queue(*whole(queue), evenly=evenly, with_placements=True), 1)
+        same((got.exec_counts, got.exec_capacity), (placed.exec_counts, placed.exec_capacity),
+             f"GangPacker(use_mesh=True) {policy} placements against solve_queue")
+        lines.append(
+            f"(a) GangPacker(use_mesh=True) {policy} N={n} A={problem.driver.shape[0]} ({n_valid} valid): "
+            f"{int(got.feasible.sum())} feasible, decisions and avail_after equal to the unsharded GangPacker "
+            f"(one fifo_queue launch), placements equal to solve_queue(with_placements=True); "
+            f"{mesh_ms:.1f} ms a solve ({spent} collectives, the 3 gathers included) against the launch's "
+            f"{single_ms:.3f} ms ({mesh_ms / single_ms:.0f}x) and the unsharded program's {plain_ms:.1f} ms")
+    return lines
+
+
+def mesh_phase(problem, az_inputs, smi: str) -> None:
+    """Phase mesh: (a) one NCCL rank on the card at phase 4's inputs; (b)
+    the dry run in gloo worlds of 2 and 4 ranks sharing the card.  Every
+    world runs in spawned processes: no process group is made here."""
+    import contextlib
+    import io
+
+    from k8s_spark_scheduler_tpu_torch.entry import dryrun_multichip
+    from k8s_spark_scheduler_tpu_torch.parallel.launch import run_world
+
+    t = time.perf_counter()
+    lines = run_world(mesh_rank, 1, device="cuda", backend="nccl", args=(problem, az_inputs), timeout_s=600)[0]
+    for line in lines:
+        log(f"phase mesh: {line} | {smi}")
+    log(f"phase mesh: (a) took {time.perf_counter() - t:.1f} s, the rank's start included")
+    for ranks in MESH_DRYRUN_RANKS:
+        t = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            facts = dryrun_multichip(ranks, device="cuda")
+        if facts["backend"] != "gloo" or not facts["device"].startswith("cuda") or len(facts["shard_bytes"]) != ranks:
+            raise SystemExit(f"phase mesh: (b) the dry run of {ranks} ranks ran as {facts['backend']} on "
+                             f"{facts['device']}")
+        for line in printed.getvalue().splitlines():
+            log(f"phase mesh: (b) {line} | {smi}")
+        log(f"phase mesh: (b) {ranks} ranks took {time.perf_counter() - t:.1f} s, the ranks' start included")
+
+
 def session_stream(problem, n_earlier: int, smi: str) -> None:
     """Phase delta, step 3 at the library layer: one FifoSession on the
     card and one on the CPU fed the same stream of queues from the main
@@ -5182,7 +5322,13 @@ def main() -> int:
     log(f"phase classes: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase 16: results
+    # ---- phase mesh: GangPacker and the whole-queue programs on a node-axis mesh
+    t = time.perf_counter()
+    mesh_phase(dataclasses.replace(problem, app_valid=valid), (inputs[0], inputs[1]), smi)
+    log(f"phase mesh: took {time.perf_counter() - t:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase 18: results
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
