@@ -1,11 +1,12 @@
 """Runtime race detection: Eraser lockset + FastTrack-style vector
 clocks + a lock-order recorder, over the ``@guarded_by`` registry; a
-copy of the reference package's ``analysis/racecheck.py`` without its
-model-checker hooks.
+copy of the reference package's ``analysis/racecheck.py``.
 
-It catches a mutation reached on a path where the declared lock is not
-held, accesses on two threads with no *ordering* between them, and lock
-acquisition orders that could deadlock.
+Static lock-discipline rules (LK*) catch mutations that are *lexically*
+outside the declared ``with lock:`` scope; this module catches what the
+AST cannot: a mutation reached on a path where the lock genuinely is
+not held, accesses on two threads with no *ordering* between them, and
+lock acquisition orders that could deadlock.
 
 Two detectors run over the same instrumentation checkpoints:
 
@@ -49,6 +50,12 @@ Instances constructed *before* the detector was enabled carry untracked
 raw locks; their accesses are skipped (``_schedlint_tracked`` marker)
 rather than misreported as lock-free.
 
+The model checker (:mod:`.modelcheck`) reuses this instrumentation as
+its preemption points: a cooperative scheduler hook installed via
+:func:`set_sched_hook` is consulted at every tracked acquire/release
+and every :func:`note_access` checkpoint, which is how small scenarios
+get systematically interleaved without touching the code under test.
+
 The detector is process-wide (module state), and so are the
 ``threading.Thread`` start/join hooks it installs.
 """
@@ -61,7 +68,7 @@ import sys
 import threading
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, FrozenSet, List, Optional, Set, Tuple
+from typing import Any, Dict, FrozenSet, List, Optional, Set, Tuple
 
 ENV_FLAG = "SCHEDLINT_RACECHECK"
 
@@ -158,17 +165,36 @@ class TrackedLock:
     # -- lock protocol --------------------------------------------------------
 
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        hook = _sched_hook
+        if hook is not None and hook.controls_current_thread():
+            # cooperative mode: a preemption point, then spin-yield until
+            # the non-blocking acquire succeeds (only one thread runs at
+            # a time, so a real blocking acquire would deadlock the run)
+            hook.preempt(f"acquire:{self.name}")
+            while not self._inner.acquire(False):
+                if not blocking:
+                    return False
+                hook.wait_for_lock(self)
+            self._on_acquired()
+            if self._depth() == 1:
+                hook.lock_acquired(self)
+            return True
         got = self._inner.acquire(blocking, timeout)
         if got:
             self._on_acquired()
         return got
 
     def release(self) -> None:
-        self._on_release()
+        fully = self._on_release()
         self._inner.release()
+        if fully:
+            hook = _sched_hook
+            if hook is not None and hook.controls_current_thread():
+                hook.lock_released(self)
+                hook.preempt(f"release:{self.name}")
 
     def __enter__(self):
-        self.acquire()
+        self.acquire()  # schedlint: disable=LK002 -- lock proxy: __exit__ is the paired release
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -199,13 +225,15 @@ class TrackedLock:
         if n == 0:  # outermost acquisition only
             self._detector._lock_acquired(self)
 
-    def _on_release(self) -> None:
+    def _on_release(self) -> bool:
+        """True when this release drops the outermost hold."""
         n = self._depth()
         if n <= 1:
             self._counts.n = 0
             self._detector._lock_released(self)
-        else:
-            self._counts.n = n - 1
+            return True
+        self._counts.n = n - 1
+        return False
 
 
 @dataclass
@@ -244,10 +272,7 @@ def _vc_join(dst: Dict[int, int], src: Dict[int, int]) -> None:
             dst[tok] = epoch
 
 
-class RaceDetector:
-    """The detectors' state; ``_mu`` guards all of it (the detector
-    cannot instrument itself)."""
-
+class RaceDetector:  # schedlint: disable=LK004 -- the detector cannot instrument itself: _mu guards its own bookkeeping
     def __init__(self):
         self._mu = threading.Lock()
         self._tls = threading.local()           # .state → _ThreadState
@@ -337,12 +362,28 @@ class RaceDetector:
 
     # -- lock bookkeeping -----------------------------------------------------
 
+    def _quarantined(self) -> bool:
+        """True while the calling thread's detector bookkeeping is
+        suspended.  The model checker quarantines its ORCHESTRATOR
+        thread around scenario invariant/final calls: those may take
+        component locks, and without the quarantine the orchestrator's
+        cumulative clock would flow through every lock it touches,
+        fabricating happens-before edges BETWEEN scenario threads (and
+        acquisition-graph edges the scenario never forms) that mask the
+        very races the run exists to find."""
+        return getattr(self._tls, "quarantined", False)
+
+    def quarantine_current_thread(self, flag: bool) -> None:
+        self._tls.quarantined = flag
+
     def _lock_acquired(self, lock: TrackedLock) -> None:
         st = self._thread_state()
-        if st.stack:
+        if st.stack and not self._quarantined():
             self._record_edge(st.stack[-1].name, lock.name)
         st.stack.append(lock)
         with self._mu:
+            if self._quarantined():
+                return
             lock_vc = self._lock_vcs.get(lock)
             if lock_vc is not None:
                 _vc_join(st.vc, lock_vc)
@@ -355,6 +396,8 @@ class RaceDetector:
                 del st.stack[i]
                 break
         with self._mu:
+            if self._quarantined():
+                return
             lock_vc = self._lock_vcs.setdefault(lock, {})
             _vc_join(lock_vc, st.vc)
             st.vc[st.token] += 1
@@ -394,6 +437,8 @@ class RaceDetector:
     def channel_publish(self, channel) -> None:
         """Order everything this thread has done so far before any
         subsequent :meth:`channel_observe` of the same channel."""
+        if self._quarantined():
+            return
         st = self._thread_state()
         with self._mu:
             ch = self._channel_vcs.setdefault(channel, {})
@@ -402,6 +447,8 @@ class RaceDetector:
 
     def channel_observe(self, channel) -> None:
         """Join every prior publish of ``channel`` into this thread."""
+        if self._quarantined():
+            return
         st = self._thread_state()
         with self._mu:
             ch = self._channel_vcs.get(channel)
@@ -433,6 +480,19 @@ class RaceDetector:
             _vc_join(st.vc, snap)
 
     # -- instance registration ------------------------------------------------
+
+    def track_extra_lock(self, owner: object, lock_attr: str) -> None:
+        """Wrap an auxiliary lock attribute (one beyond the class's
+        ``@guarded_by`` declaration, e.g. a sample mutex) in a
+        TrackedLock so it participates in HB edges, the lock-order
+        graph, and — critically — the model checker's cooperative
+        scheduling.  Used by model-check scenarios; production code
+        never needs it."""
+        inner = getattr(owner, lock_attr, None)
+        if inner is None or isinstance(inner, TrackedLock):
+            return
+        name = f"{type(owner).__name__}.{lock_attr}"
+        object.__setattr__(owner, lock_attr, TrackedLock(inner, name, self))
 
     def register_instance(self, owner: object, cls: type, lock_attr: str) -> None:
         """Wrap ``owner.<lock_attr>`` in a TrackedLock (once) and mark
@@ -471,6 +531,8 @@ class RaceDetector:
             # reports to that detector's held stacks, so judging it
             # against this one's (empty) stacks would fabricate races
             return
+        if self._quarantined():
+            return
         st = self._thread_state()
         held = frozenset(lk.name for lk in st.stack)
         tid = st.token
@@ -480,6 +542,9 @@ class RaceDetector:
         with self._mu:
             self._lockset_check(key, tid, tname, held, write, owner)
             self._hb_check(key, st, tname, write, site, owner)
+        hook = _sched_hook
+        if hook is not None and hook.controls_current_thread():
+            hook.preempt(f"access:{fieldname}")
 
     def _lockset_check(self, key, tid, tname, held, write, owner) -> None:
         # caller holds _mu
@@ -565,6 +630,22 @@ class RaceDetector:
 
 _active: Optional[RaceDetector] = None
 
+# cooperative-scheduler hook (the model checker).  The contract is tiny:
+#   controls_current_thread() -> bool   — is this thread under control?
+#   preempt(label)                      — a scheduling point
+#   wait_for_lock(tracked_lock)         — yield until the lock may be free
+#   lock_acquired(tracked_lock)         — a controlled thread now holds it
+#   lock_released(tracked_lock)         — a controlled thread released it
+_sched_hook: Optional[Any] = None
+
+
+def set_sched_hook(hook) -> None:
+    """Install (or clear, with ``None``) the cooperative scheduler hook
+    consulted at every tracked acquire/release and access checkpoint.
+    Only the model checker should ever set this."""
+    global _sched_hook
+    _sched_hook = hook
+
 
 def active() -> bool:
     return _active is not None
@@ -611,6 +692,19 @@ def note_access(owner: object, fieldname: str, write: bool = True) -> None:
     if d is not None:
         d.record_access(owner, fieldname, write)
 
+
+def track_extra_lock(owner: object, lock_attr: str) -> None:
+    """Module-level convenience for :meth:`RaceDetector.track_extra_lock`."""
+    d = _active
+    if d is not None:
+        d.track_extra_lock(owner, lock_attr)
+
+
+# the model checker's per-thread run registry: hosted HERE (a module
+# that is only ever loaded once) so ``python -m …analysis.modelcheck``
+# — which loads modelcheck.py twice, as __main__ and canonically — has
+# one registry, not two (see modelcheck._run_tls)
+_modelcheck_run_tls = threading.local()
 
 _channel_seq = itertools.count(1)
 

@@ -101,13 +101,13 @@ class EventLog:
         if bucket:
             bucket.popleft()
             if not bucket:
-                del self._by_name[old.name]
+                del self._by_name[old.name]  # schedlint: disable=LK001 -- _unindex_oldest is only called with _lock held (see callers)
         if old.trace_id:
             bucket = self._by_trace.get(old.trace_id)
             if bucket:
                 bucket.popleft()
                 if not bucket:
-                    del self._by_trace[old.trace_id]
+                    del self._by_trace[old.trace_id]  # schedlint: disable=LK001 -- _unindex_oldest is only called with _lock held (see callers)
 
     def hb_channel(self) -> tuple:
         return self._hb_key

@@ -176,13 +176,13 @@ class APIServer:
             if not ref.uid:
                 continue
             if add:
-                self._owner_index.setdefault(ref.uid, set()).add(entry)
+                self._owner_index.setdefault(ref.uid, set()).add(entry)  # schedlint: disable=LK001 -- private helper, every caller holds _lock (see callers)
             else:
                 deps = self._owner_index.get(ref.uid)
                 if deps is not None:
                     deps.discard(entry)
                     if not deps:
-                        del self._owner_index[ref.uid]
+                        del self._owner_index[ref.uid]  # schedlint: disable=LK001 -- private helper, every caller holds _lock (see callers)
 
     def update(self, obj: APIObject) -> APIObject:
         self._check_write_fault("update", obj.KIND, obj.namespace, obj.name)

@@ -117,8 +117,8 @@ def ensure_resource_reservations_crd(
         logger.info("upgrading resource reservation CRD")
         api.update_crd(RESOURCE_RESERVATION_CRD_NAME, desired)
 
-    deadline = time.monotonic() + timeout_seconds  # real wall time: must not freeze with a virtual clock
-    while time.monotonic() < deadline:
+    deadline = time.monotonic() + timeout_seconds  # real wall time: must not freeze with a virtual clock  # schedlint: disable=TS002 -- boot-time wait for CRD Established bounds real wall time, must not freeze with a virtual clock
+    while time.monotonic() < deadline:  # schedlint: disable=TS002 -- same bounded boot wait as the deadline above
         if api.crd_established(RESOURCE_RESERVATION_CRD_NAME):
             return
         time.sleep(0.05)

@@ -282,7 +282,7 @@ class RestClient:
             path = f"{path}?{urlencode(params)}"
         mutating = method in ("POST", "PUT", "PATCH", "DELETE")
         if self._bucket is not None and mutating:
-            self._bucket.acquire()
+            self._bucket.acquire()  # schedlint: disable=LK002 -- a token bucket (kube/ratelimit.py TokenBucket), not a lock: acquire() takes a token, there is nothing to release
         payload = json.dumps(body).encode() if body is not None else None
         # GETs are idempotent: one silent retry on a stale keep-alive
         # conn.  Mutations get a pre-emptively fresh connection instead

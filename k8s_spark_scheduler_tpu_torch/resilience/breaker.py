@@ -154,7 +154,7 @@ class CircuitBreaker:
         # caller holds the lock
         if state == self._state:
             return
-        self._state = state
+        self._state = state  # schedlint: disable=LK001 -- private helper, every caller holds _lock (see callers)
         if self._metrics is not None:
             from ..metrics import names as mnames
 

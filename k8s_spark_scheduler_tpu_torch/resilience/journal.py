@@ -196,14 +196,14 @@ class IntentJournal:
             for rec in self._pending.values():
                 f.write(_frame(json.dumps(rec, sort_keys=True)))
         os.replace(tmp, self._path)
-        self._fh = open(self._path, "a")
-        self._file_records = len(self._pending)
+        self._fh = open(self._path, "a")  # schedlint: disable=LK001 -- _rewrite_locked is only called with _lock held (see callers)
+        self._file_records = len(self._pending)  # schedlint: disable=LK001 -- _rewrite_locked is only called with _lock held (see callers)
 
     def _append_line(self, rec: dict) -> None:
         if self._fh is not None:
             self._fh.write(_frame(json.dumps(rec, sort_keys=True)))
             self._fh.flush()
-            self._file_records += 1
+            self._file_records += 1  # schedlint: disable=LK001 -- _append_line is only called with _lock held (see callers)
 
     def _maybe_compact_locked(self) -> None:
         """Opportunistic compaction on the ack path (async worker

@@ -195,10 +195,10 @@ class Server:
         """Block until caches are synced AND the kernel warmup finished
         (the readiness condition).  Re-raises the warmup's error: a
         kernel that fails to build or launch is never served around."""
-        deadline = time.monotonic() + timeout  # real wall time: bounds the probe
+        deadline = time.monotonic() + timeout  # schedlint: disable=TS002 -- readiness-probe wait bounds real wall time for a live kubelet
         if not self.informer_factory.wait_for_cache_sync():
             return False
-        if not self._warm_done.wait(max(0.0, deadline - time.monotonic())):
+        if not self._warm_done.wait(max(0.0, deadline - time.monotonic())):  # schedlint: disable=TS002 -- remaining budget of the same real-time probe deadline
             return False
         if self._warm_error is not None:
             raise RuntimeError("kernel warmup failed") from self._warm_error

@@ -263,8 +263,10 @@ def test_guarded_registry_holds_the_fabric_declarations():
                 rel = os.path.relpath(os.path.join(root, n), PORT_PKG)[:-3].replace(os.sep, ".")
                 module = "k8s_spark_scheduler_tpu_torch" + ("" if rel == "__init__" else "." + rel.removesuffix(".__init__"))
                 importlib.import_module(module)
+    # module-level declarations: the model checker's scenarios define
+    # guarded fixture classes inside functions each time they are built
     ours = {cls: decl for cls, decl in guarded.registry().items()
-            if cls.__module__.startswith("k8s_spark_scheduler_tpu_torch.")}
+            if cls.__module__.startswith("k8s_spark_scheduler_tpu_torch.") and "<locals>" not in cls.__qualname__}
     assert len(ours) == 49, sorted(c.__name__ for c in ours)
     by_name = {cls.__name__: decl for cls, decl in ours.items()}
     assert by_name["FenceState"] == ("_lock", ("_epoch", "_highest", "_refusals", "_commits", "_stale_commits"))

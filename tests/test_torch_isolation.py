@@ -414,6 +414,38 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
             Simulation(Scenario.from_file(smoke))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             sim_main(["--scenario", smoke, "--quiet"])
+    # the world launcher: CUDA unless the caller asks, resolved before any
+    # rank is spawned (the fake context records each rank's device and
+    # refuses to start it)
+    from unittest import mock
+
+    from k8s_spark_scheduler_tpu_torch.parallel import launch
+
+    class Refused(Exception):
+        pass
+
+    class Context:
+        devices = []
+
+        def Queue(self):
+            return None
+
+        def Process(self, target, daemon, args):
+            Context.devices.append(args[5])
+            raise Refused()
+
+    with mock.patch.object(launch.multiprocessing, "get_context", lambda method: Context()):
+        if torch.cuda.is_available():
+            with pytest.raises(Refused):
+                launch.run_world(print, 1)
+            assert Context.devices == ["cuda"]
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                launch.run_world(print, 1)
+            assert Context.devices == []
+        with pytest.raises(Refused):
+            launch.run_world(print, 1, device="cpu")
+        assert Context.devices[-1] == "cpu"
 
 
 def test_backend_must_match_device():
