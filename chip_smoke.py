@@ -284,7 +284,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    each class kernel against its plain version (computed in the twin),
    outputs, every checkpoint (stride 64) and the evidence, a suffix pass
    from the checkpoint at position 384 too, and against the row kernel;
-   timed beside the row kernel.  (c) A class-mode ``FifoSession`` and a
+   timed beside the row kernel.  (e) An odd-input queue whose partition
+   outgrows shared memory at a rebuild and fits it again at a later one
+   inside one launch (``tests/torch_class_cases.budget_crossing`` at the
+   card's whole budget, an invalid app and a k = 0 app among its apps), and
+   (f) bench.py's fleet at 20,480 nodes with every node unique (as (c)'s
+   churned basis): each class kernel against its plain version (the twin)
+   and the row kernel, (e)'s placements as the rule says, both timed.
+   (g) The crossover: class against row kernel at 40,960 x 1,000; (h) the
+   class kernels' serial floor at 1,024 x 1,000; (i) (b)'s queue with
+   every app invalid, with k past any total, with k = 0, whole: a step's
+   time by piece.  (c) A class-mode ``FifoSession`` and a
    row-mode one on the card replay one random delta stream at 20,480
    nodes (pops, appends, executor edits, availability churn with a
    reload), equal at every step, per policy, with ``class_stats``.  (d)
@@ -4094,6 +4104,8 @@ CLASSES_STREAM_STEPS = 10  # (c): delta-stream steps a policy
 CLASSES_SERVER_FILTERS = 4  # (d): queued drivers' Filters on each server
 CLASSES_REPS = 3  # CUDA-event timings of each launch
 CLASSES_ODD_CASES = ((7, 20), (300, 100), (2000, 300))  # random_queue's odd inputs
+CLASSES_CROSS_NODES = 40_960  # (g): the crossover point, x CLASSES_CHECK_APPS
+CLASSES_CROSSING_K = 520  # (e): executors an app, past the 512-node rebuild limit
 CLASS_POLICIES = {0: "tightly-pack", 1: "distribute-evenly", 2: "minimal-fragmentation"}
 ROW_KERNEL = {0: "fifo_queue_tightly", 1: "fifo_queue_evenly", 2: "fifo_queue_min_frag"}
 
@@ -4117,13 +4129,49 @@ def class_fleet(n: int, a: int):
     return avail, rank, eok, packed
 
 
+def class_cases():
+    """tests/torch_class_cases.py (the budget-crossing queue and its
+    placements), imported from its file."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_class_cases
+
+    return torch_class_cases
+
+
+def unique_fleet(n: int, a: int):
+    """class_fleet with every node's triple moved by -20..20 (as phase
+    classes (c)'s churn moves its basis): nearly every node a class."""
+    avail, rank, eok, packed = class_fleet(n, a)
+    rng = np.random.RandomState(21)
+    return np.maximum(avail + rng.randint(-20, 21, size=avail.shape), 0).astype(np.int32), rank, eok, packed
+
+
+def crossing_queue():
+    """Phase classes (e)'s queue at the launch's whole shared-memory budget."""
+    cases = class_cases()
+    return cases.budget_crossing(cases.real_budget_pairs(CLASSES_CROSSING_K), CLASSES_CROSSING_K)
+
+
 def twin_classes_plain() -> dict:
-    """Phase classes (b)'s plain halves, in the twin: per policy the class
+    """Phase classes' plain halves, in the twin: per policy, (b) the class
     pass's plain version over the whole queue (outputs, checkpoints,
     evidence, seconds) and over the suffix from its own checkpoint at
-    CLASSES_SUFFIX."""
+    CLASSES_SUFFIX; (e) and (f) the plain pass over the crossing and the
+    unique-node queues, (e) with the placements the kernel must make."""
     from k8s_spark_scheduler_tpu_torch.ops import class_kernel as ck
     from k8s_spark_scheduler_tpu_torch.ops.fifo_session import MAX_CHECKPOINTS, class_pass
+
+    def plain_pass(p, arrays):
+        avail_, rank_, eok_, packed_ = arrays
+        st_ = ck.ClassState(avail_.shape[0], "cpu")
+        got = class_pass(p, torch.as_tensor(avail_), ck.candidates(torch.as_tensor(rank_)), torch.as_tensor(eok_),
+                         packed_, st_, True)
+        return tuple(x.numpy() for x in got), st_.evidence()
+
+    crossing, unique = crossing_queue(), unique_fleet(CLASSES_CHECK_NODES, CLASSES_CHECK_APPS)
+    smem = ck.dynamic_smem_bytes(crossing[0].shape[0])
 
     avail, rank, eok, packed = class_fleet(CLASSES_CHECK_NODES, CLASSES_CHECK_APPS)
     n = avail.shape[0]
@@ -4144,7 +4192,8 @@ def twin_classes_plain() -> dict:
                                      chk_base=CLASSES_SUFFIX, chk_stride=CLASSES_STRIDE, chk_out=chk_s)
         out[p] = {"whole": tuple(x.numpy() for x in (f, d, after, chk)), "evidence": st.evidence(),
                   "seconds": seconds, "suffix": tuple(x.numpy() for x in (fs, ds, after_s, chk_s)),
-                  "suffix_evidence": st_s.evidence()}
+                  "suffix_evidence": st_s.evidence(), "crossing": plain_pass(p, crossing),
+                  "placements": class_cases().placements(*crossing, p, smem), "unique": plain_pass(p, unique)}
     return out
 
 
@@ -4275,6 +4324,84 @@ def classes_phase(seed: int, smi: str, plain: dict, device: str = "cuda") -> lis
             f"(runs {', '.join(f'{x:.3f}' for x in cls_ms)}), row {statistics.median(row_ms):.3f} ms (runs "
             f"{', '.join(f'{x:.3f}' for x in row_ms)}), plain {want['seconds'] * 1e3:.1f} ms (twin) | {smi}")
 
+    # (e) the partition outgrows shared memory at a rebuild and fits again
+    # at a later one, inside one launch; (f) every node unique
+    crossing, unique = crossing_queue(), unique_fleet(CLASSES_CHECK_NODES, CLASSES_CHECK_APPS)
+    for label, arrays in (("crossing", crossing), ("unique", unique)):
+        c_planes, c_rank, c_eok = on(dev, arrays[:3])
+        c_cand, c_packed, c_n = ck.candidates(c_rank), arrays[3], arrays[0].shape[0]
+        for p, name in CLASS_POLICIES.items():
+            kname = ck.KERNEL_NAMES[p]
+            st = ck.ClassState(c_n, dev)
+            got = class_pass(p, c_planes, c_cand, c_eok, c_packed, st, True)
+            row = queue_pass(p, c_planes, c_rank, c_eok, c_packed)
+            torch.cuda.synchronize()
+            ev = st.evidence()
+            want, want_ev = plain[p][label]
+            if compare(got, row) or compare(got, on(dev, want)) or ev != want_ev:
+                raise SystemExit(f"phase classes: ({label}) {kname} differs from its plain version or "
+                                 f"{ROW_KERNEL[p]} at {c_n} x {c_packed.shape[0]}")
+            placed = st.placements()
+            if label == "crossing" and dev.type == "cuda":  # the plain version places nothing
+                expect = plain[p]["placements"]
+                if placed != {"shared": expect["shared"], "global": expect["global"]} or not expect["global"] \
+                        or expect["shared"] < 2:
+                    raise SystemExit(f"phase classes: (e) {kname} placed the partition {placed}, the rule "
+                                     f"{expect}")
+            cls_ms, row_ms = times(p, c_planes, c_rank, c_eok, c_cand, c_packed)
+            log(f"phase classes: ({'e' if label == 'crossing' else 'f'}) {name} {label} {c_n} x "
+                f"{c_packed.shape[0]}: {kname} equal to its plain version (outputs, evidence {ev}) and to "
+                f"{ROW_KERNEL[p]}; placements {placed}"
+                + (f" (classes at the builds {plain[p]['placements']['classes']})" if label == "crossing" else "")
+                + f"; class {statistics.median(cls_ms):.3f} ms, row {statistics.median(row_ms):.3f} ms | {smi}")
+        del c_planes, c_rank, c_eok, c_cand
+
+    # (i) where a step's time goes at 20,480 x 1,000: the same queue with
+    # every app invalid (the loop), with k past any total (pass A: values
+    # and probe, no driver), with k = 0 (pass A and the driver's row), whole
+    avail, rank, eok, packed = class_fleet(CLASSES_CHECK_NODES, CLASSES_CHECK_APPS)
+    i_planes, i_rank, i_eok = on(dev, (avail, rank, eok))
+    i_cand = ck.candidates(i_rank)
+    variants = {"invalid": (7, 0), "pass A": (6, 2**30), "k=0": (6, 0), "whole": (None, None)}
+    for p, name in CLASS_POLICIES.items():
+        pieces = {}
+        for label, (col, value) in variants.items():
+            queue = packed.copy()
+            if col is not None:
+                queue[:, col] = value
+            st = ck.ClassState(CLASSES_CHECK_NODES, dev)
+            pieces[label] = statistics.median(
+                time_cuda(lambda: class_pass(p, i_planes, i_cand, i_eok, queue, st, True), 1)
+                for _ in range(CLASSES_REPS))
+        log(f"phase classes: (i) {name} {CLASSES_CHECK_NODES} x {CLASSES_CHECK_APPS} by piece: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in pieces.items())
+            + f"; per app: loop {pieces['invalid'] / CLASSES_CHECK_APPS * 1e3:.2f} us, pass A "
+            f"{(pieces['pass A'] - pieces['invalid']) / CLASSES_CHECK_APPS * 1e3:.2f} us, the driver's row "
+            f"{(pieces['k=0'] - pieces['pass A']) / CLASSES_CHECK_APPS * 1e3:.2f} us, the rest "
+            f"{(pieces['whole'] - pieces['k=0']) / CLASSES_CHECK_APPS * 1e3:.2f} us | {smi}")
+    del i_planes, i_rank, i_eok, i_cand
+
+    # (g) the crossover at 40,960 x 1,000 and (h) the serial floor at
+    # 1,024 x 1,000, both on bench.py's fleet
+    floor = {}
+    for label, n_nodes in (("g", CLASSES_CROSS_NODES), ("h", FLOOR_NODES)):
+        g_arrays = class_fleet(n_nodes, CLASSES_CHECK_APPS)
+        g_planes, g_rank, g_eok = on(dev, g_arrays[:3])
+        g_cand = ck.candidates(g_rank)
+        for p, name in CLASS_POLICIES.items():
+            kname = ck.KERNEL_NAMES[p]
+            got, row, ev = row_and_class(p, g_planes, g_rank, g_eok, g_cand, g_arrays[3])
+            if compare(got, row):
+                raise SystemExit(f"phase classes: ({label}) {kname} differs from {ROW_KERNEL[p]} at {n_nodes} nodes")
+            cls_ms, row_ms = times(p, g_planes, g_rank, g_eok, g_cand, g_arrays[3])
+            if label == "h":
+                floor[kname] = statistics.median(cls_ms)
+            log(f"phase classes: ({label}) {name} {n_nodes} x {CLASSES_CHECK_APPS}: {kname} byte-equal to "
+                f"{ROW_KERNEL[p]}, evidence {ev}; class {statistics.median(cls_ms):.3f} ms (runs "
+                f"{', '.join(f'{x:.3f}' for x in cls_ms)}), row {statistics.median(row_ms):.3f} ms (runs "
+                f"{', '.join(f'{x:.3f}' for x in row_ms)}) | {smi}")
+        del g_planes, g_rank, g_eok, g_cand
+
     # (c) and (d) are the class kernels' main path: every count at 0 first
     ck.reset_launch_counts()
 
@@ -4364,7 +4491,7 @@ def classes_phase(seed: int, smi: str, plain: dict, device: str = "cuda") -> lis
         kname = ck.KERNEL_NAMES[p]
         ms, plain_ms, t_bytes, t_ops = timing[kname]
         entries.append(kernel_entry(kname, "classes_min_frag" if p == 2 else "classes", launches[kname],
-                                    max_err[kname], ms, plain_ms, t_bytes, t_ops))
+                                    max_err[kname], ms, plain_ms, t_bytes, t_ops, floor_ms=floor[kname]))
     return entries
 
 
@@ -4994,14 +5121,17 @@ def ptxas_report(build_log: str):
     return out
 
 
-def kernel_entry(name, kind, launches, max_err, ms, plain_ms, t_bytes, t_ops):
-    return {
+def kernel_entry(name, kind, launches, max_err, ms, plain_ms, t_bytes, t_ops, floor_ms=None):
+    entry = {
         "name": name, "route": "cuda", "source": SOURCES[kind], "replaces": REPLACES[kind],
         "launches": launches, "max_abs_err": max_err,
         "ms": statistics.median(ms), "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": None,
     }
+    if floor_ms is not None:
+        entry["serial_floor_ms"] = floor_ms  # the same queue at FLOOR_NODES nodes
+    return entry
 
 
 def main() -> int:
@@ -5264,7 +5394,8 @@ def main() -> int:
             f"{statistics.median(ms):.3f} ms (runs {', '.join(f'{x:.3f}' for x in ms)}), "
             f"plain {plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
             f"operations {t_ops:.4f}), serial floor at N={FLOOR_NODES} {floor_ms:.3f} ms | {smi}")
-        return kernel_entry(kname, kind, launches[kname], max_err[kname], ms, plain_ms, t_bytes, t_ops)
+        return kernel_entry(kname, kind, launches[kname], max_err[kname], ms, plain_ms, t_bytes, t_ops,
+                            floor_ms=floor_ms)
 
     kernels = []
     floor_args = tuple(x[:FLOOR_NODES] for x in queue_args[:3]) + queue_args[3:]

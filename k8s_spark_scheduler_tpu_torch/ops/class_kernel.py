@@ -45,7 +45,11 @@ the node -> class map (-1: overlay), one 8-int record a class (its triple,
 exec_ok, live members, ``lb``, this app's value), the overlay's node ids
 (unordered), per-node scratch, the rebuild's hash table and the evidence
 counters.  Class ids are internal: the kernel numbers classes in the order
-its threads find them, the plain version by ``torch.unique``.
+its threads find them, the plain version by ``torch.unique``.  The kernel
+holds the partition in shared memory while a launch runs, when it fits
+(:func:`placement`), and writes it back to the state at the launch's end;
+the two counters past the evidence count its placements in shared and in
+global memory (the plain version leaves them 0).
 
 ``fifo_queue_classes`` (tightly-pack, distribute-evenly) and
 ``fifo_queue_min_frag_classes`` are the wrappers: a tensor on the CPU
@@ -58,7 +62,9 @@ as the reference's ``build_cand`` sorts on the host).
 
 The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ctypes, under
-``<package>/_build`` (listed in .gitignore).
+``<package>/_build`` (listed in .gitignore).  It runs as one block of
+``THREADS`` threads with :func:`dynamic_smem_bytes` of dynamic shared
+memory (``SMEM_LIMIT`` in all, static part included).
 """
 
 from __future__ import annotations
@@ -79,14 +85,55 @@ POLICY_TIGHTLY, POLICY_EVENLY, POLICY_MINFRAG = 0, 1, 2
 A0, A1, A2, EOK, LIVE, LB, VAL = range(7)
 CLS_FIELDS = 8
 # the fields of ClassState.meta
-M_CLASSES, M_OVERLAY, M_CLASSES_LAST, M_REBUILDS, M_OVERLAY_PEAK, M_CLASSES_INITIAL = range(6)
+(M_CLASSES, M_OVERLAY, M_CLASSES_LAST, M_REBUILDS, M_OVERLAY_PEAK, M_CLASSES_INITIAL, M_SHARED_PLACEMENTS,
+ M_GLOBAL_PLACEMENTS) = range(8)
 META_FIELDS = 8
+
+# the kernel's block and shared memory (csrc/class_kernel.cu's head)
+THREADS = 256  # the kernel's block (csrc/class_kernel.cu kThreads)
+SMEM_LIMIT = 227 * 1024  # bytes of shared memory a Hopper block may opt in to, static part included
+CLASS_WORDS = 7  # int32 words a class takes in shared memory: a0 a1 a2 exec_ok live lb value
+OVERLAY_WORDS = 6  # int32 words an overlay entry takes: node a0 a1 a2 exec_ok value
+OVX_FIELDS = 5  # ClassState.ovx rows: the overlay's a0 a1 a2 exec_ok value where it does not fit
 
 
 def overlay_limit(n: int) -> int:
     """The overlay size past which the partition is rebuilt (the
     reference's ``max(512, nb / 64)``)."""
     return max(512, n // 64)
+
+
+def static_smem_bytes() -> int:
+    """The kernel's static shared memory, sizeof(Shared<THREADS>): two
+    buffers of candidate records, the first candidates' ids, the reduction
+    buffers, six scalars."""
+    return 36 * THREADS + 2080
+
+
+def dynamic_smem_bytes(n: int) -> int:
+    """The dynamic shared memory a launch over n nodes asks for: room for
+    n classes and n overlay entries, capped at what the block may hold
+    beside its static part (SMEM_LIMIT in all)."""
+    need = 4 * (CLASS_WORDS + OVERLAY_WORDS) * max(n, 1)
+    return max(0, min(need, SMEM_LIMIT - static_smem_bytes()))
+
+
+def overlay_capacity(n: int, kmax: int) -> int:
+    """The overlay entries an app can reach: the rebuild limit, plus the
+    nodes one app writes (at most k executors' hosts and the driver's
+    node), at most n."""
+    return min(max(n, 1), overlay_limit(n) + max(kmax, 0) + 2)
+
+
+def placement(n: int, nclasses: int, kmax: int, smem_bytes: int) -> Tuple[bool, bool]:
+    """Where the kernel keeps the partition, as it decides at the launch's
+    start (the overlay) and at each (re)build (the classes): (overlay in
+    shared memory, classes in shared memory).  `kmax` is the launch's
+    largest k over its valid apps, `smem_bytes` its dynamic shared memory."""
+    ov_bytes = 4 * OVERLAY_WORDS * overlay_capacity(n, kmax)
+    ov_shared = ov_bytes <= smem_bytes
+    room = (smem_bytes - (ov_bytes if ov_shared else 0)) // (4 * CLASS_WORDS)
+    return ov_shared, nclasses <= room
 
 
 def table_size(n: int) -> int:
@@ -100,9 +147,11 @@ def table_size(n: int) -> int:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fifo_queue_classes_launch.argtypes = [
-        p, p, i, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p,
+        p, p, i, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, i, p,
     ]
     lib.fifo_queue_classes_launch.restype = ctypes.c_int
+    lib.fifo_queue_classes_static_smem.argtypes = []
+    lib.fifo_queue_classes_static_smem.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("class_kernel.cu", _declare)
@@ -145,6 +194,7 @@ class ClassState:
         self.node_val = torch.zeros((m,), **i32)
         self.slot = torch.zeros((m,), **i32)
         self.table = torch.full((table_size(n),), -1, **i32)
+        self.ovx = torch.zeros((OVX_FIELDS * m,), **i32)
         if meta is None:
             self.meta = torch.zeros((META_FIELDS,), dtype=torch.int64, device=device)
         else:
@@ -174,8 +224,14 @@ class ClassState:
             "overlay_now": m[M_OVERLAY],
         }
 
+    def placements(self) -> dict:
+        """The kernel's placements of the partition so far (each launch's
+        start and each rebuild): in shared memory, in global memory."""
+        m = self.counters()
+        return {"shared": m[M_SHARED_PLACEMENTS], "global": m[M_GLOBAL_PLACEMENTS]}
+
     def tensors(self) -> tuple:
-        return (self.node_cls, self.cls, self.ov, self.node_val, self.slot, self.table, self.meta)
+        return (self.node_cls, self.cls, self.ov, self.node_val, self.slot, self.table, self.ovx, self.meta)
 
     def mem_bytes(self) -> int:
         return int(sum(t.numel() * t.element_size() for t in self.tensors()))
@@ -585,19 +641,20 @@ def _launch(policy, avail, cand, exec_ok, apps, state, rebuild, checkpoints):
     feasible = torch.empty((a,), dtype=torch.bool, device=device)
     driver_idx = torch.empty((a,), dtype=torch.int32, device=device)
     avail_after = torch.empty((n, 3), dtype=torch.int32, device=device)
+    divs = torch.empty((max(a, 1), 3, 2), dtype=torch.int32, device=device)  # each app's divisions (scratch)
     chk_base, chk_stride, chk_out = checkpoints
     stream = torch.cuda.current_stream(device).cuda_stream
-    node_cls, cls, ov, node_val, slot, table, meta = state.tensors()
+    node_cls, cls, ov, node_val, slot, table, ovx, meta = state.tensors()
     with torch.cuda.device(device):
         err = lib.fifo_queue_classes_launch(
             avail.data_ptr(), cand.data_ptr(), cand.shape[0], exec_ok.data_ptr(), apps.data_ptr(),
             n, a, policy, int(bool(rebuild)),
             feasible.data_ptr(), driver_idx.data_ptr(), avail_after.data_ptr(),
             node_cls.data_ptr(), cls.data_ptr(), ov.data_ptr(), node_val.data_ptr(), slot.data_ptr(),
-            table.data_ptr(), meta.data_ptr(), table.shape[0] - 1,
+            table.data_ptr(), ovx.data_ptr(), divs.data_ptr(), meta.data_ptr(), table.shape[0] - 1,
             chk_base, chk_stride, 0 if chk_out is None else chk_out.shape[0],
             None if chk_out is None else chk_out.data_ptr(),
-            stream,
+            dynamic_smem_bytes(n), stream,
         )
     if err != 0:
         raise RuntimeError(f"class kernel launch failed with CUDA error {err}")

@@ -14,8 +14,9 @@ wrote replays in the other.
 kernel on the card (``cuda``) and through its plain PyTorch version
 (``torch``) and compares both with the recorded verdicts byte for byte,
 so a persisted anomaly is a reproducible artifact, not a log line.  (The
-reference replays on its two native lanes, cold and warm; its ``sim
---replay-bundle`` command line has no counterpart here yet.)
+reference replays on its two native lanes, cold and warm.)  The command
+line is ``python -m k8s_spark_scheduler_tpu_torch.sim --replay-bundle
+<path.jsonl> [--device cpu]``, as the reference's.
 """
 
 from __future__ import annotations
