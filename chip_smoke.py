@@ -8,13 +8,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build: the four kernels from ``ops/csrc/`` (queue_kernel.cu,
    minfrag_kernel.cu, single_az_kernel.cu, class_kernel.cu; one nvcc
    each, all started together, sm_90a);
-3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
-   the card, on randomized queues (ragged N, k = 0, zero-resource
+3. kernel vs plain: each CUDA kernel on the card against its plain
+   PyTorch version on the same inputs, computed on the CPU in the plain
+   twins (below) and compared before phase 5, on randomized queues
+   (ragged N, k = 0, zero-resource
    executors, negative availability, invalid apps, zone id -1, a problem
    too large for shared memory, more than 127 zones) and at 10,240 nodes ×
-   1,024 apps (3 zones for the single-AZ kernel; the plain versions of
-   these two largest queues come from a twin process, on the CPU, and are
-   compared after phase 4's decisions), every variant; also 10,240
+   1,024 apps (3 zones for the single-AZ kernel), every variant; also 10,240
    nodes in one zone, 12,345 in one zone, 4,000 zones, 3 zones with
    one empty, 9 and 17 zones, an az-aware queue where many apps take the
    cross-zone solve, min-frag queues where the pass's largest capacity is
@@ -36,7 +36,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of every ``tpu-batch*`` binpacker; small snapshots checked against the
    host oracles' sequential FIFO loop for each policy; each policy's
    kernel launch counts, zeroed just before its decisions and read just
-   after; each kernel's time, bound and serial floor at the main path's inputs, the apps that take
+   after; each kernel's time, bound and serial floor at the main path's
+   inputs (its plain version's in the plain twins), the apps that take
    the az-aware cross-zone solve, each variant's cluster size and threads,
    and ptxas's registers and spills for each kernel instantiation; the
    explainer's launch at the main path's inputs (1,000 probes interleaved
@@ -52,10 +53,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    drivers of 1–32 executors of 1–8 CPU / 2–16 Gi) rebuilt from ``--seed``;
    2 warmup and 24 timed ``POST /predicates`` probes with all 10,000 node
    names, each retired and settled before the next, each cuda server
-   timed alone (the cpu server's sampler and ledger paused for the run,
-   the other cuda server's around each timed request); every response
-   body equal to the same probe on a ``device="cpu"`` server fed the same
-   objects, posted after the timed request, every probe on the tensor lane (``lane=fast``) through the
+   timed alone (the other cuda server's sampler and ledger paused around
+   each timed request); every response body, the checked executors' and
+   the refused probe's equal to those of a ``device="cpu"`` server fed
+   the same objects and probes in a server twin (submitted after the
+   phase, compared before phase classes), every probe on the tensor lane (``lane=fast``) through the
    delta-solve session on the card (its first, cold pass a launch of the
    checkpointed queue kernel; the retired probes leave the cluster as it
    was, so the timed probes are served warm); for 3
@@ -64,7 +66,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    work a request does, span medians, the slowest timed Filter's span
    tree and ``/debug/criticalpath`` record, and the device's idle share
    in a profiler trace of one request; then one probe refused behind the
-   queue, explained on the card, its message equal to the cpu server's;
+   queue, explained on the card, its message held to the cpu server's;
+5b. az-server: the single-AZ family through the port's server on phase
+   5's snapshot — a cuda server for each of ``tpu-batch-single-az``,
+   ``tpu-batch-az-aware`` and ``tpu-batch-single-az-minimal-fragmentation``
+   (fifo, the reference's defaults; the tensor lane declines these
+   names, so every driver Filter takes the metadata lane,
+   ``scheduler/extender._try_device_fifo`` → ``TpuSingleAzFifoSolver``
+   → ``single_az_kernel.fifo_queue_single_az``); phase 5's protocol: 2
+   warmup and 24 timed probes, each retired, the server alone; each
+   Filter's launches of its name's kernel variant read around it (a
+   fused Filter one launch), ``…tpu.singleaz.lane`` (fused / host)
+   equal to the solver's lanes, no Filter on the tensor lane; 3 granted
+   probes' executors each granted its reserved node; p50 / p99, span
+   medians, the slowest Filter's span tree, the decision by piece
+   (tensorize, zone inputs, kernel, the current app's zone solves,
+   efficiencies); one probe refused behind the queue (its gang sized
+   from the last Filter's queue pass: more executors than the best
+   zone, or the cluster under az-aware, holds after the queue, fewer
+   than before it).  The warmups' bodies, every 4th timed probe's and
+   the refused probe's equal those of a ``device="cpu"`` server fed the
+   same objects and probes in a server twin, compared before phase
+   classes;
 6. cluster: the same server against a Kubernetes API over REST — a cuda
    and a cpu server, each on its own ``FakeKubeAPI`` (a local HTTP
    Kubernetes API) holding phase 5's objects, reached through a
@@ -261,19 +284,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    every axis off and every axis on, in-process, their digests equal to
    the reference's (``LAB_CORNERS``).  Wall time and events/s a cell, the
    parent's RSS, 0 launches in the phase;
-16. analysis: the static half of ``analysis/`` on the card's host.  (a)
-   ``python -m k8s_spark_scheduler_tpu_torch.analysis --strict --format
-   json`` over the shipped package: 0 findings, its suppressed sites
-   equal, key by key, to ``tests/baselines/torch_schedlint_suppressions.json``;
-   (b) the model checker's 10-scenario corpus (``analysis/mcscenarios.py``)
-   at 120 schedules and seed 7 with ``device="cuda"`` (the capacity
-   sampler's probe programs on its own CUDA stream under controlled
-   interleavings), every scenario clean, each one's schedules, decisions
-   and seconds; no hand kernel launched in the phase.  Both halves are
-   host work and start beside phase lab, (a) in a subprocess, (b) in a
-   spawned process of its own (so phase lab's times are taken beside
-   them and the twin's phase classes (b) passes), and are read right
-   after phase lab, before phase classes;
+16. analysis: the model checker of ``analysis/`` on the card's host: its
+   10-scenario corpus (``analysis/mcscenarios.py``) at 120 schedules and
+   seed 7 with ``device="cuda"`` (the capacity sampler's probe programs
+   on its own CUDA stream under controlled interleavings), every scenario
+   clean, each one's schedules, decisions and seconds; no hand kernel
+   launched in the phase.  It is host work and starts beside phase lab
+   in a spawned process of its own (so phase lab's times are taken
+   beside it and the twin's phase classes (b) passes), and is read right
+   after phase lab, before phase classes.  The linter's check of the
+   shipped tree is tier-1's (``tests/test_torch_analysis.py``): its
+   findings do not depend on the host;
 17. classes: class-compressed stepping (ops/class_kernel.py, the
    reference's native class solver on the card).  (a) bench.py's class
    lane inputs (``class_fleet``: seed 20, 24 machine shapes, 2 %
@@ -301,7 +322,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    Phase 5's HTTP snapshot on a ``tpu-batch`` server with ``classes:
    {min-nodes: 0}`` against one with class stepping off: 4 queued
    drivers' Filters byte-equal, the class kernel launched on the first.
-   (c) and (d) are the class kernels' main path (launches counted there);
+   (j) bench.py's HTTP snapshot at 20,480 nodes in 3 zones with 1,000
+   queued drivers, past ``classes.min-nodes``: for ``tpu-batch``,
+   ``tpu-batch-distribute-evenly`` and ``tpu-batch-minimal-fragmentation``
+   a cuda server on the default ``classes`` config and one with
+   ``classes: {enabled: false}``; 2 warmups, 8 new drivers (each
+   retired) and 8 retries of queued drivers, posted to both in turns,
+   bodies byte-equal; every session of the default server in class mode
+   and none of the other's; the class kernel launched on the first, the
+   checkpointed row kernel on the second; p50 / p99 of each, class
+   rebuilds and ``class_stats``; the warmups' bodies and every 4th
+   Filter's after them equal a ``device="cpu"`` server's on the default
+   config in a server twin.  (c), (d) and (j) are the class kernels' main
+   path (launches counted there);
 18. mesh: ``GangPacker`` and the whole-queue programs with the node axis
    sharded over a ``torch.distributed`` process group (parallel/), each
    world in spawned processes.  (a) one NCCL rank on the card at phase
@@ -321,15 +354,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    rank's shard bytes;
 19. the kernels line (times, bounds, launches) and the device result line.
 
-The cpu halves of phase 4's decisions, of phase sim's simulations and of
-phase classes (b) run in one spawned twin process (``CpuTwin``), those
-of phase 3's two 10,240 × 1,024 queues in a second one, stopped after
-phase 4 has read them.  Both start before phase 3 and compute the same
-functions from the same seeds while this process drives the card.  The
-first computes phase classes (b)'s beside phase lab, so that nothing
-runs beside phases 5 to sim but their own cpu halves, and stops before
-phase classes.  The comparisons are the same; only the host's idle
-cores do the cpu work.
+The cpu halves run in spawned processes (``CpuTwin``) while this process
+drives the card: the same functions on the same inputs (shipped, or made
+from the same seeds).  One twin computes phase 4's tensor-lane decisions,
+phase concurrent (d)'s cells, phase sim's simulations and phase classes
+(b)'s passes (beside phase lab), and stops before phase classes.  The
+plain twins (``PLAIN_WORKERS`` processes of one torch thread) compute
+phase 4's single-AZ decisions and the plain versions of phases 3, 4 and
+delta step 1 (shipped each launch's inputs), and stop after phase 4.
+The server twins (``SERVER_WORKERS`` of them) hold the cpu servers of
+phases 5, az-server and classes (j), one a name, submitted after phase 5,
+and stop after phase classes.  All start before the build, and run at a
+lower priority than this process.  Nothing runs beside phases 3-4 but
+their own cpu halves, and nothing beside phase 5.  The comparisons are
+the same; only the host's idle cores do the cpu work.
 
 Needs CUDA: without it the script exits with an error before any phase.
 """
@@ -337,9 +375,11 @@ Needs CUDA: without it the script exits with an error before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import faulthandler
 import gc
+import importlib
 import json
 import os
 import random
@@ -360,6 +400,12 @@ BIG = 2**31 - 1
 N_NODES, N_APPS, N_ZONES = 10_000, 1_000, 3  # the main path's cluster and queue depth
 DECISIONS = 3  # Filter decisions per tightly-pack / distribute-evenly policy on the main path
 NEW_DECISIONS = 2  # Filter decisions per min-frag / single-AZ policy on the main path
+# plain twins: one-thread processes computing the plain versions the kernels
+# are held to beside phases 3-4 (a plain version is a loop of small ops: more
+# threads do not speed it); server twins: the cpu servers of phases 5,
+# az-server and classes (j) beside the phases after 5, two at a time (more
+# slowed the timed phases beside them)
+PLAIN_WORKERS, SERVER_WORKERS = 4, 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 # int32 ALU rate: 132 SMs x 64 int32 lanes a clock x 1.98 GHz boost
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -540,19 +586,19 @@ SESSION_LANE = "cuda-session"
 SERVER_LATENCY = {}
 
 
-def server_objects(seed: int):
+def server_objects(seed: int, n_nodes: int = None, base: float = None):
     """bench.py's headline HTTP snapshot (bench.py:1533-1562) in the
-    port's types, from `seed`: node names, 10,000 nodes in 3 zones with
-    allocatable 4–96 CPU / 8–256 Gi, 1,000 queued drivers of 1–32
-    executors of 1–8 CPU / 2–16 Gi created a second apart, the probe
-    generator's random state and the queue's base creation time."""
-    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+    port's types, from `seed`: node names, `n_nodes` (10,000) nodes in 3
+    zones with allocatable 4–96 CPU / 8–256 Gi, 1,000 queued drivers of
+    1–32 executors of 1–8 CPU / 2–16 Gi created a second apart from
+    `base` (10,000 s ago by default), the probe generator's random state
+    and the queue's base creation time."""
     from k8s_spark_scheduler_tpu_torch.types.objects import Node, ObjectMeta
     from k8s_spark_scheduler_tpu_torch.types.resources import ZONE_LABEL, Resources
 
     rng = np.random.RandomState(seed + 5)
     names, nodes = [], []
-    for i in range(N_NODES):
+    for i in range(N_NODES if n_nodes is None else n_nodes):
         name = f"n{i:05d}"
         names.append(name)
         nodes.append(Node(
@@ -560,15 +606,20 @@ def server_objects(seed: int):
                                                "resource_channel": "batch-medium-priority"}),
             allocatable=Resources.of(str(int(rng.randint(4, 96))), f"{int(rng.randint(8, 256))}Gi"),
         ))
-    base = time.time() - 10_000.0
-    queue = [
-        Harness.static_allocation_spark_pods(
-            f"queue-{i:04d}", int(rng.randint(1, 32)), executor_cpu=str(int(rng.randint(1, 8))),
-            executor_mem=f"{int(rng.randint(2, 16))}Gi", creation_timestamp=base + i,
-        )[0]
-        for i in range(N_APPS)
-    ]
+    base = time.time() - 10_000.0 if base is None else base
+    queue = [probe_pods(rng, f"queue-{i:04d}", base + i)[0] for i in range(N_APPS)]
     return names, nodes, queue, rng, base
+
+
+def probe_pods(rng: np.random.RandomState, app_id: str, created: float):
+    """A driver and its executors as the snapshot's queue holds them:
+    1–32 executors of 1–8 CPU / 2–16 Gi drawn from `rng`."""
+    from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
+
+    return Harness.static_allocation_spark_pods(
+        app_id, int(rng.randint(1, 32)), executor_cpu=str(int(rng.randint(1, 8))),
+        executor_mem=f"{int(rng.randint(2, 16))}Gi", creation_timestamp=created,
+    )
 
 
 def server_resilience(device: str):
@@ -886,7 +937,7 @@ class GcWatch:
         return [e for e in self.events if start <= e[1] <= end]
 
 
-def slow_filter_capture(server, policy: str, slowest, gcs: GcWatch, smi: str) -> None:
+def slow_filter_capture(server, policy: str, slowest, gcs: GcWatch, smi: str, phase: str = "server") -> None:
     """Log the slowest timed Filter's span tree, its
     ``/debug/criticalpath`` record and the garbage collections that ran
     inside it."""
@@ -896,7 +947,7 @@ def slow_filter_capture(server, policy: str, slowest, gcs: GcWatch, smi: str) ->
     record = next((r for r in json.loads(body).get("recent", ()) if r["traceId"] == trace_id), None)
     inside = gcs.between(trace["startTime"], trace["startTime"] + ms / 1e3)
     full = [e for e in gcs.events if e[0] == 2]
-    log(f"phase server: {policy}: the slowest timed Filter ({ms:.3f} ms, trace {trace_id}): "
+    log(f"phase {phase}: {policy}: the slowest timed Filter ({ms:.3f} ms, trace {trace_id}): "
         f"criticalpath {json.dumps(record, sort_keys=True)}; spans by exclusive time "
         + ", ".join(f"{name} {t:.3f}" for name, t in
                     sorted(self_times(trace["root"], {}).items(), key=lambda kv: -kv[1])[:8])
@@ -906,9 +957,11 @@ def slow_filter_capture(server, policy: str, slowest, gcs: GcWatch, smi: str) ->
         + (f"max {max(e[2] for e in full):.1f} ms" if full else "none") + f") | {smi}")
 
 
-def server_phase(seed: int, smi: str) -> dict:
-    """Phase 5 (see the module docstring); returns the launches of each
-    policy's checkpointed kernel on its cuda servers' run.  Raises
+def server_phase(seed: int, smi: str, base: float) -> tuple:
+    """Phase 5 (see the module docstring), the card's half: its snapshot's
+    queue created from `base`.  Returns ({checkpointed kernel: launches on
+    its policy's cuda servers' run}, {policy: answers}: the bodies
+    server_check holds to twin_server_phase's cpu server).  Raises
     SystemExit on any failure."""
     import logging
 
@@ -918,20 +971,20 @@ def server_phase(seed: int, smi: str) -> dict:
     from k8s_spark_scheduler_tpu_torch.testing.harness import Harness
 
     logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
-    path_launches = {}
+    path_launches, recorded = {}, {}
     gcs = GcWatch()
     gc.callbacks.append(gcs)
     try:
         t0 = time.perf_counter()
-        names, nodes, queue, rng, base = server_objects(seed)
+        names, nodes, queue, rng, _ = server_objects(seed, base=base)
         log(f"phase server: snapshot {len(nodes)} nodes in {N_ZONES} zones, {len(queue)} queued drivers "
             f"built in {time.perf_counter() - t0:.2f} s")
         for pi, policy in enumerate(SERVER_POLICIES):
             t0 = time.perf_counter()
             servers = {}
+            answers = recorded[policy] = {}
             try:
-                for device in ("cuda", "cpu"):
-                    servers[device] = PortServer(policy, device, nodes, queue)
+                servers["cuda"] = PortServer(policy, "cuda", nodes, queue)
                 off = None
                 if policy == SERVER_PROVENANCE_OFF:
                     off = servers["cuda-provenance-off"] = PortServer(
@@ -939,17 +992,13 @@ def server_phase(seed: int, smi: str) -> dict:
                 log(f"phase server: {policy}: {', '.join(servers)} servers ready in "
                     f"{time.perf_counter() - t0:.2f} s")
                 card = servers["cuda"]
-                # each cuda server is timed alone: the cpu server (the
-                # card's oracle, whose answers do not depend on its
-                # observatories) keeps its sampler and ledger paused for the
-                # policy's run, and the other cuda server's are paused
-                # around each timed request
-                servers["cpu"].pause_background()
+                # each cuda server is timed alone: the other cuda server's
+                # sampler and ledger are paused around each timed request
                 solver = card.scheduler.extender.binpacker.queue_solver
                 prov = card.watch_provenance()
                 kname = SERVER_KERNEL[policy]
                 engine = card.scheduler.extender.delta_engine
-                lat_ms, off_ms, traces, granted, exec_checked, compared = [], [], [], 0, 0, 0
+                lat_ms, off_ms, traces, granted, exec_checked = [], [], [], 0, 0
                 slowest = None  # (ms, trace id) of the slowest timed Filter
                 n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
                 # the path is driven with every count at 0: the first probe's
@@ -962,12 +1011,7 @@ def server_phase(seed: int, smi: str) -> dict:
                     if i == SERVER_WARMUP_PROBES:
                         prov["ms"].clear()  # the timed probes' run starts here
                         warm_before = engine.stats()["warm_hits"]
-                    pods = Harness.static_allocation_spark_pods(
-                        f"probe-{pi}-{i:03d}", int(rng.randint(1, 32)),
-                        executor_cpu=str(int(rng.randint(1, 8))),
-                        executor_mem=f"{int(rng.randint(2, 16))}Gi",
-                        creation_timestamp=base + N_APPS + i,
-                    )
+                    pods = probe_pods(rng, f"probe-{pi}-{i:03d}", base + N_APPS + i)
                     created = pods[:1]
                     for server in servers.values():
                         server.api.create(pods[0].deepcopy())
@@ -991,11 +1035,7 @@ def server_phase(seed: int, smi: str) -> dict:
                             off_ms.append(o_ms)
                     if status != 200:
                         raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}")
-                    compared += 1
-                    _, cpu_status, cpu_body = servers["cpu"].post(pods[0], names)
-                    if (status, body) != (cpu_status, cpu_body):
-                        raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}, "
-                                         f"cpu {cpu_status} {cpu_body[:300]!r}")
+                    answers[i] = (status, body)
                     if card.fast_lane_count() != fast_before + 1 or solver.last_queue_lane != SESSION_LANE:
                         raise SystemExit(f"{policy} probe {i} did not take the tensor lane with the CUDA "
                                          f"session (queue lane {solver.last_queue_lane!r})")
@@ -1011,17 +1051,15 @@ def server_phase(seed: int, smi: str) -> dict:
                                 for server in servers.values():
                                     server.api.create(pod.deepcopy())
                                 _, e_status, e_body = card.post(pod, names)
-                                _, c_status, c_body = servers["cpu"].post(pod, names)
+                                answers[pod.name] = (e_status, e_body)
                                 e_nodes = json.loads(e_body).get("NodeNames") if e_status == 200 else None
-                                if (e_status, e_body) != (c_status, c_body) or not e_nodes:
-                                    raise SystemExit(f"{policy} executor {pod.name}: cuda {e_status} "
-                                                     f"{e_body[:300]!r}, cpu {c_status} {c_body[:300]!r}")
+                                if not e_nodes:
+                                    raise SystemExit(f"{policy} executor {pod.name}: cuda {e_status} {e_body[:300]!r}")
                                 if e_nodes[0] != card.reserved_node(pod):
                                     raise SystemExit(f"{policy} executor {pod.name} placed on {e_nodes[0]}, "
                                                      f"reserved {card.reserved_node(pod)}")
                             log(f"phase server: {policy}: probe {i} bound on {result['NodeNames'][0]}; "
-                                f"its {len(pods) - 1} executors each granted their reserved node, "
-                                f"equal on cuda and cpu")
+                                f"its {len(pods) - 1} executors each granted their reserved node")
                     for server in servers.values():
                         server.retire(created)
                 launches = {**qk.launch_counts, **mk.launch_counts}[kname + "_checkpointed"]
@@ -1035,8 +1073,8 @@ def server_phase(seed: int, smi: str) -> dict:
                     raise SystemExit(f"{policy}: {warm} of the {SERVER_TIMED_PROBES} timed probes served warm")
                 if exec_checked < SERVER_EXECUTOR_CHECKS:
                     raise SystemExit(f"{policy}: only {exec_checked} granted probes to check executors on")
-                log(f"phase server: {policy}: {n_probes} probes, {compared} of them equal on cuda and cpu, "
-                    f"{granted} granted, all on lane=fast with the cuda delta-solve session; "
+                log(f"phase server: {policy}: {n_probes} probes (their bodies and the executors' held to a cpu "
+                    f"server's in a server twin), {granted} granted, all on lane=fast with the cuda delta-solve session; "
                     f"{kname}_checkpointed launches {launches} over the probes on {cuda_servers} cuda "
                     f"servers, {warm} of the {SERVER_TIMED_PROBES} timed probes served warm; engine "
                     f"{engine.stats()}")
@@ -1044,7 +1082,7 @@ def server_phase(seed: int, smi: str) -> dict:
                     f"record) median {statistics.median(prov['ms']):.3f} ms, max {max(prov['ms']):.3f} ms "
                     f"a Filter over the timed run's {len(prov['ms'])} driver and executor Filters")
                 log(f"phase server: {policy}: /predicates at {N_NODES} nodes x {N_APPS} queued drivers, the "
-                    f"cuda server timed alone (the other servers' sampler and ledger paused): "
+                    f"cuda server timed alone (the other server's sampler and ledger paused): "
                     f"p50 {statistics.median(lat_ms):.3f} ms, p99 {float(np.percentile(lat_ms, 99)):.3f} ms "
                     f"over {len(lat_ms)} probes (runs {', '.join(f'{x:.1f}' for x in lat_ms)}) | {smi}")
                 SERVER_LATENCY[policy] = list(lat_ms)
@@ -1075,37 +1113,401 @@ def server_phase(seed: int, smi: str) -> dict:
                 log(f"phase server: {policy}: profiler trace of one /predicates request: {share} | {smi}")
                 # one refused probe behind the queue: its explanation
                 # (this policy's queue kernel with probes) on the card,
-                # its failure message equal to the cpu server's
+                # its failure message held to the cpu server's
                 ks, before, after = refused_gang_sizes(prov["art"], 1)
                 pod = refused_driver(f"probe-{pi}-refused", ks[0], base + N_APPS + n_probes + 1)
-                for server in (card, servers["cpu"]):
-                    server.api.create(pod.deepcopy())
+                card.api.create(pod.deepcopy())
                 qk.reset_launch_counts()
                 mk.reset_launch_counts()
                 ms, status, body = card.post(pod, names)
-                _, cpu_status, cpu_body = servers["cpu"].post(pod, names)
+                answers["refused"] = (ks[0], status, body)
                 explain_launches = {**qk.launch_counts, **mk.launch_counts}
                 message = next(iter(json.loads(body).get("FailedNodes", {}).values()), "")
-                if (status, body) != (cpu_status, cpu_body) or "blocked by" not in message:
-                    raise SystemExit(f"{policy} refused probe: cuda {status} {body[:300]!r}, "
-                                     f"cpu {cpu_status} {cpu_body[:300]!r}")
+                if status != 200 or "blocked by" not in message:
+                    raise SystemExit(f"{policy} refused probe: cuda {status} {body[:300]!r}")
                 if explain_launches[kname] != 1:
                     raise SystemExit(f"{policy} refused probe: {explain_launches[kname]} {kname} launches, "
                                      f"want the explanation's")
                 log(f"phase server: {policy}: refused probe of {ks[0]} executors (room {before} before the "
                     f"queue, {after} behind it): {ms:.3f} ms, explanation {prov['explain_ms'][-1]:.3f} ms "
                     f"({kname} launches {explain_launches[kname]}: the explanation's; the warm Filter's "
-                    f"{kname}_checkpointed {explain_launches[kname + '_checkpointed']}), equal on "
-                    f"cuda and cpu: {message[:160]!r} | {smi}")
-                for server in (card, servers["cpu"]):
-                    server.api.delete("Pod", pod.namespace, pod.name)  # refused: nothing reserved
+                    f"{kname}_checkpointed {explain_launches[kname + '_checkpointed']}): {message[:160]!r} | {smi}")
+                card.api.delete("Pod", pod.namespace, pod.name)  # refused: nothing reserved
             finally:
                 for server in servers.values():
                     server.stop()
     finally:
         gc.callbacks.remove(gcs)
         logging.disable(logging.NOTSET)
-    return path_launches
+    return path_launches, recorded
+
+
+def twin_server_phase(seed: int, base: float, policy: str) -> tuple:
+    """Phase 5's cpu half for one policy, in a server twin: a device="cpu"
+    server on the same objects, through the same draws of the same random
+    state (the earlier policies' probes drawn and dropped), answers every
+    probe, the executors of its first SERVER_EXECUTOR_CHECKS granted timed
+    probes and the refused probe, sized from its own captured solve, as
+    server_phase drives the card: ({probe or executor or "refused":
+    answer}, seconds)."""
+    t = time.perf_counter()
+    names, nodes, queue, rng, _ = server_objects(seed, base=base)
+    n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
+    pi = SERVER_POLICIES.index(policy)
+    for _ in range(pi * n_probes):
+        probe_pods(rng, "", 0.0)
+    server = PortServer(policy, "cpu", nodes, queue)
+    try:
+        server.pause_background()
+        prov = server.watch_provenance()
+        answers, exec_checked = {}, 0
+        for i in range(n_probes):
+            pods = probe_pods(rng, f"probe-{pi}-{i:03d}", base + N_APPS + i)
+            created = pods[:1]
+            server.api.create(pods[0].deepcopy())
+            _, status, body = server.post(pods[0], names)
+            answers[i] = (status, body)
+            result = json.loads(body) if status == 200 else {}
+            if result.get("NodeNames") and i >= SERVER_WARMUP_PROBES and exec_checked < SERVER_EXECUTOR_CHECKS:
+                exec_checked += 1
+                server.bind(pods[0], result["NodeNames"][0])
+                for pod in pods[1:]:
+                    created.append(pod)
+                    server.api.create(pod.deepcopy())
+                    answers[pod.name] = server.post(pod, names)[1:]
+            server.retire(created)
+        ks, _, _ = refused_gang_sizes(prov["art"], 1)
+        pod = refused_driver(f"probe-{pi}-refused", ks[0], base + N_APPS + n_probes + 1)
+        server.api.create(pod.deepcopy())
+        answers["refused"] = (ks[0],) + server.post(pod, names)[1:]
+        return answers, time.perf_counter() - t
+    finally:
+        server.stop()
+
+
+def server_check(recorded: dict, cpu: dict) -> None:
+    """Phase 5's answers against the server twins' cpu servers (`cpu`:
+    twin_server_phase's result by policy): every probe's body, the
+    checked executors' and the refused probe's, with its size."""
+    for policy, answers in recorded.items():
+        want, twin_s = cpu[policy]
+        if sorted(map(str, answers)) != sorted(map(str, want)):
+            raise SystemExit(f"phase server: {policy}: the card answered {sorted(map(str, answers))}, the cpu "
+                             f"server {sorted(map(str, want))}")
+        for key, answer in answers.items():
+            if answer != want[key]:
+                raise SystemExit(f"phase server: {policy} {key}: cuda {str(answer)[:300]}, cpu {str(want[key])[:300]}")
+        log(f"phase server: {policy}: all {len(answers)} answers (probes, executors, the refused probe's) equal "
+            f"to a cpu server's (its Filters and start {twin_s:.1f} s in a server twin)")
+
+
+# -- phase az-server: the single-AZ family through the port's server -------------
+
+# each single-AZ name and the kernel variant its Filters launch: the
+# tensor lane declines these names, so every driver Filter takes the
+# metadata lane (scheduler/extender._try_device_fifo)
+AZ_SERVER_KERNEL = {"tpu-batch-single-az": "fifo_queue_single_az_tightly",
+                    "tpu-batch-az-aware": "fifo_queue_single_az_az_aware",
+                    "tpu-batch-single-az-minimal-fragmentation": "fifo_queue_single_az_min_frag"}
+# the warmups' bodies and every AZ_CPU_EVERY-th timed probe's are held to a
+# cpu server's, which answers them in a server twin (seconds a Filter there)
+AZ_CPU_EVERY = 4
+# the pieces of a single-AZ decision (ROADMAP D.2): the functions each
+# times, looked up in ops/fifo_solver's namespace ("packers." in ops/packers')
+AZ_PIECES = {"tensorize": ("tensorize_cluster", "tensorize_apps", "scale_problem"),
+             "zone inputs": ("candidate_zone_masks", "single_az_queue_inputs"),
+             "kernel": ("fifo_queue_single_az",),
+             "current app's zone solves": ("solve_zones", "min_frag_zone_decode", "solve_single"),
+             "efficiencies": ("efficiencies_from_rows", "packers._choose_best_result")}
+
+
+def az_compared(i: int) -> bool:
+    """Whether phase az-server's probe i is held to the cpu server's."""
+    return i < SERVER_WARMUP_PROBES or (i - SERVER_WARMUP_PROBES) % AZ_CPU_EVERY == 0
+
+
+def keep_solve_args(solver) -> dict:
+    """Wrap the solver's ``solve`` to keep its last call's arguments
+    ("args") and each call's host ms ("ms")."""
+    kept = {"ms": []}
+    solve = solver.solve
+
+    def keeping(*args):
+        kept["args"] = args
+        t = time.perf_counter()
+        try:
+            return solve(*args)
+        finally:
+            kept["ms"].append((time.perf_counter() - t) * 1e3)
+
+    solver.solve = keeping
+    return kept
+
+
+@contextlib.contextmanager
+def az_pieces():
+    """Time AZ_PIECES' functions while inside: yields a dict of ms by
+    piece, which the caller clears between Filters.  The kernel's piece
+    ends in a synchronize."""
+    from k8s_spark_scheduler_tpu_torch.ops import fifo_solver, packers
+
+    ms, saved = {}, []
+
+    def timed(piece, fn, sync):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                ms[piece] = ms.get(piece, 0.0) + (time.perf_counter() - t) * 1e3
+        return wrapper
+
+    for piece, fns in AZ_PIECES.items():
+        for name in fns:
+            module, attr = (packers, name[len("packers."):]) if name.startswith("packers.") else (fifo_solver, name)
+            saved.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, timed(piece, saved[-1][2], piece == "kernel"))
+    try:
+        yield ms
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def az_refused_size(solver, args) -> tuple:
+    """(k, room before, room after): an executor count for a gang of
+    REFUSED_EXECUTOR executors that fits the cluster as it stands but not
+    behind the queue, from the arguments of `solver`'s last solve and the
+    queue pass on its device (the kernel on the card, the plain version on
+    the CPU).  The room is the most such executors one zone holds, or the
+    cluster under az-aware, whose fallback packs across zones."""
+    from k8s_spark_scheduler_tpu_torch.ops import single_az_kernel as sk
+    from k8s_spark_scheduler_tpu_torch.ops.batch_adapter import candidate_zone_masks
+    from k8s_spark_scheduler_tpu_torch.ops.fifo_solver import single_az_queue_inputs
+    from k8s_spark_scheduler_tpu_torch.ops.tensorize import scale_problem, tensorize_apps, tensorize_cluster
+
+    metadata, driver_order, executor_order, earlier, _, current = args
+    cluster = tensorize_cluster(metadata, driver_order, executor_order)
+    problem = scale_problem(cluster, tensorize_apps(list(earlier) + [current]))
+    zones, masks = candidate_zone_masks(driver_order, executor_order, metadata, cluster.node_names,
+                                        problem.avail.shape[0])
+    arrays, scalars = single_az_queue_inputs(cluster, problem, masks, len(zones), len(earlier))
+    after = sk.fifo_queue_single_az(*on(solver.device, arrays), *scalars, az_aware=solver.az_aware,
+                                    minfrag=solver.inner_policy == "minimal-fragmentation",
+                                    strict=solver.strict_reference_parity)[4].cpu().numpy()
+    scale = problem.scale.astype(np.int64)
+    exec_base = np.array([REFUSED_EXECUTOR[0] * 1000, REFUSED_EXECUTOR[1] * 2**30], np.int64)
+
+    def room(avail) -> int:
+        a = np.asarray(avail, dtype=np.int64)
+        cap = np.minimum(a[:, 0] * scale[0] // exec_base[0], a[:, 1] * scale[1] // exec_base[1])
+        cap = np.where(problem.exec_ok & (a >= 0).all(axis=1), np.maximum(cap, 0), 0)
+        if solver.az_aware:
+            return int(cap.sum())
+        return max(int(cap[arrays[3] == z].sum()) for z in range(len(zones)))
+
+    before, behind = room(problem.avail), room(after)
+    if before - behind < 4:
+        raise SystemExit(f"the queue takes too little room to refuse behind it ({before} -> {behind})")
+    return behind + 1 + (before - behind) // 2, before, behind
+
+
+def az_server_phase(seed: int, smi: str, base: float) -> tuple:
+    """Phase az-server (see the module docstring), the card's half: a cuda
+    server for each single-AZ name on phase 5's snapshot (its queue created
+    from `base`).  Returns ({variant: launches over its name's Filters},
+    {policy: {"bodies": {probe: (status, body)}, "refused": (k, status,
+    body)}}), the answers az_server_check holds to the twin's cpu servers.
+    Raises SystemExit on any failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.metrics import names as mnames
+    from k8s_spark_scheduler_tpu_torch.ops import single_az_kernel as sk
+
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    launches, recorded = {}, {}
+    gcs = GcWatch()
+    gc.callbacks.append(gcs)
+    n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
+    try:
+        t0 = time.perf_counter()
+        names, nodes, queue, rng, _ = server_objects(seed, base=base)
+        log(f"phase az-server: snapshot {len(nodes)} nodes in {N_ZONES} zones, {len(queue)} queued drivers "
+            f"built in {time.perf_counter() - t0:.2f} s")
+        for pi, (policy, kname) in enumerate(AZ_SERVER_KERNEL.items()):
+            t0 = time.perf_counter()
+            card = PortServer(policy, "cuda", nodes, queue)
+            try:
+                log(f"phase az-server: {policy}: cuda server ready in {time.perf_counter() - t0:.2f} s")
+                solver = card.scheduler.extender.binpacker.queue_solver
+                kept = keep_solve_args(solver)
+                metrics = card.scheduler.metrics
+                lane_before = {lane: metrics.get_counter(mnames.SINGLEAZ_LANE, {"lane": lane})
+                               for lane in ("fused", "host")}
+                # the path is driven with every count at 0; each Filter's
+                # launches are read around it
+                sk.reset_launch_counts()
+                lat_ms, traces, pieces, decision_ms, lanes, bodies = [], [], [], [], [], {}
+                granted, exec_checked, path_launches = 0, 0, 0
+                slowest = None  # (ms, trace id) of the slowest timed Filter
+                with az_pieces() as piece_ms:
+                    for i in range(n_probes):
+                        timed = i >= SERVER_WARMUP_PROBES
+                        pods = probe_pods(rng, f"az-{pi}-{i:03d}", base + N_APPS + i)
+                        created = pods[:1]
+                        card.api.create(pods[0].deepcopy())
+                        piece_ms.clear()
+                        before = sk.launch_counts[kname]
+                        ms, status, body = card.post(pods[0], names)
+                        filter_launches = sk.launch_counts[kname] - before
+                        path_launches += filter_launches
+                        if status != 200:
+                            raise SystemExit(f"{policy} probe {i}: cuda answered {status} {body[:300]!r}")
+                        lanes.append(solver.last_path)
+                        # the snapshot is inside the fused lane's bounds: a
+                        # fused Filter is one launch; one whose valve solved
+                        # uncertain apps on the host, one launch more for
+                        # each side of each of them
+                        if solver.last_path not in ("fused", "host") or filter_launches < 1 or (
+                                solver.last_path == "fused" and filter_launches != 1):
+                            raise SystemExit(f"{policy} probe {i}: lane {solver.last_path!r} with {filter_launches} "
+                                             f"{kname} launches")
+                        if az_compared(i):
+                            bodies[i] = (status, body)
+                        if timed:
+                            lat_ms.append(ms)
+                            decision_ms.append(kept["ms"][-1])
+                            pieces.append(dict(piece_ms))
+                            traces.append(card.scheduler.tracer.traces(limit=1)[0])
+                            if slowest is None or ms > slowest[0]:
+                                slowest = (ms, traces[-1]["traceId"])
+                        result = json.loads(body)
+                        if result["NodeNames"]:
+                            granted += 1
+                            if timed and exec_checked < SERVER_EXECUTOR_CHECKS:
+                                exec_checked += 1
+                                card.bind(pods[0], result["NodeNames"][0])
+                                for pod in pods[1:]:
+                                    created.append(pod)
+                                    card.api.create(pod.deepcopy())
+                                    _, e_status, e_body = card.post(pod, names)
+                                    e_nodes = json.loads(e_body).get("NodeNames") if e_status == 200 else None
+                                    if not e_nodes or e_nodes[0] != card.reserved_node(pod):
+                                        raise SystemExit(f"{policy} executor {pod.name}: {e_status} {e_body[:300]!r}, "
+                                                         f"reserved {card.reserved_node(pod)}")
+                                log(f"phase az-server: {policy}: probe {i} bound on {result['NodeNames'][0]}; its "
+                                    f"{len(pods) - 1} executors each granted their reserved node")
+                        card.retire(created)
+                lane_counts = {lane: metrics.get_counter(mnames.SINGLEAZ_LANE, {"lane": lane}) - n
+                               for lane, n in lane_before.items()}
+                if lane_counts != {lane: lanes.count(lane) for lane in lane_counts}:
+                    raise SystemExit(f"{policy}: {mnames.SINGLEAZ_LANE} counted {lane_counts}, the solver's lanes "
+                                     f"{lanes}")
+                if card.fast_lane_count():
+                    raise SystemExit(f"{policy}: {card.fast_lane_count()} Filters on the tensor lane")
+                if path_launches < 1:
+                    raise SystemExit(f"{policy}: {kname} was not launched on the server's path")
+                if exec_checked < SERVER_EXECUTOR_CHECKS:
+                    raise SystemExit(f"{policy}: only {exec_checked} granted probes to check executors on")
+                log(f"phase az-server: {policy}: {n_probes} probes through _try_device_fifo, {granted} granted; "
+                    f"{kname} launches {path_launches}; {mnames.SINGLEAZ_LANE} fused {lane_counts['fused']:.0f}, "
+                    f"host {lane_counts['host']:.0f} (the valve: uncertain apps on the host lane); tensor-lane "
+                    f"Filters 0 | {smi}")
+                log(f"phase az-server: {policy}: /predicates at {N_NODES} nodes x {N_APPS} queued drivers, the "
+                    f"cuda server alone: p50 {statistics.median(lat_ms):.3f} ms, p99 "
+                    f"{float(np.percentile(lat_ms, 99)):.3f} ms over {len(lat_ms)} probes (runs "
+                    f"{', '.join(f'{x:.1f}' for x in lat_ms)}) | {smi}")
+                log(f"phase az-server: {policy}: the decision (solve) median {statistics.median(decision_ms):.3f} "
+                    f"ms, of which (medians) " + ", ".join(
+                        f"{piece} {statistics.median(p.get(piece, 0.0) for p in pieces):.3f}" for piece in AZ_PIECES)
+                    + f" | {smi}")
+                spans = {}
+                for trace in traces:
+                    span_durations(trace["root"], spans)
+                log(f"phase az-server: {policy}: span medians (ms) " + ", ".join(
+                    f"{name} {statistics.median(v):.3f}" for name, v in spans.items()) + f" | {smi}")
+                slow_filter_capture(card, policy, slowest, gcs, smi, phase="az-server")
+                # one probe refused behind the queue, its size from the
+                # last Filter's queue pass
+                k, room_before, room_after = az_refused_size(solver, kept["args"])
+                pod = refused_driver(f"az-{pi}-refused", k, base + N_APPS + n_probes)
+                card.api.create(pod.deepcopy())
+                before = sk.launch_counts[kname]
+                ms, status, body = card.post(pod, names)
+                path_launches += sk.launch_counts[kname] - before
+                message = next(iter(json.loads(body).get("FailedNodes", {}).values()), "")
+                if status != 200 or json.loads(body).get("NodeNames") or "does not fit" not in message:
+                    raise SystemExit(f"{policy} refused probe of {k} executors: {status} {body[:300]!r}")
+                card.api.delete("Pod", pod.namespace, pod.name)  # refused: nothing reserved
+                log(f"phase az-server: {policy}: refused probe of {k} executors (room {room_before} before the "
+                    f"queue, {room_after} behind it): {ms:.3f} ms, lane {solver.last_path}: {message[:160]!r} | {smi}")
+                launches[kname] = path_launches
+                recorded[policy] = {"bodies": bodies, "refused": (k, status, body)}
+            finally:
+                card.stop()
+    finally:
+        gc.callbacks.remove(gcs)
+        logging.disable(logging.NOTSET)
+    return launches, recorded
+
+
+def twin_az_server(seed: int, base: float, policy: str) -> tuple:
+    """Phase az-server's cpu half for one name, in a server twin: a
+    device="cpu" server on the same objects, through the same draws of the
+    same random state (the earlier names' probes drawn and dropped),
+    answers the probes az_compared names (each probe is retired before the
+    next, so the others leave nothing behind) and the refused probe, sized
+    from its own queue pass: ({"bodies": {probe: (status, body)},
+    "refused": (k, status, body)}, seconds)."""
+    t = time.perf_counter()
+    names, nodes, queue, rng, _ = server_objects(seed, base=base)
+    n_probes = SERVER_WARMUP_PROBES + SERVER_TIMED_PROBES
+    pi = list(AZ_SERVER_KERNEL).index(policy)
+    for i in range(pi * n_probes):
+        probe_pods(rng, "", 0.0)
+    server = PortServer(policy, "cpu", nodes, queue)
+    try:
+        server.pause_background()
+        solver = server.scheduler.extender.binpacker.queue_solver
+        kept = keep_solve_args(solver)
+        bodies = {}
+        for i in range(n_probes):
+            pods = probe_pods(rng, f"az-{pi}-{i:03d}", base + N_APPS + i)
+            if az_compared(i):
+                server.api.create(pods[0].deepcopy())
+                _, status, body = server.post(pods[0], names)
+                bodies[i] = (status, body)
+                server.retire(pods[:1])
+        k, _, _ = az_refused_size(solver, kept["args"])
+        pod = refused_driver(f"az-{pi}-refused", k, base + N_APPS + n_probes)
+        server.api.create(pod.deepcopy())
+        _, status, body = server.post(pod, names)
+        return {"bodies": bodies, "refused": (k, status, body)}, time.perf_counter() - t
+    finally:
+        server.stop()
+
+
+def az_server_check(recorded: dict, cpu: dict) -> None:
+    """Phase az-server's answers against the server twins' cpu servers
+    (`cpu`: twin_az_server's result by name)."""
+    for policy, got in recorded.items():
+        want, twin_s = cpu[policy]
+        if sorted(got["bodies"]) != sorted(want["bodies"]):
+            raise SystemExit(f"phase az-server: {policy}: compared probes {sorted(got['bodies'])} vs "
+                             f"{sorted(want['bodies'])}")
+        for i, answer in got["bodies"].items():
+            if answer != want["bodies"][i]:
+                raise SystemExit(f"phase az-server: {policy} probe {i}: cuda {answer[0]} {answer[1][:300]!r}, "
+                                 f"cpu {want['bodies'][i][0]} {want['bodies'][i][1][:300]!r}")
+        if got["refused"] != want["refused"]:
+            raise SystemExit(f"phase az-server: {policy} refused probe: cuda {got['refused'][0]} executors "
+                             f"{got['refused'][2][:300]!r}, cpu {want['refused'][0]} {want['refused'][2][:300]!r}")
+        log(f"phase az-server: {policy}: probes {sorted(got['bodies'])} ({len(got['bodies'])} bodies) and the "
+            f"refused probe's ({got['refused'][0]} executors) equal to a cpu server's (its {len(want['bodies']) + 1} "
+            f"Filters and start {twin_s:.1f} s in a server twin)")
 
 
 # -- phase 6: the server against a cluster over REST ----------------------------
@@ -1791,18 +2193,7 @@ DELTA_SPANS = ("predicate", "fast_path.snapshot", "fast_path.earlier_drivers", "
 DELTA_STRIDE = 64  # the session's checkpoint stride (ops/deltasolve.py)
 
 
-def timed_once(fn):
-    """(fn's result, its milliseconds by CUDA events), no warmup."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
-def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -> dict:
+def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, defer, smi: str) -> dict:
     """Phase delta, step 1: the checkpointed launches of fifo_queue
     (tightly, evenly) and fifo_queue_min_frag at the main path's inputs
     (the 10,240 x 1,024 bucket, 1,000 valid apps), stride 64: a whole-queue
@@ -1813,41 +2204,38 @@ def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -
     cluster twice over, the same 1,000 apps), whole queue and a 640-app
     suffix, against their plain versions and timed: what a row-level
     launch costs at the reference's 20,000-node class threshold (phase
-    classes sets the class kernels beside it).  Returns {kernel name: (ms runs,
-    plain ms, bytes bound ms, operations bound ms)} at the main path's
-    inputs."""
+    classes sets the class kernels beside it).  `defer` holds a launch to
+    its plain version in the plain twins (its ms under the kernel's name
+    at the main path's inputs).  Returns {kernel name: (ms runs, bytes
+    bound ms, operations bound ms)} at the main path's inputs."""
     from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
     from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
 
     n_b, a_b = queue_args[0].shape[0], queue_args[3].shape[0]
     k = (a_b - 1) // DELTA_STRIDE
     out = {}
+
+    def plain_later(name, policy, got, args, base, blank, where, key=None):
+        kind, fn, flags = (("minfrag_kernel", "solve_queue_min_frag_plain", {}) if policy == 2 else
+                           ("queue_kernel", "solve_queue_plain", {"evenly": policy == 1}))
+        defer(name, got, kind, fn, args, where, chk=blank, key=key, chk_base=base, chk_stride=DELTA_STRIDE, **flags)
+
     for kname, policy in (("fifo_queue_tightly", 0), ("fifo_queue_evenly", 1), ("fifo_queue_min_frag", 2)):
         def kernel(args, base, chk):
             if policy == 2:
                 return mk.fifo_queue_min_frag(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
             return qk.fifo_queue(*args, evenly=policy == 1, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
 
-        def plain(args, base, chk):
-            if policy == 2:
-                return mk.solve_queue_min_frag_plain(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
-            return qk.solve_queue_plain(*args, evenly=policy == 1, chk_base=base, chk_stride=DELTA_STRIDE,
-                                        chk_out=chk)
-
         name = kname + "_checkpointed"
         blank = torch.full((k, n_b, 3), -7, dtype=torch.int32, device=queue_args[0].device)
         chk = blank.clone()
         got = kernel(queue_args, 0, chk)
-        chk_plain = blank.clone()
-        want, plain_ms = timed_once(lambda: plain(queue_args, 0, chk_plain))
-        check(name, got + (chk,), want + (chk_plain,), "the main-path inputs, every checkpoint")
+        plain_later(name, policy, got + (chk,), queue_args, 0, blank, "the main-path inputs, every checkpoint", name)
         r = 6 * DELTA_STRIDE
         suffix = (chk[5].clone(),) + queue_args[1:3] + tuple(x[r:] for x in queue_args[3:])
-        s_chk_plain = blank.clone()
-        s_want = plain(suffix, r, s_chk_plain)
         s_chk = blank.clone()
         s_got = kernel(suffix, r, s_chk)
-        check(name, s_got + (s_chk,), s_want + (s_chk_plain,), f"a suffix pass from position {r}")
+        plain_later(name, policy, s_got + (s_chk,), suffix, r, blank, f"a suffix pass from position {r}")
         for j in range(k):
             r = (j + 1) * DELTA_STRIDE
             resumed = (chk[j].clone(),) + queue_args[1:3] + tuple(x[r:] for x in queue_args[3:])
@@ -1864,12 +2252,12 @@ def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -
         resume_ms = time_cuda(lambda: kernel(suffix, r, s_chk), 5)
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
         log(f"phase delta: {name} N={n_b} A={a_b} ({n_valid} valid, {k} checkpoints a stride of "
-            f"{DELTA_STRIDE}): outputs and every checkpoint equal to the plain version, a suffix pass "
+            f"{DELTA_STRIDE}): outputs and every checkpoint held to the plain version, a suffix pass "
             f"from position {r} too, and a pass resumed from each of the {k} checkpoints equal to the "
             f"whole-queue pass; {statistics.median(ms):.3f} ms (runs {', '.join(f'{x:.3f}' for x in ms)}), "
-            f"the suffix of {a_b - r} apps {resume_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"the suffix of {a_b - r} apps {resume_ms:.3f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations {t_ops:.4f}) | {smi}")
-        out[name] = (ms, plain_ms, t_bytes, t_ops)
+        out[name] = (ms, t_bytes, t_ops)
     big_args = doubled_cluster(queue_args)
     n_big = big_args[0].shape[0]
     for kname, policy in (("fifo_queue_tightly", 0), ("fifo_queue_min_frag", 2)):
@@ -1878,22 +2266,17 @@ def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -
                 return mk.fifo_queue_min_frag(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
             return qk.fifo_queue(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
 
-        def plain(args, base, chk):
-            if policy == 2:
-                return mk.solve_queue_min_frag_plain(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
-            return qk.solve_queue_plain(*args, chk_base=base, chk_stride=DELTA_STRIDE, chk_out=chk)
-
         name = kname + "_checkpointed"
         blank = torch.full((k, n_big, 3), -7, dtype=torch.int32, device=big_args[0].device)
-        chk, chk_plain = blank.clone(), blank.clone()
+        chk = blank.clone()
         got = kernel(big_args, 0, chk)
-        want, plain_ms = timed_once(lambda: plain(big_args, 0, chk_plain))
-        check(name, got + (chk,), want + (chk_plain,), f"N={n_big}, every checkpoint")
+        plain_later(name, policy, got + (chk,), big_args, 0, blank, f"N={n_big}, every checkpoint",
+                    f"{name} N={n_big}")
         r = 6 * DELTA_STRIDE
         suffix = (chk[5].clone(),) + big_args[1:3] + tuple(x[r:] for x in big_args[3:])
-        s_chk, s_chk_plain = blank.clone(), blank.clone()
-        s_want, s_plain_ms = timed_once(lambda: plain(suffix, r, s_chk_plain))
-        check(name, kernel(suffix, r, s_chk) + (s_chk,), s_want + (s_chk_plain,), f"N={n_big}, a suffix from {r}")
+        s_chk = blank.clone()
+        plain_later(name, policy, kernel(suffix, r, s_chk) + (s_chk,), suffix, r, blank,
+                    f"N={n_big}, a suffix from {r}", f"{name} N={n_big} suffix")
         ms = [time_cuda(lambda: kernel(big_args, 0, chk), 5) for _ in range(3)]
         suffix_ms = [time_cuda(lambda: kernel(suffix, r, s_chk), 5) for _ in range(3)]
         n_feasible = int(got[0].sum())
@@ -1901,11 +2284,10 @@ def delta_kernels(queue_args, n_valid: int, queue_bytes: int, check, smi: str) -
         ops = n_big * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * per_app)
         t_ops = ops / INT32_OPS_PER_S * 1e3
         log(f"phase delta: {name} N={n_big} A={a_b} ({n_valid} valid, {n_feasible} feasible, {k} checkpoints): "
-            f"outputs and every checkpoint equal to the plain version, a suffix of {a_b - r} apps from "
+            f"outputs and every checkpoint held to the plain version, a suffix of {a_b - r} apps from "
             f"position {r} too; whole queue {statistics.median(ms):.3f} ms (runs "
             f"{', '.join(f'{x:.3f}' for x in ms)}), suffix {statistics.median(suffix_ms):.3f} ms (runs "
-            f"{', '.join(f'{x:.3f}' for x in suffix_ms)}), plain {plain_ms:.1f} / {s_plain_ms:.1f} ms, "
-            f"operations bound {t_ops:.4f} ms | {smi}")
+            f"{', '.join(f'{x:.3f}' for x in suffix_ms)}), operations bound {t_ops:.4f} ms | {smi}")
     return out
 
 
@@ -3459,89 +3841,91 @@ def ticket_wait(server) -> tuple:
     return (h["count"], h["sum"]) if h else (0, 0.0)
 
 
-def crash_matrix_cells(smi: str) -> int:
-    """Phase concurrent (d): every crash-matrix cell and the handoff cell
-    on cuda, each report against the same cell on cpu.  Returns the
-    cuda cells' queue-kernel launches on their Filters' path: the
-    checkpointed ones and the speculations' on their own streams."""
+def crash_cells(device: str) -> dict:
+    """Phase concurrent (d)'s cells on `device`: every crash-matrix cell,
+    the 3 window cells with the policy engine off and the two-replica
+    handoff cell under HA_MATRIX_BINPACK: {(cell, policy on): (report,
+    seconds, (plain, checkpointed, speculated) queue-kernel launches)}."""
     import logging
 
-    from k8s_spark_scheduler_tpu_torch.ha import crashpoint
     from k8s_spark_scheduler_tpu_torch.ha.crashmatrix import PORTED_POINTS, CrashMatrix
     from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
     from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
 
-    chk = "fifo_queue_tightly_checkpointed"
-    t0 = time.perf_counter()
-    cells_launches = {"plain": 0, "checkpointed": 0, "speculated": 0}
+    cells = [(point, True) for point in PORTED_POINTS]
+    # the window's cells with the policy engine off: the crashed Filter's
+    # verdict solved on its thread's stream, in flight or (commit-written)
+    # consumed as a hit before the death
+    cells += [(point, False) for point in PORTED_POINTS if point.startswith("concurrent.")]
+    out = {}
     logging.disable(logging.CRITICAL)  # each cell's kill -9 logs its stack traces
     try:
-        for point in PORTED_POINTS:
-            reports, seconds = {}, {}
-            for device in ("cuda", "cpu"):
-                qk.reset_launch_counts()
-                mk.reset_launch_counts()
-                t = time.perf_counter()
-                reports[device] = CrashMatrix(nodes=2, device=device, binpack_algo=HA_MATRIX_BINPACK).run_point(point)
-                seconds[device] = time.perf_counter() - t
-                if device == "cuda":
-                    cell = (qk.launch_counts["fifo_queue_tightly"], qk.launch_counts[chk])
-                    cells_launches["plain"] += cell[0]
-                    cells_launches["checkpointed"] += cell[1]
-            if not reports["cuda"]["ok"] or reports["cuda"] != reports["cpu"]:
-                raise SystemExit(f"phase concurrent: (d) cell {point}: cuda {reports['cuda']}, cpu {reports['cpu']}")
-            log(f"phase concurrent: (d) crash cell {point}: ok, crashed, recovered at epoch "
-                f"{reports['cuda']['recoveredEpoch']}, report equal on cuda and cpu; cuda {seconds['cuda']:.2f} s "
-                f"(queue kernel: {cell[0]} warmup launches, {cell[1]} checkpointed Filter launches), cpu "
-                f"{seconds['cpu']:.2f} s")
-        # the window's cells with the policy engine off: the crashed
-        # Filter's verdict solved on its thread's stream, in flight or
-        # (commit-written) consumed as a hit before the death
-        for point in PORTED_POINTS:
-            if not point.startswith("concurrent."):
-                continue
-            reports, seconds = {}, {}
-            for device in ("cuda", "cpu"):
-                qk.reset_launch_counts()
-                mk.reset_launch_counts()
-                t = time.perf_counter()
-                reports[device] = CrashMatrix(nodes=2, device=device, binpack_algo=HA_MATRIX_BINPACK,
-                                              policy=False).run_point(point)
-                seconds[device] = time.perf_counter() - t
-                if device == "cuda":
-                    cell = (speculator_launches()["queue"], qk.launch_counts[chk])
-                    cells_launches["speculated"] += cell[0]
-                    cells_launches["checkpointed"] += cell[1]
-            if not reports["cuda"]["ok"] or reports["cuda"] != reports["cpu"]:
-                raise SystemExit(f"phase concurrent: (d) cell {point}, policy off: cuda {reports['cuda']}, "
-                                 f"cpu {reports['cpu']}")
-            log(f"phase concurrent: (d) crash cell {point}, policy engine off: ok, speculation "
-                f"{reports['cuda']['speculation']} before the crash, reservation present "
-                f"{reports['cuda']['reservationPresent']}, report equal on cuda and cpu; cuda {seconds['cuda']:.2f} "
-                f"s (queue kernel: {cell[0]} speculation launches on its own stream, {cell[1]} checkpointed), cpu "
-                f"{seconds['cpu']:.2f} s")
-        handoff = {}
-        for device in ("cuda", "cpu"):
+        for point, policy in cells + [("handoff", True)]:
+            qk.reset_launch_counts()
+            mk.reset_launch_counts()
+            matrix = CrashMatrix(nodes=2, device=device, binpack_algo=HA_MATRIX_BINPACK, policy=policy)
             t = time.perf_counter()
-            handoff[device] = CrashMatrix(nodes=2, device=device, binpack_algo=HA_MATRIX_BINPACK).run_handoff()
-            seconds[device] = time.perf_counter() - t
-        if not handoff["cuda"]["ok"] or handoff["cuda"] != handoff["cpu"]:
-            raise SystemExit(f"phase concurrent: (d) handoff cell: cuda {handoff['cuda']}, cpu {handoff['cpu']}")
-        if crashpoint.armed() is not None:
-            raise SystemExit("phase concurrent: (d) a crash point stayed armed")
+            report = matrix.run_handoff() if point == "handoff" else matrix.run_point(point)
+            seconds = time.perf_counter() - t
+            speculated = speculator_launches()["queue"] if device == "cuda" and not policy else 0
+            out[(point, policy)] = (report, seconds, (qk.launch_counts["fifo_queue_tightly"],
+                                                      qk.launch_counts["fifo_queue_tightly_checkpointed"], speculated))
     finally:
         logging.disable(logging.NOTSET)
-    log(f"phase concurrent: (d) the two-replica handoff cell: ok, epoch {handoff['cuda']['handoffEpoch']}, "
-        f"deposedRefusals {handoff['cuda']['deposedRefusals']}, equal on cuda and cpu ({seconds['cuda']:.2f} / "
-        f"{seconds['cpu']:.2f} s); the {len(PORTED_POINTS)} cells (each with the concurrent admission engine on; "
+    return out
+
+
+def twin_crash_cells() -> dict:
+    """Phase concurrent (d)'s cpu cells, in the twin."""
+    return crash_cells("cpu")
+
+
+def crash_matrix_cells(smi: str, cpu_cells) -> dict:
+    """Phase concurrent (d): every crash-matrix cell and the handoff cell
+    on cuda, each report against the same cell on cpu (`cpu_cells`: the
+    twin's twin_crash_cells).  Returns the cuda cells' queue-kernel
+    launches on their Filters' path: the checkpointed ones and the
+    speculations' on their own streams."""
+    from k8s_spark_scheduler_tpu_torch.ha import crashpoint
+    from k8s_spark_scheduler_tpu_torch.ha.crashmatrix import PORTED_POINTS
+
+    t0 = time.perf_counter()
+    cuda = crash_cells("cuda")
+    if crashpoint.armed() is not None:
+        raise SystemExit("phase concurrent: (d) a crash point stayed armed")
+    t = time.perf_counter()
+    cpu = cpu_cells.get(timeout=1800)
+    waited = time.perf_counter() - t
+    for (point, policy), (report, seconds, (plain, checkpointed, speculated)) in cuda.items():
+        want, cpu_seconds, _ = cpu[(point, policy)]
+        cell = f"{point}{'' if policy else ', policy off'}"
+        if not report["ok"] or report != want:
+            raise SystemExit(f"phase concurrent: (d) cell {cell}: cuda {report}, cpu {want}")
+        if point == "handoff":
+            log(f"phase concurrent: (d) the two-replica handoff cell: ok, epoch {report['handoffEpoch']}, "
+                f"deposedRefusals {report['deposedRefusals']}, equal on cuda and cpu ({seconds:.2f} / "
+                f"{cpu_seconds:.2f} s)")
+        elif policy:
+            log(f"phase concurrent: (d) crash cell {cell}: ok, crashed, recovered at epoch "
+                f"{report['recoveredEpoch']}, report equal on cuda and cpu; cuda {seconds:.2f} s (queue kernel: "
+                f"{plain} warmup launches, {checkpointed} checkpointed Filter launches), cpu {cpu_seconds:.2f} s")
+        else:
+            log(f"phase concurrent: (d) crash cell {cell}: ok, speculation {report['speculation']} before the "
+                f"crash, reservation present {report['reservationPresent']}, report equal on cuda and cpu; cuda "
+                f"{seconds:.2f} s (queue kernel: {speculated} speculation launches on its own stream, "
+                f"{checkpointed} checkpointed), cpu {cpu_seconds:.2f} s")
+    cells = [c for c in cuda if c[0] != "handoff"]
+    totals = {"plain": sum(cuda[c][2][0] for c in cells if c[1]),
+              "checkpointed": sum(cuda[c][2][1] for c in cells),
+              "speculated": sum(cuda[c][2][2] for c in cells)}
+    log(f"phase concurrent: (d) the {len(PORTED_POINTS)} cells (each with the concurrent admission engine on; "
         f"the cells' policy engine makes every speculation decline, as in the reference), the 3 window cells "
-        f"with the policy engine off and the handoff under "
-        f"{HA_MATRIX_BINPACK} in {time.perf_counter() - t0:.1f} s, the cuda cells launching the queue kernel "
-        f"{cells_launches['plain']} times at their servers' warmup, {cells_launches['speculated']} times on "
-        f"speculators' streams and {cells_launches['checkpointed']} times checkpointed on their Filters (a cell's "
-        f"gang has no earlier driver, so its session has no queue to pass) | {smi}")
-    return {"fifo_queue_tightly": cells_launches["speculated"],
-            "fifo_queue_tightly_checkpointed": cells_launches["checkpointed"]}
+        f"with the policy engine off and the handoff under {HA_MATRIX_BINPACK} in {time.perf_counter() - t0:.1f} s "
+        f"(the cpu cells in the twin, waited {waited:.1f} s for them), the cuda cells launching the queue kernel "
+        f"{totals['plain']} times at their servers' warmup, {totals['speculated']} times on speculators' streams "
+        f"and {totals['checkpointed']} times checkpointed on their Filters (a cell's gang has no earlier driver, "
+        f"so its session has no queue to pass) | {smi}")
+    return {"fifo_queue_tightly": totals["speculated"], "fifo_queue_tightly_checkpointed": totals["checkpointed"]}
 
 
 def concurrent_launches(queue_args, smi: str) -> None:
@@ -3589,7 +3973,7 @@ def concurrent_launches(queue_args, smi: str) -> None:
             f"max {max(launch_ms):.3f}; every result equal to the plain version | {smi}")
 
 
-def concurrent_phase(seed: int, smi: str, queue_args) -> dict:
+def concurrent_phase(seed: int, smi: str, queue_args, crash_cpu) -> dict:
     """Phase concurrent (see the module docstring).  Returns the queue
     kernels' launches on the phase's path: the speculations' plain
     launches on their threads' streams and the cells' checkpointed ones;
@@ -3788,7 +4172,7 @@ def concurrent_phase(seed: int, smi: str, queue_args) -> dict:
     # (c) the card's side: k launches at once on k streams
     concurrent_launches(queue_args, smi)
     # (d) the crash matrix, every cell with the engine on
-    for kname, n in crash_matrix_cells(smi).items():
+    for kname, n in crash_matrix_cells(smi, crash_cpu).items():
         launches[kname] += n
     log(f"phase concurrent: the phase's path launched {launches} | {smi}")
     return launches
@@ -4203,13 +4587,17 @@ def class_launch_total() -> dict:
     return dict(ck.launch_counts)
 
 
-def classes_phase(seed: int, smi: str, plain: dict, device: str = "cuda") -> list:
+def classes_phase(seed: int, smi: str, plain: dict, servers_base: float, servers_cpu: dict,
+                  device: str = "cuda") -> tuple:
     """Phase classes (see the module docstring): (a) the class kernels
     against the row kernels at 100,000 x 10,000, (b) against their plain
     version at 20,480 x 1,000 (`plain`: twin_classes_plain's result, from
     the twin), (c) class-mode
     sessions against row-mode ones, (d) the server with class stepping on
-    against off.  Returns the class kernels' entries of the kernels line;
+    against off, (j) servers on the default config at 20,480 nodes (the
+    queue created from `servers_base`; `servers_cpu`: the server twins'
+    twin_classes_servers by name).  Returns (the class kernels' entries of
+    the kernels line, {row kernel: launches on (j)'s class-off servers});
     raises SystemExit on any failure."""
     import logging
 
@@ -4480,11 +4868,18 @@ def classes_phase(seed: int, smi: str, plain: dict, device: str = "cuda") -> lis
             server.stop()
         logging.disable(logging.NOTSET)
 
+    # (j) the default classes config through servers past its threshold
+    recorded, row_launches = classes_servers(seed, smi, servers_base, device)
+    t = time.perf_counter()
+    cpu = {policy: result.get(timeout=1800) for policy, result in servers_cpu.items()}
+    log(f"phase classes: (j) waited {time.perf_counter() - t:.1f} s for the server twins' cpu servers")
+    classes_server_check(recorded, cpu, smi)
+
     launches = class_launch_total()
     missing = [k for k, v in launches.items() if v < 1]
     if missing:
-        raise SystemExit(f"phase classes: {missing} not launched on the main path ((c) and (d))")
-    log(f"phase classes: launches on the main path ((c) and (d)) {launches}; the phase "
+        raise SystemExit(f"phase classes: {missing} not launched on the main path ((c), (d) and (j))")
+    log(f"phase classes: launches on the main path ((c), (d) and (j)) {launches}; the phase "
         f"{time.perf_counter() - t_phase:.1f} s | {smi}")
     entries = []
     for p in CLASS_POLICIES:
@@ -4492,7 +4887,181 @@ def classes_phase(seed: int, smi: str, plain: dict, device: str = "cuda") -> lis
         ms, plain_ms, t_bytes, t_ops = timing[kname]
         entries.append(kernel_entry(kname, "classes_min_frag" if p == 2 else "classes", launches[kname],
                                     max_err[kname], ms, plain_ms, t_bytes, t_ops, floor_ms=floor[kname]))
-    return entries
+    return entries, row_launches
+
+
+# phase classes (j): default class stepping through servers at 20,480 nodes
+CLASSES_SERVER_NODES = 20_480  # bench.py's HTTP snapshot at the 20,480 bucket, past classes.min-nodes
+CLASSES_SERVER_WARM, CLASSES_SERVER_NEW, CLASSES_SERVER_RETRIES = 2, 8, 8  # Filters a name
+# the warmups' bodies and every CLASSES_SERVER_CPU_EVERY-th Filter's after
+# them are held to a cpu server's, which answers them in a server twin
+CLASSES_SERVER_CPU_EVERY = 4
+# each tensor-lane name and its class kernel
+CLASSES_SERVER_KERNEL = {"tpu-batch": "fifo_queue_classes_tightly",
+                         "tpu-batch-distribute-evenly": "fifo_queue_classes_evenly",
+                         "tpu-batch-minimal-fragmentation": "fifo_queue_min_frag_classes"}
+
+
+def classes_server_compared(f: int) -> bool:
+    """Whether phase classes (j)'s Filter f is held to the cpu server's."""
+    return f < CLASSES_SERVER_WARM or (f - CLASSES_SERVER_WARM) % CLASSES_SERVER_CPU_EVERY == 0
+
+
+def classes_server_filters(rng: np.random.RandomState, queue, pi: int, base: float) -> list:
+    """Phase classes (j)'s Filters of one name, in order, drawn from `rng`:
+    (the pods created for the Filter, each retired after it; the pod
+    Filtered): the warmups and the new drivers, then retries of queued
+    drivers (which leave their reservations)."""
+    filters = []
+    for f in range(CLASSES_SERVER_WARM + CLASSES_SERVER_NEW):
+        pods = probe_pods(rng, f"classes-{pi}-{f:03d}", base + N_APPS + f)
+        filters.append((pods[:1], pods[0]))
+    for _ in range(CLASSES_SERVER_RETRIES):
+        filters.append(([], queue[int(rng.randint(N_APPS // 2, N_APPS))]))
+    return filters
+
+
+def classes_servers(seed: int, smi: str, base: float, device: str = "cuda") -> tuple:
+    """Phase classes (j) (see the module docstring), the card's half: for
+    each tensor-lane name a server on the default ``classes`` config and
+    one with class stepping off, at CLASSES_SERVER_NODES nodes (the queue
+    created from `base`).  Returns ({policy: {Filter: (status, body)}},
+    the bodies held to the server twins' cpu servers, and {row kernel:
+    launches on the class-off servers}).  Raises SystemExit on any
+    failure."""
+    import logging
+
+    from k8s_spark_scheduler_tpu_torch.config import ClassesConfig
+    from k8s_spark_scheduler_tpu_torch.ops import class_kernel as ck
+    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
+    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
+
+    logging.disable(logging.WARNING)  # a queue 10,000 s old: every Filter would log a slow-pod line
+    t0 = time.perf_counter()
+    names, nodes, queue, rng, _ = server_objects(seed, CLASSES_SERVER_NODES, base)
+    log(f"phase classes: (j) snapshot {len(nodes)} nodes in {N_ZONES} zones, {len(queue)} queued drivers built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    recorded, row_launches = {}, {}
+    try:
+        for pi, (policy, ckname) in enumerate(CLASSES_SERVER_KERNEL.items()):
+            rkname = SERVER_KERNEL[policy] + "_checkpointed"
+
+            def counts():
+                return ck.launch_counts[ckname], {**qk.launch_counts, **mk.launch_counts}[rkname]
+
+            filters = classes_server_filters(rng, queue, pi, base)
+            t0 = time.perf_counter()
+            servers = {}
+            try:
+                servers["default"] = PortServer(policy, device, nodes, queue)
+                servers["off"] = PortServer(policy, device, nodes, queue, classes=ClassesConfig(enabled=False))
+                log(f"phase classes: (j) {policy}: default and class-off servers ready in "
+                    f"{time.perf_counter() - t0:.2f} s")
+                lat = {side: [] for side in servers}
+                launched = {side: [0, 0] for side in servers}  # class, row kernel launches
+                bodies = {}
+                for f, (created, pod) in enumerate(filters):
+                    for server in servers.values():
+                        for p in created:
+                            server.api.create(p.deepcopy())
+                    answers = {}
+                    for side in (("default", "off") if f % 2 else ("off", "default")):
+                        before = counts()
+                        ms, status, body = servers[side].post_alone(
+                            [s for other, s in servers.items() if other != side], pod, names)
+                        launched[side] = [n + a - b for n, a, b in zip(launched[side], counts(), before)]
+                        answers[side] = (status, body)
+                        if f >= CLASSES_SERVER_WARM:
+                            lat[side].append(ms)
+                    if answers["default"] != answers["off"] or answers["default"][0] != 200:
+                        raise SystemExit(f"phase classes: (j) {policy} Filter {f} of {pod.name}: default "
+                                         f"{answers['default'][1][:300]!r}, class stepping off "
+                                         f"{answers['off'][1][:300]!r}")
+                    if classes_server_compared(f):
+                        bodies[f] = answers["default"]
+                    if created:
+                        for server in servers.values():
+                            server.retire(created)
+                sessions = {side: list(s.scheduler.extender.delta_engine._sessions.values())
+                            for side, s in servers.items()}
+                if not sessions["default"] or not all(s.use_classes for s in sessions["default"]):
+                    raise SystemExit(f"phase classes: (j) {policy}: a session of the default server does not step "
+                                     f"by class at {CLASSES_SERVER_NODES} nodes")
+                if any(s.use_classes for s in sessions["off"]):
+                    raise SystemExit(f"phase classes: (j) {policy}: the server with class stepping off stepped by class")
+                if launched["default"][0] < 1 or launched["off"][1] < 1 or launched["off"][0]:
+                    raise SystemExit(f"phase classes: (j) {policy}: launches (class, row) {launched}: want {ckname} on "
+                                     f"the default server and {rkname} on the other")
+                stats = [s.native.class_stats() for s in sessions["default"]]
+                log(f"phase classes: (j) {policy} {CLASSES_SERVER_NODES} nodes x {N_APPS} queued drivers: "
+                    f"{len(filters)} Filters ({CLASSES_SERVER_NEW} new drivers, {CLASSES_SERVER_RETRIES} retries of "
+                    f"queued ones, after {CLASSES_SERVER_WARM} warmups) byte-equal on the default server and with "
+                    f"class stepping off; launches (class, row) {launched}; class rebuilds "
+                    f"{sum(s['rebuilds'] for s in stats)}; class_stats {stats} | {smi}")
+                log(f"phase classes: (j) {policy}: /predicates p50 / p99 default "
+                    f"{statistics.median(lat['default']):.3f} / {float(np.percentile(lat['default'], 99)):.3f} ms, "
+                    f"class stepping off {statistics.median(lat['off']):.3f} / "
+                    f"{float(np.percentile(lat['off'], 99)):.3f} ms (runs default "
+                    f"{', '.join(f'{x:.1f}' for x in lat['default'])}; off "
+                    f"{', '.join(f'{x:.1f}' for x in lat['off'])}) | {smi}")
+                recorded[policy] = bodies
+                row_launches[rkname] = launched["off"][1]
+            finally:
+                for server in servers.values():
+                    server.stop()
+    finally:
+        logging.disable(logging.NOTSET)
+    return recorded, row_launches
+
+
+def twin_classes_servers(seed: int, base: float, policy: str) -> tuple:
+    """Phase classes (j)'s cpu half for one name, in a server twin: a
+    device="cpu" server on the default ``classes`` config and the same
+    objects, through the same draws of the same random state (the earlier
+    names' Filters drawn and dropped), answers the Filters
+    classes_server_compared names, and every retry before the last of them
+    (a retry leaves its reservation; a new driver is retired): ({Filter:
+    (status, body)}, seconds)."""
+    t = time.perf_counter()
+    names, nodes, queue, rng, _ = server_objects(seed, CLASSES_SERVER_NODES, base)
+    n_filters = CLASSES_SERVER_WARM + CLASSES_SERVER_NEW + CLASSES_SERVER_RETRIES
+    last = max(f for f in range(n_filters) if classes_server_compared(f))
+    pi = list(CLASSES_SERVER_KERNEL).index(policy)
+    for earlier in range(pi):
+        classes_server_filters(rng, queue, earlier, base)
+    filters = classes_server_filters(rng, queue, pi, base)
+    server = PortServer(policy, "cpu", nodes, queue)
+    try:
+        server.pause_background()
+        bodies = {}
+        for f, (created, pod) in enumerate(filters[: last + 1]):
+            if created and not classes_server_compared(f):
+                continue
+            for p in created:
+                server.api.create(p.deepcopy())
+            _, status, body = server.post(pod, names)
+            if classes_server_compared(f):
+                bodies[f] = (status, body)
+            if created:
+                server.retire(created)
+        return bodies, time.perf_counter() - t
+    finally:
+        server.stop()
+
+
+def classes_server_check(recorded: dict, cpu: dict, smi: str) -> None:
+    """Phase classes (j)'s bodies against the server twins' cpu servers
+    (`cpu`: twin_classes_servers' result by name)."""
+    for policy, bodies in recorded.items():
+        want, twin_s = cpu[policy]
+        if sorted(bodies) != sorted(want):
+            raise SystemExit(f"phase classes: (j) {policy}: compared Filters {sorted(bodies)} vs {sorted(want)}")
+        for f, answer in bodies.items():
+            if answer != want[f]:
+                raise SystemExit(f"phase classes: (j) {policy} Filter {f}: cuda {answer[1][:300]!r}, cpu "
+                                 f"{want[f][1][:300]!r}")
+        log(f"phase classes: (j) {policy}: Filters {sorted(bodies)} ({len(bodies)} bodies) equal to a cpu "
+            f"server's on the default config (its Filters and start {twin_s:.1f} s in a server twin) | {smi}")
 
 
 # -- phase mesh: GangPacker on a node-axis mesh ----------------------------------
@@ -4619,15 +5188,14 @@ def mesh_phase(problem, az_inputs, smi: str) -> None:
         log(f"phase mesh: (b) {ranks} ranks took {time.perf_counter() - t:.1f} s, the ranks' start included")
 
 
-# -- phase analysis: schedlint and the model checker ---------------------------
+# -- phase analysis: the model checker -------------------------------------------
 
-ANALYSIS_BASELINE = "tests/baselines/torch_schedlint_suppressions.json"
-ANALYSIS_SCHEDULES = 120  # (b): the reference's tier-1 budget (tests/test_modelcheck.py:298)
+ANALYSIS_SCHEDULES = 120  # the reference's tier-1 budget (tests/test_modelcheck.py:298)
 ANALYSIS_SEED = 7
 
 
 def analysis_corpus(device: str) -> tuple:
-    """Phase analysis (b), in a spawned process of its own (its race
+    """Phase analysis, in a spawned process of its own (its race
     detector and the scheduler's threads apart from this process's):
     (the sampler scenario's probe device and stream, [(scenario,
     schedules, decisions, seconds, violation or ""), ...], the hand
@@ -4661,64 +5229,37 @@ def analysis_corpus(device: str) -> tuple:
 
 def analysis_start(device: str = "cuda") -> tuple:
     """Starts phase analysis beside the phase before it (host work, and
-    the sampler scenario's small probe programs): (a) the linter's CLI in
-    a subprocess, (b) ``analysis_corpus`` in a spawned process."""
+    the sampler scenario's small probe programs): ``analysis_corpus`` in
+    a spawned process."""
     from concurrent.futures import ProcessPoolExecutor
     import multiprocessing
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    lint = subprocess.Popen(
-        [sys.executable, "-m", "k8s_spark_scheduler_tpu_torch.analysis", "--strict", "--format", "json"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
-    )
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
-    return time.perf_counter(), lint, pool, pool.submit(analysis_corpus, device)
+    return time.perf_counter(), pool, pool.submit(analysis_corpus, device)
 
 
 def analysis_phase(smi: str, started: tuple = None, device: str = "cuda") -> None:
     """Phase analysis (see the module docstring): reads what
     ``analysis_start`` started (or starts it now).  Raises SystemExit on
-    a finding, a suppression the baseline lacks, a scenario that is not
-    clean, or a kernel launched.  ``device="cpu"`` rehearses it without a
-    card."""
-    from k8s_spark_scheduler_tpu_torch.tools import schedlint_diff
-
-    t0, lint, pool, corpus_future = started or analysis_start(device)
-    root = os.path.dirname(os.path.abspath(__file__))
-
-    # (a) the linter over the shipped tree, as its CLI runs
-    out, err = lint.communicate(timeout=600)
-    if lint.returncode != 0:
-        raise SystemExit(f"phase analysis: (a) schedlint exited {lint.returncode}:\n{out[-4000:]}{err[-4000:]}")
-    report = json.loads(out)
-    with open(os.path.join(root, ANALYSIS_BASELINE)) as f:
-        baseline = {(e["rule"], e["file"], e["symbol"], e["via"]): e["count"] for e in json.load(f)["suppressions"]}
-    # the diff tool's keys: (rule, file, symbol, via), compared by count
-    suppressed = schedlint_diff.count_by_key(report["suppressed"])
-    if report["findings"] or suppressed != baseline:
-        raise SystemExit(f"phase analysis: (a) {len(report['findings'])} findings; suppressions "
-                         f"{sorted(set(suppressed.items()) ^ set(baseline.items()))} differ from {ANALYSIS_BASELINE}")
-    log(f"phase analysis: (a) schedlint --strict --format json over the package: 0 findings, "
-        f"{len(report['suppressed'])} suppressed sites, by key equal to {ANALYSIS_BASELINE} | {smi}")
-
-    # (b) the model-check corpus with its device components on `device`
+    a scenario that is not clean, or a kernel launched.  ``device="cpu"``
+    rehearses it without a card."""
+    t0, pool, corpus_future = started or analysis_start(device)
     try:
         (probe_device, stream), results, launched = corpus_future.result(timeout=1200)
     finally:
         pool.shutdown()
     if not probe_device.startswith(device) or (device == "cuda" and not stream):
-        raise SystemExit(f"phase analysis: (b) the sampler scenario's probes run on {probe_device}, "
-                         f"own stream {stream}")
+        raise SystemExit(f"phase analysis: the sampler scenario's probes run on {probe_device}, own stream {stream}")
     for name, schedules, decisions, seconds, violation in results:
-        log(f"phase analysis: (b) {name}: {schedules} schedules, {decisions} decisions in {seconds:.2f} s, "
+        log(f"phase analysis: {name}: {schedules} schedules, {decisions} decisions in {seconds:.2f} s, "
             f"{'clean' if not violation else 'VIOLATION'} | {smi}")
         if violation or schedules != ANALYSIS_SCHEDULES:
-            raise SystemExit(f"phase analysis: (b) {name}: {schedules} schedules\n{violation}")
+            raise SystemExit(f"phase analysis: {name}: {schedules} schedules\n{violation}")
     if launched:
         raise SystemExit(f"phase analysis: kernels launched in a host-only phase: {launched}")
-    log(f"phase analysis: (b) {len(results)} scenarios clean at {ANALYSIS_SCHEDULES} schedules, seed "
-        f"{ANALYSIS_SEED}, device {device}, in {sum(r[3] for r in results):.1f} s in its process; both halves "
-        f"done {time.perf_counter() - t0:.1f} s after their start; 0 kernel launches in the phase")
+    log(f"phase analysis: {len(results)} scenarios clean at {ANALYSIS_SCHEDULES} schedules, seed "
+        f"{ANALYSIS_SEED}, device {device}, in {sum(r[3] for r in results):.1f} s in its process, done "
+        f"{time.perf_counter() - t0:.1f} s after its start; 0 kernel launches in the phase")
 
 
 def session_stream(problem, n_earlier: int, smi: str) -> None:
@@ -4950,20 +5491,20 @@ def fifo_solvers(device: str):
 
 
 class CpuTwin:
-    """One spawned process that computes cpu halves of cuda-against-cpu
-    comparisons (phase 3's largest queues' in one, phase 4's, phase
-    sim's and phase classes (b)'s in another) while this process drives
-    the card: the same functions on the same inputs (made from the same
-    seeds), only in another process.  Started before phase 3 (its
-    interpreter and torch's import overlap the kernel checks); ``threads``
-    torch threads (half the host's cores by default); ``submit`` queues a
-    task, answered in order by the one worker."""
+    """Spawned processes that compute cpu halves of cuda-against-cpu
+    comparisons while this process drives the card: the same functions on
+    the same inputs (shipped, or made from the same seeds), only in
+    another process (the module docstring says which).  Started before
+    the build (the interpreters and torch's import overlap nvcc);
+    ``workers`` processes of ``threads`` torch threads (half the host's
+    cores by default); ``submit`` queues a task for the next free
+    worker."""
 
-    def __init__(self, threads: int = None):
+    def __init__(self, threads: int = None, workers: int = 1):
         import atexit
         import multiprocessing
 
-        self.pool = multiprocessing.get_context("spawn").Pool(1, initializer=twin_init, initargs=(threads,))
+        self.pool = multiprocessing.get_context("spawn").Pool(workers, initializer=twin_init, initargs=(threads,))
         atexit.register(self.stop)
 
     def submit(self, fn, *args):
@@ -4977,38 +5518,37 @@ class CpuTwin:
 
 
 def twin_init(threads: int = None) -> None:
-    # by default half the host's cores for its torch ops, the rest for the card's driver
+    # by default half the host's cores for its torch ops, the rest for the
+    # card's driver, which also comes first when the cores are all busy
     torch.set_num_threads(threads or max(1, (os.cpu_count() or 2) // 2))
+    os.nice(10)
     # phase sim: every refused driver of the backlog logs a line a round
     import logging
 
     logging.disable(logging.ERROR)
 
 
-def twin_decisions(seed: int, n_decisions: dict) -> tuple:
-    """Phase 4's decisions on the CPU (the plain versions), in the twin:
-    ({policy: [outcome_key, ...]}, seconds)."""
+def twin_decisions(seed: int, policy: str, n: int) -> tuple:
+    """Phase 4's first n decisions under `policy` on the CPU (the plain
+    versions), in a twin: ([outcome_key, ...], seconds)."""
     from k8s_spark_scheduler_tpu_torch.ops.nodesort import NodeSorter
 
     t = time.perf_counter()
     metadata, earlier, skip, currents = build_snapshot(seed)
     driver_order, executor_order = NodeSorter().potential_nodes(metadata, list(metadata))
-    keys = {
-        p: [outcome_key(solver.solve(metadata, driver_order, executor_order, earlier, skip, current))
-            for current in currents[: n_decisions[p]]]
-        for p, solver in fifo_solvers("cpu").items()
-    }
+    solver = fifo_solvers("cpu")[policy]
+    keys = [outcome_key(solver.solve(metadata, driver_order, executor_order, earlier, skip, current))
+            for current in currents[:n]]
     return keys, time.perf_counter() - t
 
 
 # phase 3's random queues: (nodes, apps), and (nodes, apps, zones) for the
-# single-AZ kernel; the plain versions of the two largest come from the twin
+# single-AZ kernel
 QUEUE_CASES = ((2, 5), (31, 17), (100, 40), (129, 64), (300, 100), (1000, 200), (4099, 64),
                (12345, 48), (10240, 1024))
 AZ_CASES = ((2, 5, 1), (31, 17, 0), (129, 64, 2), (1000, 200, 3), (4099, 64, 3),
             (12345, 48, 3), (1000, 24, 200), (12345, 8, 150), (10800, 8, 3),
             (12345, 16, 1), (12000, 4, 4000), (10240, 1024, 3))
-BIG_QUEUE, BIG_AZ_QUEUE = QUEUE_CASES[-1], AZ_CASES[-1]
 
 
 def queue_case(seed: int, ci: int):
@@ -5021,26 +5561,34 @@ def az_case(seed: int, ci: int):
     return random_single_az_queue(np.random.RandomState(seed * 1000 + 500 + ci), n, a, zones)
 
 
-def twin_big_plain(seed: int) -> tuple:
-    """The plain versions of phase 3's two largest random queues on the
-    CPU, in the twin: ({(kernel, strict): outputs as numpy}, seconds).
-    strict is None for the queue and min-frag kernels."""
-    from k8s_spark_scheduler_tpu_torch.ops import minfrag_kernel as mk
-    from k8s_spark_scheduler_tpu_torch.ops import queue_kernel as qk
-    from k8s_spark_scheduler_tpu_torch.ops import single_az_kernel as sk
+def plain_on_card(n: int, zones: int = 0) -> bool:
+    """Whether phase 3 runs a kernel's plain version on the card beside
+    it: a wide, short queue (100,000 nodes or 100 zones, a few dozen
+    apps), whose plain ops the card spreads over the nodes and one CPU
+    thread walks (4,000 zones: under a second there, 336 s on a thread).
+    A long queue's plain version is a loop of small launches, cheaper in
+    the plain twins."""
+    return n >= 100_000 or zones >= 100
 
+
+def twin_plain(kind: str, fn: str, args: tuple, kwargs: dict, chk: np.ndarray = None) -> tuple:
+    """A plain version on the CPU, in a plain twin: ``fn`` of
+    ``ops/<kind>.py`` on `args` and `kwargs` (numpy arrays become
+    tensors); `chk`, a blank checkpoint buffer, goes in as chk_out and
+    comes back after the outputs: (outputs as numpy, ms)."""
+    def tensor(x):
+        return torch.from_numpy(x.copy()) if isinstance(x, np.ndarray) else x
+
+    module = importlib.import_module(f"k8s_spark_scheduler_tpu_torch.ops.{kind}")
+    kwargs = {k: tensor(v) for k, v in kwargs.items()}
+    if chk is not None:
+        kwargs["chk_out"] = tensor(chk)
     t = time.perf_counter()
-    arrays = on("cpu", queue_case(seed, QUEUE_CASES.index(BIG_QUEUE)))
-    out = {("fifo_queue_evenly" if evenly else "fifo_queue_tightly", None):
-           qk.solve_queue_plain(*arrays, evenly=evenly) for evenly in (False, True)}
-    out[("fifo_queue_min_frag", None)] = mk.solve_queue_min_frag_plain(*arrays)
-    arrays, scalars = az_case(seed, AZ_CASES.index(BIG_AZ_QUEUE))
-    arrays = on("cpu", arrays)
-    for kname, (az_aware, minfrag) in SINGLE_AZ.items():
-        for strict in ((True, False) if minfrag else (True,)):
-            out[(kname, strict)] = sk.solve_queue_single_az_plain(
-                *arrays, *scalars, az_aware=az_aware, minfrag=minfrag, strict=strict)
-    return {key: tuple(x.numpy() for x in outs) for key, outs in out.items()}, time.perf_counter() - t
+    out = tuple(getattr(module, fn)(*(tensor(x) for x in args), **kwargs))
+    ms = (time.perf_counter() - t) * 1e3
+    if chk is not None:
+        out += (kwargs["chk_out"],)
+    return tuple(x.numpy() for x in out), ms
 
 
 def twin_simulation(spec: dict) -> tuple:
@@ -5162,6 +5710,18 @@ def main() -> int:
     smi = gpu_line()
     log(f"phase device: {name} | torch {torch.__version__} | cuda {torch.version.cuda} | {smi}")
 
+    # the cpu halves of phase 4's decisions, a policy a task beside the
+    # build: the tensor-lane policies' in the twin, the single-AZ ones' (the
+    # heavier plain passes) in the plain twins, which then compute the plain
+    # versions as phases 3-4 launch the kernels
+    twin = CpuTwin()
+    plain_twins = CpuTwin(threads=1, workers=PLAIN_WORKERS)
+    server_twins = CpuTwin(threads=1, workers=SERVER_WORKERS)
+    n_decisions = {p: DECISIONS if p in ("tightly-pack", "distribute-evenly") else NEW_DECISIONS
+                   for p in POLICY_KERNEL}
+    cpu_decisions = {p: (plain_twins if POLICY_KERNEL[p] in SINGLE_AZ else twin).submit(
+        twin_decisions, args.seed, p, n) for p, n in n_decisions.items()}
+
     # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
     libraries = {"queue": qk.LIBRARY, "min_frag": mk.LIBRARY, "single_az": sk.LIBRARY, "classes": ck.LIBRARY}
@@ -5170,17 +5730,8 @@ def main() -> int:
             future.result()
     log(f"phase build: {len(libraries)} kernels ready in {time.perf_counter() - t0:.2f} s")
 
-    # the cpu halves of phase 4's decisions, computed beside phases 3-4
-    twin = CpuTwin()
-    n_decisions = {p: DECISIONS if p in ("tightly-pack", "distribute-evenly") else NEW_DECISIONS
-                   for p in POLICY_KERNEL}
-    cpu_decisions = twin.submit(twin_decisions, args.seed, n_decisions)
-    # phase 3's two largest queues' plain versions, in a second twin beside
-    # the first (queued after its decisions, they made phase 4 wait)
-    big_twin = CpuTwin(threads=2)
-    big_plain = big_twin.submit(twin_big_plain, args.seed)
-
-    # ---- phase 3: kernel vs plain on the card
+    # ---- phase 3: kernel vs plain, the kernels on the card and their
+    # plain versions on the CPU in the plain twins (compared before phase 5)
     max_err = {"fifo_queue_tightly": 0, "fifo_queue_evenly": 0, "fifo_queue_min_frag": 0}
     max_err.update({kname: 0 for kname in SINGLE_AZ})
     max_err.update({kname + "_checkpointed": 0 for kname in ("fifo_queue_tightly", "fifo_queue_evenly",
@@ -5193,42 +5744,52 @@ def main() -> int:
         if err:
             raise SystemExit(f"{kname} != plain at {where} (max |diff| {err})")
 
-    # the largest queues' kernel outputs, held against the twin's plain
-    # versions after phase 4's decisions: [(kernel, strict, outputs, where)]
-    deferred = []
+    # kernel outputs held against their plain versions, which the plain
+    # twins compute meanwhile: [(kernel, outputs, the twin's answer, where,
+    # key of the plain version's ms or None)]
+    deferred, plain_ms = [], {}
 
-    def check_or_defer(kname, strict, got, plain, big, where):
-        if big:
-            deferred.append((kname, strict, got, where))
-        else:
-            check(kname, got, plain(), where)
+    def defer(kname, got, kind, fn, args, where, chk=None, key=None, card=False, **kwargs):
+        """Hold `got` to ops/<kind>.<fn>(*args, **kwargs) on the CPU, later,
+        or with `card` on the card now (plain_on_card); `chk` (a blank
+        checkpoint buffer) is passed as chk_out and compared after the
+        outputs."""
+        if card:
+            extra = {} if chk is None else {"chk_out": chk.clone()}
+            plain = getattr(importlib.import_module(f"k8s_spark_scheduler_tpu_torch.ops.{kind}"), fn)
+            check(kname, got, tuple(plain(*args, **kwargs, **extra)) + tuple(extra.values()), where)
+            return
+        arrays = tuple(x.cpu().numpy() if torch.is_tensor(x) else x for x in args)
+        kw = {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in kwargs.items()}
+        spec = None if chk is None else chk.cpu().numpy()
+        deferred.append((kname, got, plain_twins.submit(twin_plain, kind, fn, arrays, kw, spec), where, key))
 
-    def check_min_frag(arrays, where, big=False):
-        check_or_defer("fifo_queue_min_frag", None, mk.fifo_queue_min_frag(*arrays),
-                       lambda: mk.solve_queue_min_frag_plain(*arrays), big, where)
+    def check_queue(arrays, where, evenly):
+        kname = "fifo_queue_evenly" if evenly else "fifo_queue_tightly"
+        defer(kname, qk.fifo_queue(*arrays, evenly=evenly), "queue_kernel", "solve_queue_plain", arrays, where,
+              card=plain_on_card(arrays[0].shape[0]), evenly=evenly)
 
-    def check_single_az(arrays, scalars, where, big=False):
+    def check_min_frag(arrays, where):
+        defer("fifo_queue_min_frag", mk.fifo_queue_min_frag(*arrays), "minfrag_kernel", "solve_queue_min_frag_plain",
+              arrays, where)
+
+    def check_single_az(arrays, scalars, where):
         """Every variant, both strict values for min-frag."""
+        card = plain_on_card(arrays[0].shape[0], scalars[2])
         for kname, (az_aware, minfrag) in SINGLE_AZ.items():
             for strict in ((True, False) if minfrag else (True,)):
                 flags = dict(az_aware=az_aware, minfrag=minfrag, strict=strict)
-                check_or_defer(kname, strict, sk.fifo_queue_single_az(*arrays, *scalars, **flags),
-                               lambda: sk.solve_queue_single_az_plain(*arrays, *scalars, **flags), big,
-                               f"{where} strict={strict}")
-
-    def equal_or_later(big):
-        return "launched, held against the second twin's plain versions after phase 4's decisions" if big else "equal"
+                defer(kname, sk.fifo_queue_single_az(*arrays, *scalars, **flags), "single_az_kernel",
+                      "solve_queue_single_az_plain", arrays + tuple(scalars), f"{where} strict={strict}", card=card,
+                      **flags)
 
     for ci, (n, a) in enumerate(QUEUE_CASES):
         arrays = on(dev, queue_case(args.seed, ci))
-        big = (n, a) == BIG_QUEUE
         for evenly in (False, True):
-            check_or_defer("fifo_queue_evenly" if evenly else "fifo_queue_tightly", None,
-                           qk.fifo_queue(*arrays, evenly=evenly),
-                           lambda: qk.solve_queue_plain(*arrays, evenly=evenly), big, f"N={n} A={a}")
-        check_min_frag(arrays, f"N={n} A={a}", big)
-        log(f"phase kernel-vs-plain: queue and min-frag kernels N={n} A={a} {equal_or_later(big)} "
-            f"(queue kernel: {queue_layout(qk, n, dev)})")
+            check_queue(arrays, f"N={n} A={a}", evenly)
+        check_min_frag(arrays, f"N={n} A={a}")
+        log(f"phase kernel-vs-plain: queue and min-frag kernels N={n} A={a} launched (queue kernel: "
+            f"{queue_layout(qk, n, dev)})")
     # the queue kernel on fewer nodes than its cluster has blocks, above the
     # cluster's shared memory (global scratch), and near the int32 range
     queue_cases = [("N=7 A=20", random_queue, 7, 20), ("N=100000 A=32", random_queue, 100000, 32),
@@ -5239,9 +5800,8 @@ def main() -> int:
     for ci, (what, make, n, a) in enumerate(queue_cases):
         arrays = on(dev, make(np.random.RandomState(args.seed * 1000 + 900 + ci), n, a))
         for evenly in (False, True):
-            check("fifo_queue_evenly" if evenly else "fifo_queue_tightly",
-                  qk.fifo_queue(*arrays, evenly=evenly), qk.solve_queue_plain(*arrays, evenly=evenly), what)
-        log(f"phase kernel-vs-plain: queue kernel {what} equal ({queue_layout(qk, n, dev)})")
+            check_queue(arrays, what, evenly)
+        log(f"phase kernel-vs-plain: queue kernel {what} launched ({queue_layout(qk, n, dev)})")
     # min-frag queues whose apps ask for 1-4 executors (the placing pass's
     # largest capacity reaches k) or 100-300 (capacities stay under 64 < k)
     for ci, (n, a) in enumerate([(3000, 256), (10240, 256)]):
@@ -5250,22 +5810,22 @@ def main() -> int:
         arrays[4][:] = rng.randint(1, 9, size=(a, 3))
         arrays[5][:] = np.where(rng.rand(a) < 0.5, rng.randint(1, 5, size=a), rng.randint(100, 300, size=a))
         check_min_frag(on(dev, arrays), f"m >= k and m < k, N={n} A={a}")
-        log(f"phase kernel-vs-plain: min-frag kernel, k in 1-4 and 100-300, N={n} A={a} equal")
+        log(f"phase kernel-vs-plain: min-frag kernel, k in 1-4 and 100-300, N={n} A={a} launched")
     # the explainer's launches: probe flags (a verdict, nothing subtracted)
     # and the per-app usage output, on the queue and min-frag kernels
     for ci, (n, a) in enumerate([(7, 20), (31, 17), (1000, 200), (12345, 48), (10240, 257), (100000, 16)]):
         rng = np.random.RandomState(args.seed * 1000 + 950 + ci)
         arrays = on(dev, random_queue(rng, n, a))
         probe = torch.as_tensor(rng.rand(a) < 0.5, device=dev)
+        where = f"probes and usage, N={n} A={a}"
         for evenly in (False, True):
-            check("fifo_queue_evenly" if evenly else "fifo_queue_tightly",
-                  qk.fifo_queue_explain(*arrays, probe, evenly=evenly),
-                  qk.queue_plain(*arrays, evenly=evenly, probe=probe), f"probes and usage, N={n} A={a}")
+            defer("fifo_queue_evenly" if evenly else "fifo_queue_tightly", qk.fifo_queue_explain(*arrays, probe, evenly=evenly),
+                  "queue_kernel", "queue_plain", arrays, where, card=plain_on_card(n), evenly=evenly, probe=probe)
         if n <= 12345:
-            check("fifo_queue_min_frag", mk.fifo_queue_min_frag_explain(*arrays, probe),
-                  mk.queue_min_frag_plain(*arrays, probe=probe), f"probes and usage, N={n} A={a}")
+            defer("fifo_queue_min_frag", mk.fifo_queue_min_frag_explain(*arrays, probe), "minfrag_kernel",
+                  "queue_min_frag_plain", arrays, where, probe=probe)
         log(f"phase kernel-vs-plain: queue{' and min-frag' if n <= 12345 else ''} kernels with probe "
-            f"flags and the usage output, N={n} A={a} equal")
+            f"flags and the usage output, N={n} A={a} launched")
     # the delta-solve session's checkpointed launches: the carry before
     # every stride-th queue position into a [K, N, 3] buffer, from a queue
     # position chk_base on (queue and min-frag kernels; the queue kernel
@@ -5275,30 +5835,27 @@ def main() -> int:
         arrays = on(dev, random_queue(np.random.RandomState(args.seed * 1000 + 970 + ci), n, a))
         chk_args = dict(chk_base=chk_base, chk_stride=stride)
         blank = torch.full((slots, n, 3), -7, dtype=torch.int32, device=dev)
-        variants = [(kname, lambda c, evenly=evenly: qk.fifo_queue(*arrays, evenly=evenly, chk_out=c, **chk_args),
-                     lambda c, evenly=evenly: qk.solve_queue_plain(*arrays, evenly=evenly, chk_out=c, **chk_args))
-                    for evenly, kname in ((False, "fifo_queue_tightly"), (True, "fifo_queue_evenly"))]
+        where = f"checkpoints N={n} A={a} stride={stride} base={chk_base} slots={slots}"
+        for evenly, kname in ((False, "fifo_queue_tightly"), (True, "fifo_queue_evenly")):
+            chk = blank.clone()
+            defer(kname + "_checkpointed", qk.fifo_queue(*arrays, evenly=evenly, chk_out=chk, **chk_args) + (chk,),
+                  "queue_kernel", "solve_queue_plain", arrays, where, chk=blank, card=plain_on_card(n), evenly=evenly,
+                  **chk_args)
         if n <= 12345:
-            variants.append(("fifo_queue_min_frag",
-                             lambda c: mk.fifo_queue_min_frag(*arrays, chk_out=c, **chk_args),
-                             lambda c: mk.solve_queue_min_frag_plain(*arrays, chk_out=c, **chk_args)))
-        for kname, kernel, plain in variants:
-            got_chk, want_chk = blank.clone(), blank.clone()
-            check(kname + "_checkpointed", kernel(got_chk) + (got_chk,), plain(want_chk) + (want_chk,),
-                  f"checkpoints N={n} A={a} stride={stride} base={chk_base} slots={slots}")
+            chk = blank.clone()
+            defer("fifo_queue_min_frag_checkpointed", mk.fifo_queue_min_frag(*arrays, chk_out=chk, **chk_args) + (chk,),
+                  "minfrag_kernel", "solve_queue_min_frag_plain", arrays, where, chk=blank, **chk_args)
         log(f"phase kernel-vs-plain: checkpointed launches of the queue{' and min-frag' if n <= 12345 else ''} "
-            f"kernels, N={n} A={a} stride {stride} from position {chk_base} into {slots} slots, outputs and "
-            f"checkpoints equal")
+            f"kernels, N={n} A={a} stride {stride} from position {chk_base} into {slots} slots launched")
     # 200 and 150 zones: many zones a block; one zone over 12,345 nodes:
     # that block's node planes in global memory; 4,000 zones: the zone
     # table in global memory
     for ci, (n, a, zones) in enumerate(AZ_CASES):
         arrays, scalars = az_case(args.seed, ci)
         arrays = on(dev, arrays)
-        big = (n, a, zones) == BIG_AZ_QUEUE
-        check_single_az(arrays, scalars, f"N={n} A={a} zones={zones}", big)
+        check_single_az(arrays, scalars, f"N={n} A={a} zones={zones}")
         log(f"phase kernel-vs-plain: single-AZ kernel, {len(SINGLE_AZ)} variants, N={n} A={a} "
-            f"zones={zones} {equal_or_later(big)} (cluster {sk.zone_layout(arrays[3], zones).cluster})")
+            f"zones={zones} launched (cluster {sk.zone_layout(arrays[3], zones).cluster})")
     # zone layouts the main path does not take: one zone holding every
     # node, an empty zone, more zones than the cluster has blocks
     layouts = {
@@ -5313,7 +5870,7 @@ def main() -> int:
         arrays[3][:] = zone_ids(rng, 10240)
         arrays = on(dev, arrays)
         check_single_az(arrays, scalars, f"{what}, N=10240 A=64")
-        log(f"phase kernel-vs-plain: single-AZ kernel, {what}, N=10240 A=64 equal "
+        log(f"phase kernel-vs-plain: single-AZ kernel, {what}, N=10240 A=64 launched "
             f"(cluster {sk.zone_layout(arrays[3], zones).cluster})")
     # an az-aware queue where many apps fit no single zone: 150 zones of
     # about 20 nodes and gangs of 60-150 executors
@@ -5323,12 +5880,12 @@ def main() -> int:
     arrays[6][:] = rng.randint(60, 150, size=128)
     arrays = on(dev, arrays)
     check_single_az(arrays, scalars, "cross-zone queue N=3000 A=128 zones=150")
-    az_want = sk.solve_queue_single_az_plain(*arrays, *scalars, az_aware=True)
-    n_cross = int(((az_want[1] == 150) & az_want[0]).sum())
+    az_got = sk.fifo_queue_single_az(*arrays, *scalars, az_aware=True)
+    n_cross = int(((az_got[1] == 150) & az_got[0]).sum())
     if n_cross < 10:
         raise SystemExit(f"the cross-zone queue sent only {n_cross} apps to the cross-zone solve")
     log(f"phase kernel-vs-plain: single-AZ kernel, az-aware queue with {n_cross} of 128 apps on the "
-        f"cross-zone solve, N=3000 zones=150 equal")
+        f"cross-zone solve, N=3000 zones=150 launched")
 
     # ---- phase 4: main path at full size
     t0 = time.perf_counter()
@@ -5385,41 +5942,42 @@ def main() -> int:
     n_valid = int(valid.sum())
     queue_bytes = 4 * (3 * n_b + n_b) + n_b + a_b * (4 * 3 * 2 + 4 + 1) + a_b * (1 + 4) + 4 * 3 * n_b
 
-    def timed(kname, kind, fn, plain_ms, floor_fn, ops, n_bytes):
-        """The kernel's entry; plain_ms is the one plain call its check made."""
+    def timed(kname, kind, fn, floor_fn, ops, n_bytes):
+        """The kernel's entry; its plain_ms is the plain twin's one call,
+        filled in when the twin answers."""
         ms = [time_cuda(fn, 5) for _ in range(3)]
         floor_ms = time_cuda(floor_fn, 5)
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
         log(f"phase main-path: {kname} N={n_b} A={a_b} ({n_valid} valid): "
             f"{statistics.median(ms):.3f} ms (runs {', '.join(f'{x:.3f}' for x in ms)}), "
-            f"plain {plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
+            f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
             f"operations {t_ops:.4f}), serial floor at N={FLOOR_NODES} {floor_ms:.3f} ms | {smi}")
-        return kernel_entry(kname, kind, launches[kname], max_err[kname], ms, plain_ms, t_bytes, t_ops,
+        return kernel_entry(kname, kind, launches[kname], max_err[kname], ms, None, t_bytes, t_ops,
                             floor_ms=floor_ms)
 
     kernels = []
     floor_args = tuple(x[:FLOOR_NODES] for x in queue_args[:3]) + queue_args[3:]
     for evenly, kname in ((False, "fifo_queue_tightly"), (True, "fifo_queue_evenly")):
         got = qk.fifo_queue(*queue_args, evenly=evenly)
-        want, plain_ms = timed_once(lambda: qk.solve_queue_plain(*queue_args, evenly=evenly))
-        check(kname, got, want, "the main-path inputs")
+        defer(kname, got, "queue_kernel", "solve_queue_plain", queue_args, "the main-path inputs", key=kname,
+              evenly=evenly)
         n_feasible = int(got[0].sum())
         ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * OPS_PER_NODE_FEASIBLE_APP)
         log(f"phase main-path: {kname}: {n_feasible} feasible; {queue_layout(qk, n_b, dev)}")
         kernels.append(timed(
-            kname, "queue", lambda: qk.fifo_queue(*queue_args, evenly=evenly), plain_ms,
+            kname, "queue", lambda: qk.fifo_queue(*queue_args, evenly=evenly),
             lambda: qk.fifo_queue(*floor_args, evenly=evenly), ops, queue_bytes,
         ))
 
     got = mk.fifo_queue_min_frag(*queue_args)
-    want, plain_ms = timed_once(lambda: mk.solve_queue_min_frag_plain(*queue_args))
-    check("fifo_queue_min_frag", got, want, "the main-path inputs")
+    defer("fifo_queue_min_frag", got, "minfrag_kernel", "solve_queue_min_frag_plain", queue_args,
+          "the main-path inputs", key="fifo_queue_min_frag")
     n_feasible = int(got[0].sum())
     log(f"phase main-path: fifo_queue_min_frag: {n_feasible} feasible; cluster of "
         f"{mk.CLUSTER_BLOCKS} blocks of {mk.THREADS} threads")
     ops = n_b * (n_valid * OPS_PER_NODE_VALID_APP + n_feasible * MF_OPS_PER_NODE_FEASIBLE_APP)
     kernels.append(timed(
-        "fifo_queue_min_frag", "min_frag", lambda: mk.fifo_queue_min_frag(*queue_args), plain_ms,
+        "fifo_queue_min_frag", "min_frag", lambda: mk.fifo_queue_min_frag(*queue_args),
         lambda: mk.fifo_queue_min_frag(*floor_args), ops, queue_bytes,
     ))
 
@@ -5439,23 +5997,22 @@ def main() -> int:
 
     ex_args = explain_args(n_e)
     for evenly, kname in ((False, "fifo_queue_tightly"), (True, "fifo_queue_evenly")):
-        got = qk.fifo_queue_explain(*ex_args, evenly=evenly)
-        check(kname, got, qk.queue_plain(*ex_args[:7], evenly=evenly, probe=ex_args[7]),
-              "the explainer's main-path launch")
+        defer(kname, qk.fifo_queue_explain(*ex_args, evenly=evenly), "queue_kernel", "queue_plain", ex_args[:7],
+              "the explainer's main-path launch", evenly=evenly, probe=ex_args[7])
         ms = [time_cuda(lambda: qk.fifo_queue_explain(*ex_args, evenly=evenly), 3) for _ in range(3)]
         log(f"phase main-path: {kname} explainer launch, {ex_args[3].shape[0]} apps ({n_e} probes of the "
-            f"current app between the {n_e} earlier ones): {statistics.median(ms):.3f} ms, equal to the "
-            f"plain version | {smi}")
+            f"current app between the {n_e} earlier ones): {statistics.median(ms):.3f} ms (held to the plain "
+            f"version) | {smi}")
     ex_small = explain_args(256)
-    check("fifo_queue_min_frag", mk.fifo_queue_min_frag_explain(*ex_small),
-          mk.queue_min_frag_plain(*ex_small[:7], probe=ex_small[7]), "the explainer's launch, 256 earlier apps")
+    defer("fifo_queue_min_frag", mk.fifo_queue_min_frag_explain(*ex_small), "minfrag_kernel", "queue_min_frag_plain",
+          ex_small[:7], "the explainer's launch, 256 earlier apps", probe=ex_small[7])
     ms = [time_cuda(lambda: mk.fifo_queue_min_frag_explain(*ex_args), 3) for _ in range(3)]
     log(f"phase main-path: fifo_queue_min_frag explainer launch, {ex_args[3].shape[0]} apps: "
-        f"{statistics.median(ms):.3f} ms (equal to the plain version over the first 256 earlier apps) | {smi}")
+        f"{statistics.median(ms):.3f} ms (held to the plain version over the first 256 earlier apps) | {smi}")
 
     # phase delta, steps 1 and 3: the checkpointed launches at these
     # inputs, and a session stream at the library layer
-    delta_timing = delta_kernels(queue_args, n_valid, queue_bytes, check, smi)
+    delta_timing = delta_kernels(queue_args, n_valid, queue_bytes, check, defer, smi)
     session_stream(problem, len(earlier), smi)
 
     zones, zone_masks = candidate_zone_masks(driver_order, executor_order, metadata, cluster.node_names, n_b)
@@ -5469,8 +6026,8 @@ def main() -> int:
     for kname, (az_aware, minfrag) in SINGLE_AZ.items():
         flags = dict(az_aware=az_aware, minfrag=minfrag, strict=True)
         got = sk.fifo_queue_single_az(*az_arrays, *az_scalars, **flags)
-        want, plain_ms = timed_once(lambda: sk.solve_queue_single_az_plain(*az_arrays, *az_scalars, **flags))
-        check(kname, got, want, "the main-path inputs")
+        defer(kname, got, "single_az_kernel", "solve_queue_single_az_plain", az_arrays + tuple(az_scalars),
+              "the main-path inputs", key=kname, **flags)
         n_placed, n_uncertain = int(got[0].sum()), int(got[3][: len(earlier)].sum())
         n_cross = int((got[1][: len(earlier)] == len(zones)).sum())
         log(f"phase main-path: {kname}: {n_placed} placed, {n_uncertain} of {len(earlier)} "
@@ -5481,7 +6038,7 @@ def main() -> int:
         work = MF_OPS_PER_NODE_FEASIBLE_APP if minfrag else OPS_PER_NODE_FEASIBLE_APP
         ops = n_b * a_b * (len(zones) + OPS_PER_NODE_VALID_APP) + n_placed * (n_b // len(zones) * work + 3 * n_b)
         kernels.append(timed(
-            kname, "single_az", lambda: sk.fifo_queue_single_az(*az_arrays, *az_scalars, **flags), plain_ms,
+            kname, "single_az", lambda: sk.fifo_queue_single_az(*az_arrays, *az_scalars, **flags),
             lambda: sk.fifo_queue_single_az(*az_floor, *az_scalars, **flags), ops, az_bytes,
         ))
     for kind, lib in libraries.items():
@@ -5524,11 +6081,11 @@ def main() -> int:
     # the same decisions on the CPU (the plain versions), from the twin:
     # read last, so that the twin's work overlaps the rest of phase 4
     t = time.perf_counter()
-    cpu_keys, twin_s = cpu_decisions.get(timeout=1800)
-    log(f"phase main-path: the cpu decisions took {twin_s:.1f} s in the twin process beside phases 3-4; "
-        f"waited {time.perf_counter() - t:.1f} s for them here")
+    cpu_keys = {p: result.get(timeout=1800) for p, result in cpu_decisions.items()}
+    log(f"phase main-path: the cpu decisions took " + ", ".join(f"{p} {s:.1f} s" for p, (_, s) in cpu_keys.items())
+        + f" in the twins beside the build and phases 3-4; waited {time.perf_counter() - t:.1f} s for them here")
     for p in solvers:
-        for i, want in enumerate(cpu_keys[p]):
+        for i, want in enumerate(cpu_keys[p][0]):
             if decisions[p][i] != want:
                 raise SystemExit(f"{p} decision {i} on cuda differs from cpu: {decisions[p][i]} vs {want}")
             if not want[1] or not want[2][0]:
@@ -5542,25 +6099,44 @@ def main() -> int:
         ) or not got.has_capacity:
             raise SystemExit(f"{bname} binpack_func on cuda differs from cpu or placed nothing")
         log(f"phase main-path: {bname} binpack_func equal on cuda and cpu (driver {got.driver_node})")
-    # phase 3's two largest queues against the twin's plain versions (a
-    # difference exits here, so the kernels line's errors stand)
+    # phases 3-4's kernel outputs against the plain twins' plain versions
+    # (a difference exits here, so the kernels line's errors stand)
     t = time.perf_counter()
-    want_big, twin_s = big_plain.get(timeout=1800)
-    big_twin.stop()
-    waited = time.perf_counter() - t
-    for kname, strict, got, where in deferred:
-        check(kname, got, on(dev, want_big[(kname, strict)]), f"{where} (plain version from the twin)")
-    log(f"phase kernel-vs-plain: {len(deferred)} kernel outputs at N={BIG_QUEUE[0]} A={BIG_QUEUE[1]} and "
-        f"N={BIG_AZ_QUEUE[0]} A={BIG_AZ_QUEUE[1]} zones={BIG_AZ_QUEUE[2]} equal to their plain versions, "
-        f"{twin_s:.1f} s on the cpu in the second twin; waited {waited:.1f} s for them here")
+    for kname, got, result, where, key in deferred:
+        want, ms = result.get(timeout=1800)
+        check(kname, got, on(dev, want), where)
+        if key is not None:
+            plain_ms[key] = ms
+    for entry in kernels:
+        entry["plain_ms"] = plain_ms[entry["name"]]
+    log(f"phase kernel-vs-plain: {len(deferred)} kernel outputs of phases 3-4 equal to their plain versions, "
+        f"computed on the cpu in {PLAIN_WORKERS} plain twins beside them; waited {time.perf_counter() - t:.1f} s "
+        f"for them here; plain ms (one call, cpu) " + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
+    deferred.clear()
+    plain_twins.stop()
 
     log(f"phase main-path: phases 1-4 took {time.perf_counter() - t_script:.1f} s")
 
     # ---- phase 5: the Filter server on the card
+    servers_base = time.time() - 10_000.0  # the queue's creation base of phases 5, az-server and classes (j)
     t = time.perf_counter()
-    server_launches = server_phase(args.seed, smi)
-    log(f"phase server: took {time.perf_counter() - t:.1f} s; the script so far "
-        f"{time.perf_counter() - t_script:.1f} s")
+    server_launches, server_recorded = server_phase(args.seed, smi, servers_base)
+    log(f"phase server: took {time.perf_counter() - t:.1f} s (the bodies held to the cpu servers' before phase "
+        f"classes); the script so far {time.perf_counter() - t_script:.1f} s")
+
+    # ---- phase az-server: the single-AZ family through the port's server;
+    # the cpu servers of phases 5, az-server and classes (j) answer in the
+    # server twins, one a name, beside the phases from here on
+    server_cpu = {p: server_twins.submit(twin_server_phase, args.seed, servers_base, p) for p in SERVER_POLICIES}
+    az_cpu = {p: server_twins.submit(twin_az_server, args.seed, servers_base, p) for p in AZ_SERVER_KERNEL}
+    classes_cpu = {p: server_twins.submit(twin_classes_servers, args.seed, servers_base, p)
+                   for p in CLASSES_SERVER_KERNEL}
+    t = time.perf_counter()
+    az_launches, az_recorded = az_server_phase(args.seed, smi, servers_base)
+    for entry in kernels:
+        entry["launches"] += az_launches.get(entry["name"], 0)
+    log(f"phase az-server: took {time.perf_counter() - t:.1f} s (the bodies held to the cpu servers' before phase "
+        f"classes); the script so far {time.perf_counter() - t_script:.1f} s")
 
     # ---- phase 6: the server against a cluster over REST
     t = time.perf_counter()
@@ -5579,9 +6155,9 @@ def main() -> int:
     # the checkpointed launches of the main path: phase delta's engine-on
     # servers (tightly-pack, min-frag), phase 5's (distribute-evenly)
     delta_launches = {**server_launches, **delta_phase(args.seed, smi)}
-    for kname, (ms, plain_ms, t_bytes, t_ops) in delta_timing.items():
+    for kname, (ms, t_bytes, t_ops) in delta_timing.items():
         kind = "min_frag" if kname.startswith("fifo_queue_min_frag") else "queue"
-        kernels.append(kernel_entry(kname, kind, delta_launches.get(kname, 0), max_err[kname], ms, plain_ms,
+        kernels.append(kernel_entry(kname, kind, delta_launches.get(kname, 0), max_err[kname], ms, plain_ms[kname],
                                     t_bytes, t_ops))
     missing = [kname for kname in delta_timing if delta_launches.get(kname, 0) < 1]
     if missing:
@@ -5617,7 +6193,8 @@ def main() -> int:
 
     # ---- phase concurrent: the concurrent admission engine through the server
     t = time.perf_counter()
-    concurrent_path = concurrent_phase(args.seed, smi, queue_args)
+    # (d)'s cpu cells in the twin, beside (a)-(c)
+    concurrent_path = concurrent_phase(args.seed, smi, queue_args, twin.submit(twin_crash_cells))
     for entry in kernels:
         entry["launches"] += concurrent_path.get(entry["name"], 0)
     log(f"phase concurrent: took {time.perf_counter() - t:.1f} s; the script so far "
@@ -5635,26 +6212,36 @@ def main() -> int:
         f"{time.perf_counter() - t_script:.1f} s")
 
     # ---- phase lab: the policy lab and its gate (host-only: no launch),
-    # with phase analysis's two halves (host work) started beside it
+    # with phase analysis's corpus (host work) started beside it
     analysis = analysis_start()
     t = time.perf_counter()
     lab_phase(smi)
-    log(f"phase lab: took {time.perf_counter() - t:.1f} s (phase analysis's halves and the twin's phase "
+    log(f"phase lab: took {time.perf_counter() - t:.1f} s (phase analysis's corpus and the twin's phase "
         f"classes (b) passes beside it); the script so far {time.perf_counter() - t_script:.1f} s")
 
-    # ---- phase analysis: schedlint and the model checker (host-only: no
+    # ---- phase analysis: the model checker (host-only: no
     # launch), read before phase classes times the card
     t = time.perf_counter()
     analysis_phase(smi, analysis)
     log(f"phase analysis: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 
+    # phases 5's and az-server's bodies against the server twins' cpu servers
+    t = time.perf_counter()
+    server_check(server_recorded, {p: result.get(timeout=1800) for p, result in server_cpu.items()})
+    az_server_check(az_recorded, {p: result.get(timeout=1800) for p, result in az_cpu.items()})
+    log(f"phases server and az-server: waited {time.perf_counter() - t:.1f} s for the server twins' cpu servers")
+
     # ---- phase classes: class-compressed stepping on the card
     t = time.perf_counter()
     classes_plain = classes_plain.get(timeout=1800)
     twin.stop()
     log(f"phase classes: waited {time.perf_counter() - t:.1f} s for the twin's plain passes")
-    kernels += classes_phase(args.seed, smi, classes_plain)
+    class_entries, row_launches = classes_phase(args.seed, smi, classes_plain, servers_base, classes_cpu)
+    server_twins.stop()
+    for entry in kernels:
+        entry["launches"] += row_launches.get(entry["name"], 0)
+    kernels += class_entries
     log(f"phase classes: took {time.perf_counter() - t:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
 

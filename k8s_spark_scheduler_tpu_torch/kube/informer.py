@@ -32,7 +32,8 @@ class Informer:
     """A shared informer for one kind."""
 
     # bound on remembered last-seen resourceVersions for departed objects
-    # (guards against a late stale MODIFIED resurrecting a deleted object)
+    # (guards against a late stale MODIFIED resurrecting a deleted object):
+    # past it, the departed objects' entries are dropped at once
     _TOMBSTONE_LIMIT = 16384
     # bound on per-(label, value) selector revision stamps (unbounded-
     # value labels like spark-app-id would otherwise leak one entry per
@@ -92,8 +93,11 @@ class Informer:
                 return
             self._last_rv[key] = rv
             self.revision += 1
-            if len(self._last_rv) > self._TOMBSTONE_LIMIT:
-                # prune entries for objects we no longer mirror
+            if len(self._last_rv) - len(self._store) > self._TOMBSTONE_LIMIT:
+                # prune entries for objects we no longer mirror: counted
+                # as departed ones, so a store of more objects than the
+                # limit (a 20,000-node cluster) does not rebuild the map
+                # on every event
                 self._last_rv = {
                     k: v for k, v in self._last_rv.items() if k in self._store
                 }

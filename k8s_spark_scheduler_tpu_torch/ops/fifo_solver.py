@@ -531,20 +531,22 @@ class TpuFifoSolver:
         return FifoOutcome(supported=True, earlier_ok=True, result=result)
 
 
-def _fused_efficiency_inputs(cluster, problem):
+def _fused_efficiency_inputs(cluster, problem, n_apps: Optional[int] = None):
     """Inputs and numeric-range guards of the device zone-efficiency score
     (single_az_kernel).  Returns None when any bound fails and the host
     zone-choice lane must take over.  The bounds guarantee: int32
     exactness of every reserved numerator (r_base = sched_base − m·scale),
     float32 exactness of all ratio operands (ints ≤ 2^24), ratios ≤ 1
     (avail ≤ schedulable), and an int32-safe score accumulator
-    ((k+1)·2^EFF_SHIFT < 2^31)."""
+    ((k+1)·2^EFF_SHIFT < 2^31) for each of the first `n_apps` apps (every
+    app by default), the ones the kernel will score."""
     n = len(cluster.node_names)
     nb = problem.avail.shape[0]
     sched = cluster.sched[:n]  # int64 base units (milli-cpu, bytes, milli-gpu)
     avail_base = cluster.avail[:n]
     scale = problem.scale.astype(np.int64)
-    k_max = int(problem.count.max()) if problem.count.size else 0
+    counts = problem.count[:n_apps]
+    k_max = int(counts.max()) if counts.size else 0
     if k_max + 1 > 4096:
         return None
     if n == 0:
@@ -582,8 +584,10 @@ def single_az_queue_inputs(cluster, problem, zone_masks, n_zones: int, n_earlier
     queue_valid, s_cpu, s_gpu, inv_mem, th_mem) as numpy arrays,
     (scale_cpu, scale_gpu, n_zones)) for single_az_kernel.
     fifo_queue_single_az, or None when the score's numeric bounds fail
-    (_fused_efficiency_inputs)."""
-    eff_inputs = _fused_efficiency_inputs(cluster, problem)
+    (_fused_efficiency_inputs) for the earlier apps, the ones it scores
+    (the current app is packed on the host lane: a gang of any size
+    leaves the queue on the fused lane)."""
+    eff_inputs = _fused_efficiency_inputs(cluster, problem, n_earlier)
     if eff_inputs is None:
         return None
     s_cpu, s_gpu, inv_m, th_m, scale_c, scale_g = eff_inputs
@@ -610,17 +614,22 @@ class TpuSingleAzFifoSolver:
     carried usage subtraction — as the CUDA kernel on a CUDA device, its
     plain PyTorch version on the CPU.
 
-    Exactness valve: if any earlier app's zone scores land inside the
-    fixed-point margin (`uncertain`), the whole queue is re-solved on the
-    host lane — per-driver zone solves (batch_solver.solve_zones on the
-    device) with the zone choice in the oracle's float64 efficiency math —
-    restoring bit-exact reference parity.  Snapshots outside the fused
-    lane's numeric bounds (_fused_efficiency_inputs) or, for the min-frag
-    inner policy, failing batch_solver.mf_sentinel_safe go straight to the
-    host lane.  The current app's packing is always chosen with the exact
-    host math.  `last_path` records which lane served the earlier drivers
-    ("fused" / "host"; None when the queue is empty or the snapshot is
-    not exactly tensorizable).
+    Exactness valve: an earlier app whose zone scores land inside the
+    fixed-point margin (`uncertain`) is solved on the host lane —
+    per-zone solves (batch_solver.solve_zones on the device) with the
+    zone choice in the oracle's float64 efficiency math — from the
+    availability the fused lane carried to it, exact because every app
+    before it was certain; the fused lane resumes after it.  So a queue
+    with u uncertain apps costs 1 + 2u launches and u host solves, not a
+    host solve of every app (the reference re-solves the whole queue on
+    its host lane; the decisions are the same).  Snapshots outside the
+    fused lane's numeric bounds (_fused_efficiency_inputs) or, for the
+    min-frag inner policy, failing batch_solver.mf_sentinel_safe go
+    straight to the host lane.  The current app's packing is always
+    chosen with the exact host math.  `last_path` records which lanes
+    served the earlier drivers ("fused": the fused lane alone; "host":
+    the host lane solved at least one of them; None when the queue is
+    empty or the snapshot is not exactly tensorizable).
 
     inner_policy "minimal-fragmentation" gives the
     single-az-minimal-fragmentation semantics: zone feasibility and driver
@@ -758,45 +767,52 @@ class TpuSingleAzFifoSolver:
         # snapshots take the exact host lane (its decode uses a 2^62
         # sentinel no int32 capacity can reach)
         mf_fused_ok = not minfrag_inner or mf_sentinel_safe(problem.avail)
-        fused_done = False
         inputs = (
             single_az_queue_inputs(cluster, problem, zone_masks, len(candidate_zones), n_earlier)
             if n_earlier > 0 and mf_fused_ok
             else None
         )
-        if inputs is not None:
-            arrays, scalars = inputs
-            with default_profiler.profile(
-                "fifo_queue_single_az", lane=lane_of(dev),
-                shape_key=(problem.avail.shape, problem.driver.shape),
-            ) as rec:
-                feas_d, _zone_d, _didx_d, uncertain_d, avail_after_d = fifo_queue_single_az(
-                    *(torch.as_tensor(x, device=dev) for x in arrays), *scalars,
-                    az_aware=self.az_aware, minfrag=minfrag_inner, strict=self.strict_reference_parity,
-                )
-                rec.sync(avail_after_d)
-            if not bool(uncertain_d[:n_earlier].any()):
-                # the one-launch lane's answer is certain: it served this
-                # request, whatever the FIFO verdict
-                self.last_path = "fused"
-                feasible = feas_d[:n_earlier].cpu().numpy()
-                for i in range(n_earlier):
-                    if not feasible[i] and not earlier_skip_allowed[i]:
-                        return FifoOutcome(supported=True, earlier_ok=False)
-                avail[:] = avail_after_d.cpu().numpy()
-                fused_done = True
 
-        if not fused_done and n_earlier > 0:
-            # host lane: per-driver zone solves with the exact float64 zone
-            # choice (the uncertainty / guard valve)
+        def host_app(i: int) -> bool:
+            """Earlier app i on the host lane: per-zone solves with the
+            exact float64 zone choice; False when it blocks the queue."""
+            packed = pack_with_fallback(i)
+            if packed is None:
+                return earlier_skip_allowed[i]
+            self._subtract(avail, packed[0], packed[1], problem, i, n)
+            return True
+
+        if inputs is None and n_earlier > 0:
+            # outside the fused lane's bounds: the whole queue on the host
             self.last_path = "host"
             for i in range(n_earlier):
-                packed = pack_with_fallback(i)
-                if packed is None:
-                    if earlier_skip_allowed[i]:
-                        continue
+                if not host_app(i):
                     return FifoOutcome(supported=True, earlier_ok=False)
-                self._subtract(avail, packed[0], packed[1], problem, i, n)
+        elif inputs is not None:
+            arrays, scalars = inputs
+            self.last_path = "fused"
+            start = 0
+            while start < n_earlier:
+                # the fused lane over apps [start, n_earlier) from the
+                # carried availability: exact up to its first uncertain
+                # app, which alone goes to the host lane (the valve);
+                # the fused lane resumes after it
+                feas, uncertain, after = self._fused(arrays, scalars, avail, start, n_earlier, minfrag_inner)
+                flagged = np.flatnonzero(uncertain)
+                stop = start + int(flagged[0]) if flagged.size else n_earlier
+                if flagged.size and stop > start:
+                    feas, _, after = self._fused(arrays, scalars, avail, start, stop, minfrag_inner)
+                for i in range(start, stop):
+                    if not feas[i - start] and not earlier_skip_allowed[i]:
+                        return FifoOutcome(supported=True, earlier_ok=False)
+                if stop > start:
+                    avail[:] = after
+                if stop == n_earlier:
+                    break
+                self.last_path = "host"
+                if not host_app(stop):
+                    return FifoOutcome(supported=True, earlier_ok=False)
+                start = stop + 1
 
         packed = pack_with_fallback(n_earlier)
         if packed is None:
@@ -816,6 +832,23 @@ class TpuSingleAzFifoSolver:
                 ),
             )
         return FifoOutcome(supported=True, earlier_ok=True, result=chosen)
+
+    def _fused(self, arrays, scalars, avail, start, stop, minfrag_inner):
+        """One launch of the single-AZ queue pass (its plain version on
+        the CPU) over earlier apps [start, stop) from the carried scaled
+        availability `avail`: (feasible, uncertain, avail_after) as
+        numpy."""
+        dev = self.device
+        apps = tuple(x[start:stop] for x in arrays[4:8])
+        with default_profiler.profile(
+            "fifo_queue_single_az", lane=lane_of(dev), shape_key=(avail.shape, apps[0].shape),
+        ) as rec:
+            feas, _zone, _didx, uncertain, after = fifo_queue_single_az(
+                *(torch.as_tensor(x, device=dev) for x in (avail,) + tuple(arrays[1:4]) + apps + tuple(arrays[8:])),
+                *scalars, az_aware=self.az_aware, minfrag=minfrag_inner, strict=self.strict_reference_parity,
+            )
+            rec.sync(after)
+        return feas.cpu().numpy(), uncertain.cpu().numpy(), after.cpu().numpy()
 
     def _plain_pack(self, app_idx, avail, problem, n):
         """Cross-zone tightly-pack (the az-aware fallback)."""

@@ -1,11 +1,12 @@
 """The port's extender, wiring and harness held against the JAX package's:
 the same scenario driven through both servers (``tests/torch_parity.Twin``)
 must give equal ExtenderFilterResults, reservations, demands and soft
-reservations, under every policy family — the tensor lane (tpu-batch,
-tpu-batch-distribute-evenly, tpu-batch-minimal-fragmentation), the
-metadata lane with the single-AZ kernel (tpu-batch-single-az) and a host
-policy (tightly-pack).  Sizes stay small: at most 12 nodes and a few
-dozen pods a scenario."""
+reservations, under every name of the registry (``ops/registry.py``) —
+the tensor lane (tpu-batch, tpu-batch-distribute-evenly,
+tpu-batch-minimal-fragmentation), the metadata lane with the single-AZ
+kernel (tpu-batch-single-az, tpu-batch-az-aware,
+tpu-batch-single-az-minimal-fragmentation) and the six host policies.
+Sizes stay small: at most 12 nodes and a few dozen pods a scenario."""
 
 import random
 
@@ -18,7 +19,14 @@ POLICIES = (
     "tpu-batch-distribute-evenly",
     "tpu-batch-minimal-fragmentation",
     "tpu-batch-single-az",
+    "tpu-batch-az-aware",
+    "tpu-batch-single-az-minimal-fragmentation",
     "tightly-pack",
+    "distribute-evenly",
+    "minimal-fragmentation",
+    "single-az-tightly-pack",
+    "az-aware-tightly-pack",
+    "single-az-minimal-fragmentation",
 )
 
 

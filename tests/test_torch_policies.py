@@ -1,8 +1,9 @@
-"""The registry names that tests/test_torch_extender.py leaves out, each
-driven through ``tests/torch_parity.Twin``: the JAX package's server and
-the port's (``device="cpu"``) must give equal ExtenderFilterResults,
-reservations, demands and soft reservations.  Every scenario of that
-file runs under each name (its random sequence with one seed): the host
+"""Seven registry names, each driven through ``tests/torch_parity.Twin``
+by every scenario of tests/test_torch_extender.py called as a plain
+function (its random sequence with one seed), with a check that each
+Twin it built served Filters: the JAX package's server and the port's
+(``device="cpu"``) must give equal ExtenderFilterResults, reservations,
+demands and soft reservations.  The names: the host
 policies (distribute-evenly, minimal-fragmentation), the single-AZ
 family on the host (az-aware-tightly-pack, single-az-tightly-pack,
 single-az-minimal-fragmentation) and two more tensor-solver names

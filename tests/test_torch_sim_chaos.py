@@ -2,7 +2,8 @@
 (tests/test_sim_chaos.py, case for case where the figures are
 deterministic): ``examples/sim/chaos.json`` under tightly-pack,
 ``tpu-batch`` and ``tpu-batch-minimal-fragmentation``, ``degraded.json``
-and the degraded-mode chaos dict are digest-equal to the reference's; the
+and the degraded-mode chaos dict are digest-equal to the reference's (the
+dict without faults also under the three single-AZ names); the
 journal drains and the run re-converges; the delta-solve engine's session
 state stays bounded; the race detectors report nothing.
 
@@ -32,6 +33,8 @@ from torch_sim_parity import (
 )
 
 TENSOR_POLICIES = ("tpu-batch", "tpu-batch-minimal-fragmentation")
+# the metadata lane's names: the single-AZ solver, which has no tensor lane
+SINGLE_AZ_POLICIES = ("tpu-batch-single-az", "tpu-batch-az-aware", "tpu-batch-single-az-minimal-fragmentation")
 
 
 def chaos_dict(binpack_algo="tightly-pack", faults=True):
@@ -78,7 +81,7 @@ def test_degraded_chaos_dict_matches_the_reference_and_reproduces():
     assert again.digest == result.digest and again.violations == []
 
 
-@pytest.mark.parametrize("binpack_algo", TENSOR_POLICIES)
+@pytest.mark.parametrize("binpack_algo", TENSOR_POLICIES + SINGLE_AZ_POLICIES)
 def test_fault_free_chaos_dict_matches_the_reference(binpack_algo):
     parity(chaos_dict(binpack_algo, faults=False))
 

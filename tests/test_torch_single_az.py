@@ -36,6 +36,8 @@ from k8s_spark_scheduler_tpu_torch.ops.registry import select_binpacker
 from k8s_spark_scheduler_tpu_torch.types.resources import copy_metadata
 
 from test_batch_parity import orders_for, random_app, random_cluster
+from test_fifo_solver import _byte_app as jax_byte_app
+from test_fifo_solver import _two_zone_cluster as jax_two_zone_cluster
 from test_fifo_solver import host_fifo_oracle
 from test_torch_batch_solver import port_app, port_metadata, random_snapshot
 from test_torch_fifo_solver import _assert_outcome, _effs_close
@@ -309,6 +311,67 @@ def test_single_az_fused_near_tie_falls_back_to_host():
     )
     assert out.supported and out.earlier_ok == ok
     assert (out.result.driver_node, out.result.executor_nodes) == (expected.driver_node, expected.executor_nodes)
+
+
+@pytest.mark.parametrize("az_aware", [False, True])
+def test_single_az_valve_solves_only_the_uncertain_app_on_the_host(az_aware, monkeypatch):
+    """A near tie at the queue's head flags that app `uncertain`; the valve
+    solves it alone on the host lane and the fused lane resumes after it
+    (the apps behind it are certain), so the host lane's per-zone solves
+    run for that app and the current one only.  The decision, the earlier
+    verdict and the lane equal the JAX solver's (which re-solves the whole
+    queue on its host lane) and the host oracle's."""
+    metadata = _two_zone_cluster(600000, 600005)
+    order = ["a0", "a1"]
+    earlier = [_byte_app() for _ in range(4)]
+    skip = [False] * len(earlier)
+    host_solves, launches = [], []
+    solve_zones, fused = fs.solve_zones, fs.fifo_queue_single_az
+    monkeypatch.setattr(fs, "solve_zones", lambda *a, **k: host_solves.append(1) or solve_zones(*a, **k))
+    monkeypatch.setattr(fs, "fifo_queue_single_az", lambda *a, **k: launches.append(a[4].shape[0]) or fused(*a, **k))
+    solver = fs.TpuSingleAzFifoSolver(az_aware=az_aware, device="cpu")
+    out = solver.solve(copy_metadata(metadata), order, order, earlier, skip, _byte_app())
+    assert solver.last_path == "host"
+    assert len(host_solves) == 2, host_solves  # the uncertain head and the current app
+    assert launches == [4, 3], launches  # the whole queue, then the apps behind the head
+    oracle = packers.az_aware_tightly_pack if az_aware else packers.single_az_tightly_pack
+    ok, expected = host_single_az_fifo(metadata, order, order, earlier, skip, _byte_app(), oracle)
+    assert out.supported and out.earlier_ok == ok
+    assert (out.result.driver_node, out.result.executor_nodes) == (expected.driver_node, expected.executor_nodes)
+    ref = JaxSingleAzSolver(az_aware=az_aware, backend="xla")
+    want = ref.solve(jax_two_zone_cluster(600000, 600005), order, order, [jax_byte_app() for _ in earlier], skip,
+                     jax_byte_app())
+    assert ref.last_path == solver.last_path
+    _assert_outcome(out, want, "near tie at the head")
+
+
+@pytest.mark.parametrize("az_aware", [False, True])
+def test_single_az_huge_current_gang_leaves_the_queue_fused(az_aware, monkeypatch):
+    """A current gang past the fused score's count bound (4,095
+    executors) is packed on the host lane, as every current app is; the
+    earlier apps, the only ones the kernel scores, stay on the fused lane
+    (the reference sends the whole queue to its host lane).  The decision
+    equals the JAX solver's and the host oracle's."""
+    metadata = _two_zone_cluster(600000, 900000)
+    order = ["a0", "a1"]
+    earlier = [_byte_app() for _ in range(3)]
+    skip = [False] * len(earlier)
+    host_solves = []
+    solve_zones = fs.solve_zones
+    monkeypatch.setattr(fs, "solve_zones", lambda *a, **k: host_solves.append(1) or solve_zones(*a, **k))
+    solver = fs.TpuSingleAzFifoSolver(az_aware=az_aware, device="cpu")
+    out = solver.solve(copy_metadata(metadata), order, order, earlier, skip, _byte_app(k=5000))
+    assert solver.last_path == "fused"
+    assert len(host_solves) == 1, host_solves  # the current app's
+    oracle = packers.az_aware_tightly_pack if az_aware else packers.single_az_tightly_pack
+    ok, expected = host_single_az_fifo(metadata, order, order, earlier, skip, _byte_app(k=5000), oracle)
+    assert out.supported and out.earlier_ok == ok and not expected.has_capacity
+    assert out.result.has_capacity == expected.has_capacity
+    ref = JaxSingleAzSolver(az_aware=az_aware, backend="xla")
+    want = ref.solve(jax_two_zone_cluster(600000, 900000), order, order, [jax_byte_app() for _ in earlier], skip,
+                     jax_byte_app(k=5000))
+    assert ref.last_path == "host"
+    _assert_outcome(out, want, "a current gang of 5,000 executors")
 
 
 @pytest.mark.parametrize("az_aware", [False, True])
